@@ -8,6 +8,7 @@ Names map one to one; only the layouts differ:
 - `Conv.kernel` HWIO (kh, kw, in, out) -> `weight` OIHW
 - depthwise `Conv.kernel` (k, 1, D)    -> `weight` (D, 1, k)
 - `LayerNorm.scale`                    -> `weight`
+- `Embed.embedding` (V, D)             -> `weight` (V, D)
 - `RelPosBias.table` (L, H, buckets) and every `bias` keep their layout.
 """
 
@@ -17,10 +18,6 @@ import numpy as np
 import torch
 
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import AsrConfig
-
-# subtrees of the JAX model that this package does not build yet
-NOT_PORTED = ("decoder.",)
-
 
 def _convert(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     parent, _, leaf = name.rpartition(".")
@@ -32,7 +29,7 @@ def _convert(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
         if arr.ndim == 4:
             return f"{parent}.weight", arr.transpose(3, 2, 0, 1)
         raise ValueError(f"{name}: unexpected kernel rank {arr.ndim}")
-    if leaf == "scale":
+    if leaf in ("scale", "embedding"):
         return f"{parent}.weight", arr
     if leaf in ("bias", "table"):
         return name, arr
@@ -40,20 +37,18 @@ def _convert(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def state_dict_from_jax(flat: dict[str, np.ndarray], cfg: AsrConfig
-                        ) -> tuple[dict[str, torch.Tensor], list[str]]:
-    """Map a flattened nnx state onto `AsrModel`'s parameter names.
-
-    Returns (state_dict of float32 CPU tensors, the keys left out: the
-    subtrees of NOT_PORTED). Load it with `model.load_state_dict(sd,
-    strict=False)`: the frontend's buffers are computed, not learned."""
-    if cfg.model.encoder != "conformer":
-        raise NotImplementedError(f"encoder {cfg.model.encoder!r} is not "
-                                  "ported yet")
-    sd, skipped = {}, []
+                        ) -> dict[str, torch.Tensor]:
+    """Map a flattened nnx state onto `AsrModel`'s parameter names: a
+    state_dict of float32 CPU tensors. Load it with
+    `model.load_state_dict(sd, strict=False)`: the frontend's buffers are
+    computed, not learned."""
+    m = cfg.model
+    if m.encoder != "conformer":
+        raise NotImplementedError(f"encoder {m.encoder!r} is not ported yet")
+    if m.ctc_weight < 1.0 and m.decoder != "transformer":
+        raise NotImplementedError(f"decoder {m.decoder!r} is not ported yet")
+    sd = {}
     for name, arr in sorted(flat.items()):
-        if name.startswith(NOT_PORTED):
-            skipped.append(name)
-            continue
         key, val = _convert(name, np.asarray(arr, np.float32))
         sd[key] = torch.from_numpy(np.ascontiguousarray(val))
-    return sd, skipped
+    return sd

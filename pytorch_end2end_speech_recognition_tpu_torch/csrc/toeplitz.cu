@@ -60,9 +60,87 @@ __global__ void toeplitz_kernel(const float* __restrict__ diag,
   }
 }
 
+// Toeplitz reduce, the transpose of the expansion: per-diagonal sums of the
+// cotangent's T x T core, out[n, (T-1) + j - i] += g[n, i, j].
+//
+// Replaces: pytorch_end2end_speech_recognition_tpu/ops/attention_pallas.py
+//   _toeplitz_dense_bwd (pallas_call at :464, kernel body
+//   _toep_reduce_kernel :380).
+//
+// The TPU kernel sums the whole padded block after pre-reversing the rows
+// and rolling each one (a TPU layout trick); its CPU path sums only
+// g[:, :T, :T]. On the training path the pad band (i or j >= T) is zero, so
+// the two agree; this kernel sums the T x T core.
+//
+// Bound on the H100: bytes. It reads the T x T core once (48 x 750 x 750
+// bf16 = 54 MB at the flagship train step, ~16 us at 3.35 TB/s) and writes
+// N(2T-1) floats. Design: one thread per diagonal, so the 32 threads of a
+// warp walk 32 neighbouring diagonals down the rows together and every load
+// instruction reads 32 neighbouring elements of one row (coalesced). The
+// rows are cut into chunks of ROWS (blockIdx.y) to put enough loads in
+// flight; each thread keeps four partial sums and adds its chunk's total to
+// the output with one float atomic, so the order of the T/ROWS chunk sums
+// varies between runs (float32 summation order only).
+constexpr int REDUCE_ROWS = 64;
+constexpr int REDUCE_THREADS = 256;
+
+template <typename InT>
+__device__ __forceinline__ float to_f32(InT x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename InT>
+__global__ void toeplitz_reduce_kernel(const InT* __restrict__ g,
+                                       float* __restrict__ out, int T, int P) {
+  const int W = 2 * T - 1;
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;  // output diagonal
+  const int n = blockIdx.z;
+  if (d >= W) return;
+  const int r = d - (T - 1);                            // j - i
+  const int i0 = blockIdx.y * REDUCE_ROWS;
+  const int lo = max(i0, max(0, -r));
+  const int hi = min(min(i0 + REDUCE_ROWS, T), T - r);
+  if (lo >= hi) return;
+  const InT* p = g + (size_t)n * P * P + (size_t)lo * (P + 1) + r;
+  const size_t step = (size_t)P + 1;                    // one row down, one right
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  int i = lo;
+  for (; i + 4 <= hi; i += 4, p += 4 * step) {
+    a0 += to_f32<InT>(p[0]);
+    a1 += to_f32<InT>(p[step]);
+    a2 += to_f32<InT>(p[2 * step]);
+    a3 += to_f32<InT>(p[3 * step]);
+  }
+  for (; i < hi; ++i, p += step) a0 += to_f32<InT>(p[0]);
+  atomicAdd(out + (size_t)n * W + d, (a0 + a1) + (a2 + a3));
+}
+
 }  // namespace
 
 extern "C" {
+
+// g: (N, P, P) bf16 (in_is_bf16) or float32; out: (N, 2T-1) float32, zeroed
+// by the caller. Sums the T x T core of each block.
+int toeplitz_reduce_launch(const void* g, void* out, int in_is_bf16, int N,
+                           int T, int P, void* stream) {
+  if (T < 1 || P < T) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int W = 2 * T - 1;
+  dim3 grid((W + REDUCE_THREADS - 1) / REDUCE_THREADS,
+            (T + REDUCE_ROWS - 1) / REDUCE_ROWS, N);
+  if (in_is_bf16) {
+    toeplitz_reduce_kernel<__nv_bfloat16><<<grid, REDUCE_THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(g), static_cast<float*>(out), T, P);
+  } else {
+    toeplitz_reduce_kernel<float><<<grid, REDUCE_THREADS, 0, s>>>(
+        static_cast<const float*>(g), static_cast<float*>(out), T, P);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 const char* kernels_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

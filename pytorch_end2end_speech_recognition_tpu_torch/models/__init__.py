@@ -1,1 +1,1 @@
-"""Models: the Conformer encoder and the CTC ASR model."""
+"""Models: the Conformer encoder, the transformer decoder and the ASR model."""

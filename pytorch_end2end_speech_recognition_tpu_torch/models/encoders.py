@@ -5,8 +5,11 @@ enc_lens) with the reference's length math. Parameters are float32 and
 named as in the JAX package (`bridge.py` maps one onto the other); every
 matrix product and convolution runs in `cfg.dtype` and the residual stream
 is kept in `cfg.residual_dtype`, exactly where the JAX modules cast. Layer
-norms use eps 1e-6 (Flax's default) and compute in float32. Inference only:
-dropout and SpecAugment come with the training slices.
+norms use eps 1e-6 (Flax's default) and compute in float32. With
+`train=True` and a `torch.Generator`, dropout applies at the reference's
+sites (MHSA and FFN outputs, the conv module's output, and after the
+subsampling); the generator's numbers are not JAX's keys, so the tests run
+training with dropout 0.
 """
 
 from __future__ import annotations
@@ -43,6 +46,20 @@ def length_mask(lens: torch.Tensor, T: int) -> torch.Tensor:
 def _masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Zero x where mask (broadcast from the left over x's leading dims)."""
     return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            train: bool) -> torch.Tensor:
+    """Stateless dropout (the JAX package's `dropout`): a no-op unless
+    training at a rate > 0; kept elements scaled by 1/(1-rate) in x's dtype.
+    Draws from `generator`, which must live on x's device."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError(f"dropout at rate {rate} in training needs a "
+                         "torch.Generator")
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return x * ((u < 1.0 - rate).to(x.dtype) * (1.0 / (1.0 - rate)))
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dt: torch.dtype) -> torch.Tensor:
@@ -177,9 +194,10 @@ class MhsaBlock(nn.Module):
         self.o = nn.Linear(D, D)
         self.heads = cfg.encoder_heads
         self.attn_impl = cfg.attn_impl
+        self.rate = cfg.encoder_dropout
         self.dt, self.rdt = _dt(cfg), _rdt(cfg)
 
-    def forward(self, x, mask, bias=None):
+    def forward(self, x, mask, bias=None, train=False, gen=None):
         """`bias`: this block's (H, P, P) slice of the stacked biases."""
         h = _layer_norm(x, self.ln)
         qf = _linear(h, self.q, self.dt)
@@ -189,7 +207,7 @@ class MhsaBlock(nn.Module):
         attend = fused_attention if self.attn_impl == "cuda" else attention_plain
         y = attend(qf, kf, vf, bias, lens, self.heads)
         y = _linear(y, self.o, self.dt).to(self.rdt)
-        return x + y
+        return x + dropout(y, self.rate, gen, train)
 
 
 class FfnBlock(nn.Module):
@@ -200,12 +218,13 @@ class FfnBlock(nn.Module):
         self.ln = nn.LayerNorm(D, eps=LN_EPS)
         self.fc1 = nn.Linear(D, cfg.encoder_ffn_dim)
         self.fc2 = nn.Linear(cfg.encoder_ffn_dim, D)
+        self.rate = cfg.encoder_dropout
         self.dt, self.rdt = _dt(cfg), _rdt(cfg)
 
-    def forward(self, x):
+    def forward(self, x, train=False, gen=None):
         h = F.silu(_linear(_layer_norm(x, self.ln), self.fc1, self.dt))
         h = _linear(h, self.fc2, self.dt).to(self.rdt)
-        return x + self.scale * h
+        return x + self.scale * dropout(h, self.rate, gen, train)
 
 
 class ConvModule(nn.Module):
@@ -219,9 +238,10 @@ class ConvModule(nn.Module):
         self.dw = nn.Conv1d(D, D, cfg.conformer_kernel, groups=D)
         self.norm = nn.LayerNorm(D, eps=LN_EPS)
         self.pw2 = nn.Linear(D, D)
+        self.rate = cfg.encoder_dropout
         self.dt, self.rdt = _dt(cfg), _rdt(cfg)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, train=False, gen=None):
         h = F.glu(_linear(_layer_norm(x, self.ln), self.pw1, self.dt), dim=-1)
         h = _masked(h, mask[..., None])  # the depthwise conv must not see pad
         K = self.dw.kernel_size[0]
@@ -230,7 +250,7 @@ class ConvModule(nn.Module):
                      groups=self.dw.groups).transpose(1, 2)
         h = F.silu(_layer_norm(h, self.norm))
         h = _linear(h, self.pw2, self.dt).to(self.rdt)
-        return x + h
+        return x + dropout(h, self.rate, gen, train)
 
 
 class ConformerBlock(nn.Module):
@@ -242,11 +262,11 @@ class ConformerBlock(nn.Module):
         self.ff2 = FfnBlock(cfg, scale=0.5)
         self.ln = nn.LayerNorm(cfg.encoder_dim, eps=LN_EPS)
 
-    def forward(self, x, mask, bias=None):
-        x = self.ff1(x)
-        x = self.mhsa(x, mask, bias=bias)
-        x = self.conv(x, mask)
-        x = self.ff2(x)
+    def forward(self, x, mask, bias=None, train=False, gen=None):
+        x = self.ff1(x, train, gen)
+        x = self.mhsa(x, mask, bias, train, gen)
+        x = self.conv(x, mask, train, gen)
+        x = self.ff2(x, train, gen)
         return _layer_norm(x, self.ln).to(x.dtype)  # keep the residual dtype
 
 
@@ -262,16 +282,22 @@ class ConformerEncoder(nn.Module):
                     if cfg.pos_encoding == "relative" else None)
         self.blocks = nn.ModuleList(
             [ConformerBlock(cfg) for _ in range(cfg.encoder_layers)])
+        self.rate = cfg.encoder_dropout
         self.d_out = cfg.encoder_dim
 
-    def forward(self, x, lens):
+    def forward(self, x, lens, train: bool = False,
+                generator: torch.Generator | None = None):
         x = _masked(x, length_mask(lens, x.shape[1])[..., None])
         x, lens = self.sub(x, lens)
         T = x.shape[1]
+        x = dropout(x, self.rate, generator, train)
         mask = length_mask(lens, T)
         biases = _rel_bias_repr(self.rel, self.cfg, T)
-        for i, blk in enumerate(self.blocks):
-            x = blk(x, mask, bias=biases[i] if biases is not None else None)
+        # unbind: one stacked gradient for all layers in the backward
+        biases = biases.unbind(0) if biases is not None else \
+            [None] * len(self.blocks)
+        for blk, bias in zip(self.blocks, biases):
+            x = blk(x, mask, bias, train, generator)
         return _masked(x, mask[..., None]), lens
 
 

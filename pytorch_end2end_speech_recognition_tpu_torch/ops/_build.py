@@ -37,9 +37,20 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _P],
     # diag, out, out_is_bf16, N, T, P, stream
     "toeplitz_launch": [_P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, bias, bias_ld, lens, out, B, T, H, Dh, sm_scale, stream
-    "attention_launch": [_P, _P, _P, _P, _I, _P, _P,
+    # g, out, in_is_bf16, N, T, P, stream
+    "toeplitz_reduce_launch": [_P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, bias, bias_ld, lens, out, lse, B, T, H, Dh, sm_scale, stream
+    "attention_launch": [_P, _P, _P, _P, _I, _P, _P, _P,
                          _I, _I, _I, _I, _F, _P],
+    # q, k, v, g, bias, bias_ld, lens, lse, delta, dq, dk, dv, dbias,
+    # B, T, H, Dh, sm_scale, stream
+    "attention_bwd_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _F, _P],
+    # lp, skip, sok, tlen, last, alpha, ll, B, T, S, stream
+    "ctc_alpha_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # lp, skip, sok, tlen, last, alpha, ll, g, grad, B, T, S, stream
+    "ctc_beta_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _P],
 }
 
 

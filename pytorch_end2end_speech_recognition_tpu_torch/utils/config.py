@@ -292,10 +292,11 @@ def resolve_device(cfg: AsrConfig, device) -> AsrConfig:
     touched.
 
     On CUDA: bfloat16 compute and residual stream, bfloat16 DFT operands,
-    and the hand-written kernels for the frontend and encoder attention.
-    On CPU: float32 and plain torch. `ctc_impl`, `lstm_impl` and `ffn_impl`
-    resolve to 'torch' everywhere until their kernels are ported. A
-    concrete value is never overridden; 'cuda' on a non-CUDA device raises.
+    and the hand-written kernels for the frontend, the encoder attention
+    and the CTC loss. On CPU: float32 and plain torch. `lstm_impl` and
+    `ffn_impl` resolve to 'torch' everywhere until their kernels are
+    ported. A concrete value is never overridden; 'cuda' on a non-CUDA
+    device raises.
     """
     import copy
 
@@ -313,9 +314,10 @@ def resolve_device(cfg: AsrConfig, device) -> AsrConfig:
         m.dtype = "bfloat16" if cuda else "float32"
     if m.residual_dtype == "auto":
         m.residual_dtype = "bfloat16" if cuda else "float32"
-    if m.attn_impl == "auto":
-        m.attn_impl = "cuda" if cuda else "torch"
-    for k in ("ctc_impl", "lstm_impl", "ffn_impl"):
+    for k in ("attn_impl", "ctc_impl"):
+        if getattr(m, k) == "auto":
+            setattr(m, k, "cuda" if cuda else "torch")
+    for k in ("lstm_impl", "ffn_impl"):
         if getattr(m, k) == "auto":
             setattr(m, k, "torch")
     impls = {"frontend.impl": fe.impl, "model.attn_impl": m.attn_impl,

@@ -12,10 +12,14 @@ from jax.experimental.pallas import tpu as pltpu
 
 from pytorch_end2end_speech_recognition_tpu.ops import attention_pallas as ap
 from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
+    attention_bwd,
+    attention_fwd,
     attention_plain,
     fused_attention,
     toeplitz_dense,
     toeplitz_expand,
+    toeplitz_fwd,
+    toeplitz_reduce,
 )
 
 
@@ -116,15 +120,21 @@ def test_attention_plain_takes_padded_bias():
 
 
 def test_wrappers_take_plain_versions_on_cpu():
+    """Forward and backward: the differentiable entry points take the plain
+    versions on CPU tensors and launch (count) nothing."""
     q, k, v, bias = _qkv()
-    args = [torch.from_numpy(a) for a in (q, k, v)]
+    args = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     lens = torch.tensor([70, 33, 1])
-    before = (fused_attention.launches, toeplitz_dense.launches)
-    assert torch.equal(
-        fused_attention(*args, torch.from_numpy(bias), lens, 2),
-        attention_plain(*args, torch.from_numpy(bias), lens, 2))
+    counters = (attention_fwd, attention_bwd, toeplitz_fwd, toeplitz_reduce)
+    before = [f.launches for f in counters]
+    out = fused_attention(*args, torch.from_numpy(bias), lens, 2)
+    assert torch.equal(out, attention_plain(*args, torch.from_numpy(bias),
+                                            lens, 2))
+    out.sum().backward()
     diag = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (4, 139)).astype(np.float32))
-    assert torch.equal(toeplitz_dense(diag, 70, 128, torch.bfloat16),
+        (4, 139)).astype(np.float32)).requires_grad_()
+    dense = toeplitz_dense(diag, 70, 128, torch.bfloat16)
+    assert torch.equal(dense,
                        toeplitz_expand(diag, 128, 128, T=70).to(torch.bfloat16))
-    assert (fused_attention.launches, toeplitz_dense.launches) == before
+    dense.float().sum().backward()
+    assert [f.launches for f in counters] == before

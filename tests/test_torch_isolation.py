@@ -53,6 +53,21 @@ def test_no_module_imports_jax_or_the_jax_package():
         assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
 
 
+@pytest.mark.parametrize("module", [
+    "ops.ctc_kernel", "ops.specaugment", "models.decoder_transformer",
+    "training.losses", "training.schedules", "training.solver",
+    "data.dataset"])
+def test_training_slice_modules_stand_alone(module):
+    """The training slice's modules exist, are among those imported with JAX
+    blocked below, and import neither JAX nor the JAX package (nor optax:
+    the optimizer is the port's own)."""
+    name = f"{PKG.name}.{module}"
+    assert name in MODULES
+    path = PKG.joinpath(*module.split(".")).with_suffix(".py")
+    bad = [n for n in _imported(path) if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
 def test_every_module_imports_with_jax_blocked():
     blocked = "; ".join(f"sys.modules[{n!r}] = None" for n in FORBIDDEN)
     code = (f"import sys; {blocked}; import importlib; "
@@ -73,12 +88,13 @@ def test_resolve_device_copies_and_resolves(name):
     assert gpu is not cfg and cpu is not cfg
     assert (gpu.model.dtype, gpu.model.residual_dtype, gpu.frontend.dft_dtype
             ) == ("bfloat16",) * 3
-    assert (gpu.frontend.impl, gpu.model.attn_impl) == ("cuda", "cuda")
+    assert (gpu.frontend.impl, gpu.model.attn_impl, gpu.model.ctc_impl
+            ) == ("cuda",) * 3
     assert (cpu.model.dtype, cpu.frontend.dft_dtype) == ("float32",) * 2
-    assert (cpu.frontend.impl, cpu.model.attn_impl) == ("torch", "torch")
+    assert (cpu.frontend.impl, cpu.model.attn_impl, cpu.model.ctc_impl
+            ) == ("torch",) * 3
     for c in (gpu, cpu):
-        assert (c.model.ctc_impl, c.model.lstm_impl, c.model.ffn_impl
-                ) == ("torch",) * 3
+        assert (c.model.lstm_impl, c.model.ffn_impl) == ("torch",) * 2
 
 
 def test_resolve_device_keeps_concrete_values_and_refuses_cuda_on_cpu():
