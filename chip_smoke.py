@@ -50,7 +50,25 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    U=128) against plain torch on the card (loss, every gradient, the
    relative-bias table's included, with a bias-zeroed control); launch
    counts per Solver.train_step (flash 12 + 12, Toeplitz 0 + 0, CTC 1 + 1);
-   train throughput, peak memory and a profile.
+   train throughput, peak memory and a profile;
+3i. (run after [3g]) the LSTM recurrence kernels, forward and backward,
+   against their plain versions at layer 0 of an4_ctc (B=32 x T 800, D 80,
+   H 256) and wsj_las (B=32 x T 400, D 2,560, H 320), ragged lengths with a
+   zero-length row, both directions, every element of h, c, dxg and dW_hh
+   held to a float32 bound; controls that must fail it (lengths ignored,
+   W_hh read transposed, input and forget gates swapped); kernel, plain,
+   cuDNN (`torch.nn.LSTM` on packed sequences, the yardstick) and bound
+   times, and the time per dependent step;
+11. an4_ctc (rung 1: 2-layer BiLSTM, H 256) serving at full width on a
+   ragged B=32 batch of 2-8 s speech-like rows: launch counts (logmel 1,
+   LSTM forward 4), kernels vs plain torch with a control (layer 0's W_hh
+   zeroed), throughput, peak memory and a profile;
+12. the wsj_las hybrid step at full width (VGG + 4-layer pBLSTM, H 320,
+   location-aware speller, lambda 0.3, SpecAugment, scheduled sampling
+   0.1) on a ragged B=32 batch of 8-16 s rows, U <= 200: one step against
+   plain torch on the card (loss, every gradient) with a control, launch
+   counts (logmel 1, LSTM 8 + 8, CTC 1 + 1), five Solver steps, train
+   throughput, peak memory and a profile; one an4_ctc CTC-only step.
 
 It then prints the `kernels` JSON line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`. Without a card it exits non-zero
@@ -152,8 +170,38 @@ def flash_ddiag_tol(B: int, T: int) -> float:
     return 2.0 ** -14 + (64 + B * -(-T // 64) + B + T) * 2.0 ** -24
 
 
+# the LSTM recurrence kernels against their plain versions ([3i]): both
+# float32 (no TF32) on the same inputs, so they differ only in the order of
+# float32 sums (the H-term gate dot products, dgates @ W_hh^T over 4H, dW_hh
+# over B x T steps) and in expf/tanhf against torch's, carried through the
+# recurrence. Elementwise, with m the tensor's largest |plain| for h, c and
+# dxg, and for dW_hh the magnitude sum_t |h_prev|^T |dgates|:
+#   |kernel - plain| <= LSTM_TOL (|plain| + m)
+LSTM_TOL = 2.0 ** -16
+# (tag, B, T, D, H): layer 0 of an4_ctc (8 s rows) and of wsj_las (16 s
+# rows after the VGG front)
+LSTM_SHAPES = (("an4_ctc layer 0", 32, 800, 80, 256),
+               ("wsj_las layer 0", 32, 400, 2560, 320))
+# the LSTM rungs' models, kernels vs plain torch on the card ([11], [12]):
+# the plain `lstm_scan` rounds h and W_hh to bf16 for the recurrent product,
+# the kernels keep it float32 (as the JAX package's xla and pallas paths
+# differ), so these tolerances come from a measured spread. Measured on an
+# H100: an4_ctc max |dlogit| 0.0010 (logit std 0.133), tolerance 2.5x;
+# wsj_las loss 6.6e-7 relative, every gradient's cosine >= 0.99605 and
+# relative error <= 0.0888: the loss tolerance is 15x, the gradients' 2x
+# (the cosine's gap to 1). The controls (layer 0's W_hh zeroed) measured
+# 0.2589, and 3.7e-4, 0.718 and 0.88.
+TOL_AN4_LOGITS = 0.0025
+TOL_LAS_LOSS = 1e-5    # relative
+LAS_MIN_COS = 0.992    # every parameter's gradient, cosine to plain's
+LAS_MAX_REL = 0.18     # and relative error
+AN4_SECONDS, LAS_SECONDS = 8, 16
+U_LAS = 200            # padded tokens per row of the wsj_las step
+
+
 # kernel-name patterns for the profile summary, first match wins
 PROFILE_GROUPS = (
+    ("lstm", ("lstm_",)),
     ("flash", ("kernel<64, 2>",)),  # the attention kernels in kDiag mode
     ("logmel", ("logmel_",)),
     ("toeplitz", ("toeplitz_",)),
@@ -330,6 +378,475 @@ def print_profile(tag: str, wall_ms: float, kernel_ms: dict, n: float,
         print(f"    {t:8.3f} ms  {key[:110]}")
 
 
+def compare(tag, got, want, lens, need_sure=False, tol=TOL_LOGITS):
+    """Hold logits `got` to `want` (both (B, T, V) float32) on the frames
+    t < lens[b]: max |d| <= tol, and the argmax equal on every frame whose
+    top-2 margin in `want` exceeds 2 * tol. Returns max |d|."""
+    valid = (torch.arange(want.shape[1], device=want.device)[None, :]
+             < lens[:, None])
+    err = (got - want).abs().amax(-1)[valid].max().item()
+    top2 = want.topk(2, dim=-1).values
+    sure = valid & ((top2[..., 0] - top2[..., 1]) > 2 * tol)
+    agree = got.argmax(-1) == want.argmax(-1)
+    print(f"{tag}: max |dlogit| {err:.4f} (tol {tol}, logit "
+          f"std {want[valid].std().item():.3f}); argmax equal on "
+          f"{float(agree[valid].float().mean()):.4f} of valid frames, on "
+          f"{int(agree[sure].sum())}/{int(sure.sum())} frames with margin "
+          f"> {2 * tol} of {int(valid.sum())}", flush=True)
+    check(err <= tol, f"{tag}: logits differ by {err}")
+    check(bool(agree[sure].all()), f"{tag}: argmax differs on a clear frame")
+    if need_sure:
+        share = float(sure.sum()) / float(valid.sum())
+        check(share >= MIN_SURE, f"{tag}: only {share:.4f} of frames "
+              "have a clear margin to compare")
+    return err
+
+
+def lstm_excess(got, want, mag) -> tuple[float, float, float]:
+    """(max |got - want|, share of elements beyond LSTM_TOL (|want| + mag),
+    largest ratio to that bound)."""
+    lim = (LSTM_TOL * (want.abs() + mag)).clamp_min(1e-30)
+    d = (got - want).abs()
+    return d.max().item(), (d > lim).float().mean().item(), \
+        (d / lim).max().item()
+
+
+def lstm_kernel_phase(dev, gen, peaks, card, kernels) -> None:
+    """[3i] the LSTM recurrence kernels (TPU kernels 11 and 12) against
+    their plain versions at layer 0 of both rungs, ragged lengths with a
+    zero-length row, both directions; three controls that must fail; times
+    beside the bound, the latency of T dependent steps, and cuDNN's LSTM
+    as the library yardstick."""
+    import torch.nn.functional as F
+
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn import (
+        flip_sequences,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
+        lstm_seq_bwd,
+        lstm_seq_bwd_plain,
+        lstm_seq_fwd,
+        lstm_seq_fwd_plain,
+    )
+
+    def bwd_ref(xg, whh, lens, h, c, g):
+        """(dxg, dW_hh) of the plain version and dW_hh's magnitude term."""
+        dxg, dw = lstm_seq_bwd_plain(xg, whh, lens, h, c, g)
+        H = h.shape[-1]
+        hprev = F.pad(h, (0, 0, 1, 0))[:, :h.shape[1]]
+        m_dw = hprev.abs().reshape(-1, H).T @ dxg.abs().reshape(-1, 4 * H)
+        return dxg, dw, m_dw
+
+    err_f = err_b = 0.0
+    for si, (tag, BB, TT, DD, HH) in enumerate(LSTM_SHAPES):
+        u = lambda *sh, a: (torch.rand(*sh, device=dev, generator=gen)  # noqa: E731
+                            * 2 - 1) * a
+        x = torch.randn(BB, TT, DD, device=dev, generator=gen)
+        wih, whh = u(DD, 4 * HH, a=DD ** -0.5), u(HH, 4 * HH, a=HH ** -0.5)
+        b = torch.zeros(4 * HH, device=dev)
+        b[HH:2 * HH] = 1.0
+        lens = torch.randint(1, TT + 1, (BB,), device=dev, generator=gen)
+        lens[0], lens[1] = TT, 0
+        g = torch.randn(BB, TT, HH, device=dev, generator=gen)
+        for rev in (False, True):
+            xg = (flip_sequences(x, lens) if rev else x) @ wih + b
+            h, c = lstm_seq_fwd(xg, whh, lens)
+            hp, cp = lstm_seq_fwd_plain(xg, whh, lens)
+            dx, dw = lstm_seq_bwd(xg, whh, lens, hp, cp, g)
+            dxp, dwp, m_dw = bwd_ref(xg, whh, lens, hp, cp, g)
+            torch.cuda.synchronize()
+            res = {"h": lstm_excess(h, hp, hp.abs().max()),
+                   "c": lstm_excess(c, cp, cp.abs().max()),
+                   "dxg": lstm_excess(dx, dxp, dxp.abs().max()),
+                   "dW_hh": lstm_excess(dw, dwp, m_dw)}
+            err_f = max(err_f, res["h"][0], res["c"][0])
+            err_b = max(err_b, res["dxg"][0], res["dW_hh"][0])
+            print(f"[3i] lstm {tag} (B={BB}, T={TT}, D {DD}, H {HH}), "
+                  f"{'reverse' if rev else 'forward'}: " + "; ".join(
+                      f"{k} max |kernel - plain| {e:.3e}, share beyond "
+                      f"2^-16 (|plain| + m) {sh:.3e}, ratio {r:.3e}"
+                      for k, (e, sh, r) in res.items()), flush=True)
+            check(all(r[1] == 0.0 for r in res.values()) and bool(
+                torch.all(h[1] == 0)) and bool(torch.all(dx[1] == 0)),
+                f"lstm kernels disagree ({tag}, reverse={rev}): {res}")
+            if rev:
+                continue
+            # controls, each a kernel that misreads its inputs: the
+            # lengths ignored, W_hh read transposed, the input and forget
+            # gates swapped
+            full = torch.full_like(lens, TT)
+            wt = whh.t().contiguous().view(HH, 4 * HH)
+            perm = torch.cat([torch.arange(HH, 2 * HH), torch.arange(HH),
+                              torch.arange(2 * HH, 4 * HH)]).to(dev)
+            xs, ws = xg[..., perm].contiguous(), whh[:, perm].contiguous()
+            for ctag, args in (("lengths ignored", (xg, whh, full)),
+                               ("W_hh transposed", (xg, wt, lens)),
+                               ("input and forget gates swapped",
+                                (xs, ws, lens))):
+                ch, cc = lstm_seq_fwd(*args)
+                cdx, cdw = lstm_seq_bwd(*args, hp, cp, g)
+                sh_f = max(lstm_excess(ch, hp, hp.abs().max())[1],
+                           lstm_excess(cc, cp, cp.abs().max())[1])
+                sh_b = max(lstm_excess(cdx, dxp, dxp.abs().max())[1],
+                           lstm_excess(cdw, dwp, m_dw)[1])
+                print(f"[3i] lstm control ({tag}), {ctag}: share beyond the "
+                      f"bound h/c {sh_f:.3e}, dxg/dW_hh {sh_b:.3e} (both "
+                      "must be > 0)", flush=True)
+                check(sh_f > 0.0 and sh_b > 0.0,
+                      f"lstm control '{ctag}' passed ({tag})")
+            # times on the forward direction's inputs: kernel, plain, the
+            # bound for this run's valid steps, cuDNN's LSTM on packed
+            # sequences with the same weights (it also does x @ W_ih; the
+            # zero-length row packed at length 1)
+            steps = float(lens.sum())
+            ops = 2.0 * steps * HH * 4 * HH
+            fb = bound(nbytes(xg, whh, lens, hp, cp),
+                       ops / peaks["fp32_flops"], peaks)
+            bb = bound(nbytes(xg, whh, lens, hp, cp, g, dxp, dwp),
+                       3 * ops / peaks["fp32_flops"], peaks)
+            lstm = torch.nn.LSTM(DD, HH, batch_first=True).to(dev)
+            with torch.no_grad():
+                lstm.weight_ih_l0.copy_(wih.T)
+                lstm.weight_hh_l0.copy_(whh.T)
+                lstm.bias_ih_l0.copy_(b)
+                lstm.bias_hh_l0.zero_()
+            xq = x.clone().requires_grad_()
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                xq, lens.clamp(min=1).cpu(), batch_first=True,
+                enforce_sorted=False)
+            out = torch.nn.utils.rnn.pad_packed_sequence(
+                lstm(packed)[0], batch_first=True, total_length=TT)[0]
+            valid = (torch.arange(TT, device=dev)[None, :]
+                     < lens[:, None])[..., None]
+            lib_err = ((out - h) * valid).abs().max().item()
+            g_pk = torch.randn(lstm(packed)[0].data.shape, device=dev,
+                               generator=gen)
+            params = (packed.data, *lstm.parameters())
+
+            def lib_fwd():
+                with torch.no_grad():
+                    return lstm(packed)
+
+            row_f = dict(
+                ms=cuda_ms(lambda: lstm_seq_fwd(xg, whh, lens), iters=10),
+                plain_ms=cuda_ms(lambda: lstm_seq_fwd_plain(xg, whh, lens),
+                                 iters=2, warmup=1),
+                bound_ms=fb[0], bound_by=fb[1],
+                library_ms=cuda_ms(lib_fwd, iters=10))
+            row_b = dict(
+                ms=cuda_ms(lambda: lstm_seq_bwd(xg, whh, lens, hp, cp, g),
+                           iters=10),
+                plain_ms=cuda_ms(lambda: lstm_seq_bwd_plain(
+                    xg, whh, lens, hp, cp, g), iters=2, warmup=1),
+                bound_ms=bb[0], bound_by=bb[1],
+                library_ms=cuda_ms(lambda: torch.autograd.grad(
+                    lstm(packed)[0].data, params, g_pk), iters=10))
+            for kname, row in (("forward", row_f), ("backward", row_b)):
+                print(f"[3i] lstm {kname} {tag}: kernel {row['ms']:.4f} ms "
+                      f"({1e3 * row['ms'] / TT:.2f} us per dependent step, "
+                      f"{TT} steps), plain {row['plain_ms']:.3f} ms, cuDNN "
+                      f"{'fwd' if row is row_f else 'fwd + bwd'} "
+                      f"{row['library_ms']:.4f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {card}",
+                      flush=True)
+            print(f"[3i] cuDNN LSTM vs the kernel's h on valid steps: max "
+                  f"|diff| {lib_err:.3e} (cuDNN also computes x @ W_ih, "
+                  "which the kernel takes as xg)", flush=True)
+            if si == 0:
+                kernels["lstm_fwd"] = dict(
+                    name="lstm_fwd", route="cuda",
+                    source=f"{PKG}/csrc/lstm.cu",
+                    replaces="pytorch_end2end_speech_recognition_tpu/ops/"
+                             "rnn_pallas.py:136", **row_f)
+                kernels["lstm_bwd"] = dict(
+                    name="lstm_bwd", route="cuda",
+                    source=f"{PKG}/csrc/lstm.cu",
+                    replaces="pytorch_end2end_speech_recognition_tpu/ops/"
+                             "rnn_pallas.py:193", **row_b)
+            del lstm, packed, xq, out, g_pk, params
+    kernels["lstm_fwd"]["max_abs_err"] = err_f
+    kernels["lstm_bwd"]["max_abs_err"] = err_b
+
+
+def serve(m, a, al):
+    """encode -> CTC logits -> greedy decode: (enc, enc_lens, logits,
+    tokens, n_tokens)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc import (
+        ctc_greedy_decode,
+    )
+
+    enc, elens = m.encode(a, al)
+    logits = m.ctc_logits(enc)
+    tokens, tlens = ctc_greedy_decode(logits, elens)
+    return enc, elens, logits, tokens, tlens
+
+
+def _zero_first_recurrence(model) -> None:
+    """The control of [11] and [12]: layer 0's W_hh zeroed in both
+    directions, a recurrence that ignores h."""
+    with torch.no_grad():
+        layer = model.encoder.layers[0]
+        layer.fwd.w_hh.zero_()
+        layer.bwd.w_hh.zero_()
+
+
+def an4_serve_phase(dev, gen, card, kernels, counted, t_start) -> None:
+    """[11] an4_ctc (rung 1: 2-layer BiLSTM, H 256) serving at full width:
+    a ragged B=32 batch of 2-8 s speech-like rows, kernels vs plain torch,
+    launch counts, throughput and a profile."""
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        an4_ctc,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
+
+    Ts = AN4_SECONDS * SR
+    audio = speechlike(B, Ts, gen, dev)
+    lens = torch.randint(2 * SR, Ts + 1, (B,), device=dev, generator=gen)
+    lens[0] = Ts
+    audio = audio * (torch.arange(Ts, device=dev)[None, :] < lens[:, None])
+    model = AsrModel(an4_ctc(), device=dev, seed=0).eval()
+    mc = model.cfg.model
+    check(mc.lstm_impl == "cuda" and model.cfg.frontend.impl == "cuda"
+          and mc.dtype == "bfloat16", f"an4_ctc did not resolve to the "
+          f"kernels in bf16: {mc}")
+    ref_cfg = an4_ctc()
+    ref_cfg.frontend.impl = "torch"
+    ref_cfg.model.lstm_impl = "torch"
+    ref_model = AsrModel(ref_cfg, device=dev, seed=0).eval()
+    for fn in counted:
+        fn.launches = 0
+    with torch.inference_mode():
+        enc, elens, logits, tokens, tlens = serve(model, audio, lens)
+    torch.cuda.synchronize()
+    counts = {f.__name__: f.launches for f in counted if f.launches}
+    L2 = 2 * mc.encoder_layers
+    print(f"[11] an4_ctc serving launches: {counts}", flush=True)
+    check(counts == {"logmel": 1, "lstm_seq_fwd": L2},
+          f"an4_ctc serving launch counts {counts}")
+    kernels["lstm_fwd"]["launches"] = counts["lstm_seq_fwd"]
+    n_frames = (Ts - WIN) // HOP + 1
+    check(tuple(enc.shape) == (B, n_frames, 2 * mc.encoder_dim)
+          and bool(torch.isfinite(logits).all())
+          and torch.equal(elens, (lens - WIN) // HOP + 1),
+          f"an4_ctc encoder output {tuple(enc.shape)}")
+    with torch.inference_mode():
+        ref_logits = serve(ref_model, audio, lens)[2]
+    compare(f"[11] an4_ctc kernels vs plain torch (bf16, ragged B={B} x "
+            f"2-{AN4_SECONDS} s)", logits, ref_logits, elens,
+            need_sure=True, tol=TOL_AN4_LOGITS)
+    _zero_first_recurrence(ref_model)
+    with torch.inference_mode():
+        ctl_logits = serve(ref_model, audio, lens)[2]
+    valid = (torch.arange(logits.shape[1], device=dev)[None, :]
+             < elens[:, None])
+    ctl = (logits - ctl_logits).abs().amax(-1)[valid].max().item()
+    print(f"[11] control, plain model with layer 0's W_hh zeroed: max "
+          f"|dlogit| {ctl:.4f} (must exceed {TOL_AN4_LOGITS})", flush=True)
+    check(ctl > TOL_AN4_LOGITS, "the an4_ctc tolerance cannot see the "
+          "recurrence")
+    toks = tokens[0, :int(tlens[0])].tolist()
+    print(f"[11] row 0: {int(elens[0])} frames, {len(toks)} tokens "
+          f"{toks[:16]}{' ...' if len(toks) > 16 else ''}", flush=True)
+    del ref_model, ref_logits, ctl_logits
+    full = torch.full((B,), Ts, dtype=torch.int64, device=dev)
+    rates = []
+    with torch.inference_mode():
+        for _ in range(2):
+            serve(model, audio, full)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(WINDOWS):
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                serve(model, audio, full)
+            torch.cuda.synchronize()
+            rates.append(B * AN4_SECONDS * ITERS / (time.perf_counter() - t0))
+    print(f"[11] an4_ctc throughput: median {statistics.median(rates):.1f} "
+          f"audio-s/s over {WINDOWS} windows of {ITERS} x (B={B} x "
+          f"{AN4_SECONDS} s) (min {min(rates):.1f}, max {max(rates):.1f}); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
+          f" {card}; {time.perf_counter() - t_start:.0f} s since start",
+          flush=True)
+    with torch.inference_mode():
+        wall_ms, kernel_ms, n = profile_step(
+            lambda: serve(model, audio, full), ITERS)
+    print_profile("[11] profile of one an4_ctc forward", wall_ms, kernel_ms, n,
+                  card)
+
+
+def las_train_phase(dev, gen, card, kernels, counted, t_start) -> None:
+    """[12] the wsj_las hybrid step at full width (VGG + 4-layer pBLSTM, H
+    320, location-aware speller, lambda 0.3, SpecAugment, scheduled
+    sampling 0.1) on a ragged B=32 batch of 8-16 s rows, U <= 200: one
+    step against plain torch on the card with a failing control, launch
+    counts, five Solver steps, throughput, peak memory and a profile; then
+    one an4_ctc CTC-only step."""
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        an4_ctc,
+        wsj_las,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import Batch
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import frontend as fe
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.specaugment import (
+        spec_augment_mask,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        resolve_device,
+    )
+
+    V = wsj_las().model.vocab_size
+    Ts = LAS_SECONDS * SR
+    audio = speechlike(B, Ts, gen, dev)
+    lens = torch.randint(LAS_SECONDS // 2 * SR, Ts + 1, (B,), device=dev,
+                         generator=gen)
+    lens[0] = Ts
+    audio = audio * (torch.arange(Ts, device=dev)[None, :] < lens[:, None])
+    # 32x downsampling (VGG 4x, three pyramid layers 8x): ~50 frames for a
+    # 16 s row, so CTC can explain at most ~25 labels without repeats
+    enc_lens = ((lens - WIN) // HOP + 1) // 32
+    tok = 1 + torch.cumsum(torch.randint(1, V - 1, (B, U_LAS), device=dev,
+                                         generator=gen), 1) % (V - 1)
+    tok_lens = torch.minimum(
+        torch.randint(U_LAS // 2, U_LAS + 1, (B,), device=dev, generator=gen),
+        enc_lens // 2)
+    tok = tok * (torch.arange(U_LAS, device=dev)[None, :] < tok_lens[:, None])
+    host = lambda t: t.cpu().numpy().astype(np.int32)  # noqa: E731
+    batch = Batch(audio.cpu().numpy(), host(lens), host(tok), host(tok_lens))
+    fcfg = resolve_device(wsj_las(), dev).frontend
+    front = fe.Frontend(fcfg, dev)
+    spec_mask = spec_augment_mask(front.frame_lens(lens), front.n_frames(Ts),
+                                  fcfg.n_mels, fcfg, gen)
+    coins = torch.rand(B, U_LAS + 1, device=dev, generator=gen) < \
+        wsj_las().train.scheduled_sampling
+
+    def las_solver(impl: str) -> "Solver":
+        c = wsj_las()
+        c.model.encoder_dropout = 0.0
+        if impl == "torch":
+            c.frontend.impl = "torch"
+            c.model.lstm_impl = c.model.ctc_impl = "torch"
+        return Solver(c, V, device=dev)
+
+    ks = las_solver("cuda")
+    mc = ks.cfg.model
+    check(mc.lstm_impl == "cuda" and mc.ctc_impl == "cuda"
+          and ks.model.decoder is not None and mc.dtype == "bfloat16",
+          "the wsj_las step is not on the kernels or has no speller")
+    for fn in counted:
+        fn.launches = 0
+    km, kg = ks.grads(batch, spec_mask=spec_mask, coins=coins)
+    torch.cuda.synchronize()
+    counts = {f.__name__: f.launches for f in counted if f.launches}
+    L2 = 2 * mc.encoder_layers
+    print(f"[12] wsj_las hybrid step launches: {counts}", flush=True)
+    check(counts == {"logmel": 1, "lstm_seq_fwd": L2, "lstm_seq_bwd": L2,
+                     "ctc_alpha": 1, "ctc_beta": 1},
+          f"wsj_las step launch counts {counts}")
+    kernels["lstm_bwd"]["launches"] = counts["lstm_seq_bwd"]
+    kg = {n: g.detach() for n, g in zip(ks.names, kg)}
+    check(all(bool(torch.isfinite(g).all()) for g in kg.values())
+          and all(bool(torch.isfinite(v)) for v in km.values()),
+          "wsj_las kernel step not finite")
+    del ks
+    ps = las_solver("torch")
+    pm, pg = ps.grads(batch, spec_mask=spec_mask, coins=coins)
+    pg = {n: g.detach() for n, g in zip(ps.names, pg)}
+    d_loss = abs(float(km["loss"]) - float(pm["loss"])) / float(pm["loss"])
+    cmin, rmax, cmed, n_cmp = grad_stats(kg, pg)
+    print(f"[12] wsj_las kernels vs plain torch, one hybrid step (B={B} x "
+          f"{LAS_SECONDS // 2}-{LAS_SECONDS} s ragged, U<={U_LAS} padded, "
+          f"token lens {int(tok_lens.min())}-{int(tok_lens.max())}, "
+          f"{int(coins.sum())} coins set, bf16): loss "
+          f"{float(km['loss']):.5f} vs {float(pm['loss']):.5f} (ctc "
+          f"{float(km['ctc_loss']):.4f} vs {float(pm['ctc_loss']):.4f}, att "
+          f"{float(km['att_loss']):.4f} vs {float(pm['att_loss']):.4f}), "
+          f"relative |d loss| {d_loss:.2e} (tol {TOL_LAS_LOSS}); gradients "
+          f"of {n_cmp} parameters: cosine min {cmin:.5f} median {cmed:.5f} "
+          f"(tol {LAS_MIN_COS}), relative error max {rmax:.4f} (tol "
+          f"{LAS_MAX_REL})", flush=True)
+    check(d_loss <= TOL_LAS_LOSS and cmin >= LAS_MIN_COS
+          and rmax <= LAS_MAX_REL, "wsj_las kernel step disagrees with plain")
+    _zero_first_recurrence(ps.model)
+    cm, cg = ps.grads(batch, spec_mask=spec_mask, coins=coins)
+    cg = {n: g.detach() for n, g in zip(ps.names, cg)}
+    c_loss = abs(float(cm["loss"]) - float(km["loss"])) / float(cm["loss"])
+    cmin_c, rmax_c, cmed_c, _ = grad_stats(kg, cg)
+    print(f"[12] control, plain model with layer 0's W_hh zeroed: relative "
+          f"|d loss| {c_loss:.2e}, cosine min {cmin_c:.5f} median "
+          f"{cmed_c:.5f}, relative error max {rmax_c:.4f} (must fail)",
+          flush=True)
+    check(c_loss > TOL_LAS_LOSS or cmin_c < LAS_MIN_COS
+          or rmax_c > LAS_MAX_REL, "the wsj_las tolerance cannot see the "
+          "recurrence")
+    del ps, pg, cg, kg
+
+    solver = Solver(wsj_las(), V, device=dev)
+    check(solver.cfg.model.encoder_dropout > 0
+          and solver.cfg.frontend.spec_augment
+          and solver.cfg.train.scheduled_sampling > 0,
+          "wsj_las training draws are off")
+    solver.cfg.train.log_every = 1
+    solver.fit([batch] * 5, steps=5)
+    losses = [r["loss"] for r in solver.log]
+    print(f"[12] 5 wsj_las Solver steps (dropout 0.1, SpecAugment, scheduled"
+          f" sampling 0.1): loss {[round(x, 4) for x in losses]}, grad_norm "
+          f"{[round(r['grad_norm'], 3) for r in solver.log]}", flush=True)
+    check(len(losses) == 5 and all(math.isfinite(x) for x in losses)
+          and all(bool(torch.isfinite(p).all())
+                  for p in solver.model.parameters()),
+          "wsj_las Solver steps not finite")
+    full_batch = Batch(batch.audio, np.full(B, Ts, np.int32), batch.tokens,
+                       batch.token_lens)
+    solver.train_step(full_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(TRAIN_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_ITERS):
+            solver.train_step(full_batch)
+        torch.cuda.synchronize()
+        rates.append(B * LAS_SECONDS * TRAIN_ITERS
+                     / (time.perf_counter() - t0))
+    print(f"[12] wsj_las train throughput: median "
+          f"{statistics.median(rates):.1f} audio-s/s over {TRAIN_WINDOWS} "
+          f"windows of {TRAIN_ITERS} steps x (B={B} x {LAS_SECONDS} s, "
+          f"U={U_LAS}) (min {min(rates):.1f}, max {max(rates):.1f}); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{card}; {time.perf_counter() - t_start:.0f} s since start",
+          flush=True)
+    wall_ms, kernel_ms, n = profile_step(
+        lambda: solver.train_step(full_batch), 1)
+    print_profile("[12] profile of one wsj_las train step", wall_ms,
+                  kernel_ms, n, card)
+    del solver
+
+    # one an4_ctc CTC-only step (B=32 x 8 s rows of the same audio)
+    Ta = AN4_SECONDS * SR
+    a_lens = torch.clamp(lens // 2, max=Ta)
+    a_tok_lens = torch.minimum(tok_lens, ((a_lens - WIN) // HOP + 1) // 2)
+    a_batch = Batch(batch.audio[:, :Ta], host(a_lens), batch.tokens,
+                    host(a_tok_lens))
+    an4 = Solver(an4_ctc(), V, device=dev)
+    for fn in counted:
+        fn.launches = 0
+    m = an4.train_step(a_batch)
+    torch.cuda.synchronize()
+    counts = {f.__name__: f.launches for f in counted if f.launches}
+    L2 = 2 * an4.cfg.model.encoder_layers
+    print(f"[12] an4_ctc Solver.train_step launches: {counts}; loss "
+          f"{float(m['loss']):.4f}, grad_norm {float(m['grad_norm']):.3f}",
+          flush=True)
+    check(counts == {"logmel": 1, "lstm_seq_fwd": L2, "lstm_seq_bwd": L2,
+                     "ctc_alpha": 1, "ctc_beta": 1},
+          f"an4_ctc step launch counts {counts}")
+    check(math.isfinite(float(m["loss"])) and "att_loss" not in m,
+          "an4_ctc step not finite or not CTC-only")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -361,7 +878,6 @@ def main() -> int:
         toeplitz_reduce_plain,
     )
     from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc import (
-        ctc_greedy_decode,
         ctc_loss,
         lattice_inputs,
     )
@@ -381,8 +897,14 @@ def main() -> int:
         resolve_device,
     )
 
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
+        lstm_seq_bwd,
+        lstm_seq_fwd,
+    )
+
     COUNTED = (logmel, toeplitz_fwd, attention_fwd, attention_bwd,
-               toeplitz_reduce, ctc_alpha, ctc_beta, flash_fwd, flash_bwd)
+               toeplitz_reduce, ctc_alpha, ctc_beta, flash_fwd, flash_bwd,
+               lstm_seq_fwd, lstm_seq_bwd)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     dv.set_tf32(False)
@@ -1053,6 +1575,9 @@ def main() -> int:
     del lat, skip, sok, alpha, ll, a_ref, ll_ref, cgrad, cgrad_ref, x, y
     del lp_t, c_logits
 
+    # ---- [3i] the LSTM recurrence (rungs 1 and 2)
+    lstm_kernel_phase(dev, gen, peaks, card, kernels)
+
     # ---- [4] the main path, full width, bf16, through the kernels
     model = AsrModel(flagship_conformer(), device=dev, seed=0).eval()
     check(model.cfg.model.attn_impl == "cuda" and model.cfg.frontend.impl
@@ -1065,34 +1590,6 @@ def main() -> int:
     with torch.no_grad():
         model.encoder.rel.table.copy_(table)
         ref_model.encoder.rel.table.copy_(table)
-
-    def serve(m, a, al):
-        enc, elens = m.encode(a, al)
-        logits = m.ctc_logits(enc)
-        tokens, tlens = ctc_greedy_decode(logits, elens)
-        return enc, elens, logits, tokens, tlens
-
-    def compare(tag, got, want, lens, need_sure=False):
-        """Hold logits `got` to `want` (both (B, T, V) float32) on the
-        frames t < lens[b]: max |d| <= TOL_LOGITS, and the argmax equal on
-        every frame whose top-2 margin in `want` exceeds 2 * TOL_LOGITS."""
-        valid = torch.arange(want.shape[1], device=dev)[None, :] < lens[:, None]
-        err = (got - want).abs().amax(-1)[valid].max().item()
-        top2 = want.topk(2, dim=-1).values
-        sure = valid & ((top2[..., 0] - top2[..., 1]) > 2 * TOL_LOGITS)
-        agree = got.argmax(-1) == want.argmax(-1)
-        print(f"{tag}: max |dlogit| {err:.4f} (tol {TOL_LOGITS}, logit "
-              f"std {want[valid].std().item():.3f}); argmax equal on "
-              f"{float(agree[valid].float().mean()):.4f} of valid frames, on "
-              f"{int(agree[sure].sum())}/{int(sure.sum())} frames with margin "
-              f"> {2 * TOL_LOGITS} of {int(valid.sum())}", flush=True)
-        check(err <= TOL_LOGITS, f"{tag}: logits differ by {err}")
-        check(bool(agree[sure].all()), f"{tag}: argmax differs on a clear frame")
-        if need_sure:
-            share = float(sure.sum()) / float(valid.sum())
-            check(share >= MIN_SURE, f"{tag}: only {share:.4f} of frames "
-                  "have a clear margin to compare")
-        return err
 
     def alone(row: torch.Tensor, n: int, batch_frames: int) -> torch.Tensor:
         """A batch of one: the first n samples of `row`, zero-padded to
@@ -1400,7 +1897,8 @@ def main() -> int:
     check(long_counts == {"logmel": 1, "toeplitz_fwd": 0, "attention_fwd": 0,
                           "attention_bwd": 0, "toeplitz_reduce": 0,
                           "ctc_alpha": 0, "ctc_beta": 0,
-                          "flash_fwd": mcfg.encoder_layers, "flash_bwd": 0},
+                          "flash_fwd": mcfg.encoder_layers, "flash_bwd": 0,
+                          "lstm_seq_fwd": 0, "lstm_seq_bwd": 0},
           f"long-audio forward launch counts {long_counts}")
     kernels["flash_attention"]["launches"] = long_counts["flash_fwd"]
     check(tuple(enc.shape) == (Bl, T_long, D) and bool(
@@ -1553,7 +2051,8 @@ def main() -> int:
     check(step_l == {"logmel": 1, "toeplitz_fwd": 0, "attention_fwd": 0,
                      "attention_bwd": 0, "toeplitz_reduce": 0,
                      "ctc_alpha": 1, "ctc_beta": 1, "flash_fwd": L,
-                     "flash_bwd": L}, f"long train step launch counts {step_l}")
+                     "flash_bwd": L, "lstm_seq_fwd": 0, "lstm_seq_bwd": 0},
+          f"long train step launch counts {step_l}")
     check(math.isfinite(float(metrics["loss"])), "long train step not finite")
     kernels["flash_attention_bwd"]["launches"] = step_l["flash_bwd"]
     solver.train_step(full_batch_l)
@@ -1578,9 +2077,14 @@ def main() -> int:
     print_profile("[10] profile of one long-audio train step", wall_ms,
                   kernel_ms, n, card)
 
+    del solver
+    # ---- [11] an4_ctc serving, [12] the wsj_las hybrid step (LSTM rungs)
+    an4_serve_phase(dev, gen, card, kernels, COUNTED, t_start)
+    las_train_phase(dev, gen, card, kernels, COUNTED, t_start)
+
     order = ("logmel", "toeplitz", "attention", "attention_bwd",
              "toeplitz_reduce", "flash_attention", "flash_attention_bwd",
-             "ctc_alpha", "ctc_beta")
+             "ctc_alpha", "ctc_beta", "lstm_fwd", "lstm_bwd")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,13 @@ Names map one to one; only the layouts differ:
 
 - `Linear.kernel` (in, out)            -> `weight` (out, in)
 - `Conv.kernel` HWIO (kh, kw, in, out) -> `weight` OIHW
-- depthwise `Conv.kernel` (k, 1, D)    -> `weight` (D, 1, k)
+- depthwise `Conv.kernel` (k, 1, D)    -> `weight` (D, 1, k), and the
+  speller's location conv (k, 1, F)    -> `weight` (F, 1, k) by the same rule
 - `LayerNorm.scale`                    -> `weight`
 - `Embed.embedding` (V, D)             -> `weight` (V, D)
-- `RelPosBias.table` (L, H, buckets) and every `bias` keep their layout.
+- `RelPosBias.table` (L, H, buckets), the LSTM weights `w_ih` (d_in, 4H)
+  and `w_hh` (H, 4H) (the port keeps the JAX layout, gate order i, f, g,
+  o) and every `bias` keep their layout.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def _convert(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
         raise ValueError(f"{name}: unexpected kernel rank {arr.ndim}")
     if leaf in ("scale", "embedding"):
         return f"{parent}.weight", arr
-    if leaf in ("bias", "table"):
+    if leaf in ("bias", "table", "w_ih", "w_hh"):
         return name, arr
     raise ValueError(f"{name}: no mapping for this parameter")
 
@@ -42,11 +45,8 @@ def state_dict_from_jax(flat: dict[str, np.ndarray], cfg: AsrConfig
     state_dict of float32 CPU tensors. Load it with
     `model.load_state_dict(sd, strict=False)`: the frontend's buffers are
     computed, not learned."""
-    m = cfg.model
-    if m.encoder != "conformer":
-        raise NotImplementedError(f"encoder {m.encoder!r} is not ported yet")
-    if m.ctc_weight < 1.0 and m.decoder != "transformer":
-        raise NotImplementedError(f"decoder {m.decoder!r} is not ported yet")
+    if cfg.model.encoder == "transformer":
+        raise NotImplementedError("encoder 'transformer' is not ported yet")
     sd = {}
     for name, arr in sorted(flat.items()):
         key, val = _convert(name, np.asarray(arr, np.float32))

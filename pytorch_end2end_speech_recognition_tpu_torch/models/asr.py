@@ -1,8 +1,9 @@
 """The ASR model: frontend + encoder + CTC head + attention decoder (the
 port of the JAX package's `models/asr.py`). It serves encode -> CTC logits
 -> greedy decode, and trains with SpecAugment, dropout and the hybrid loss
-(`training/solver.py`). The decoder is the transformer decoder, built when
-`ctc_weight < 1` as in the reference; the LSTM speller is not ported yet."""
+(`training/solver.py`). The decoder, built when `ctc_weight < 1` as in the
+reference, is the transformer decoder or the location-aware LSTM speller
+(`decoder='lstm'`)."""
 
 from __future__ import annotations
 
@@ -12,10 +13,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pytorch_end2end_speech_recognition_tpu_torch.models.decoder import (
+    AttentionDecoder,
+    LocationAwareAttention,
+)
 from pytorch_end2end_speech_recognition_tpu_torch.models.decoder_transformer import (  # noqa: E501
     TransformerDecoder,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
+    LstmParams,
     RelPosBias,
     build_encoder,
 )
@@ -43,14 +49,29 @@ class CtcHead(nn.Module):
 
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation with Flax's defaults: LeCun-normal weights
-    (std 1/sqrt(fan_in)), zero biases, unit LayerNorm scales, embeddings of
-    std 1/sqrt(dim), and a N(0, 0.02^2) relative-position table. Drawn on
-    the CPU from `generator`, so one seed gives the same weights on every
-    device."""
+    """Seeded initialisation with the reference's initialisers: Flax's
+    defaults, LeCun-normal weights (std 1/sqrt(fan_in)), zero biases, unit
+    LayerNorm scales, embeddings of std 1/sqrt(dim); a N(0, 0.02^2)
+    relative-position table; LSTM weights U(+-1/sqrt(d_in)) (w_ih) and
+    U(+-1/sqrt(H)) (w_hh) with the forget-gate bias 1; the speller
+    attention's zero bias. Drawn on the CPU from `generator`, so one seed
+    gives the same weights on every device."""
+    def uniform(shape, s):
+        return (torch.rand(shape, generator=generator) * 2 - 1) * s
+
     for mod in module.modules():
         params = dict(mod.named_parameters(recurse=False))
-        if isinstance(mod, RelPosBias):
+        if isinstance(mod, LstmParams):
+            d_in, H4 = mod.w_ih.shape
+            H = H4 // 4
+            bias = torch.zeros(H4)
+            bias[H:2 * H] = 1.0
+            vals = {"w_ih": uniform(mod.w_ih.shape, d_in ** -0.5),
+                    "w_hh": uniform(mod.w_hh.shape, H ** -0.5),
+                    "bias": bias}
+        elif isinstance(mod, LocationAwareAttention):
+            vals = {"bias": torch.zeros(mod.bias.shape)}
+        elif isinstance(mod, RelPosBias):
             vals = {"table": torch.randn(mod.table.shape, generator=generator)
                     * 0.02}
         elif isinstance(mod, nn.Embedding):
@@ -62,8 +83,9 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = math.prod(mod.weight.shape[1:])
             vals = {"weight": torch.randn(mod.weight.shape, generator=generator)
-                    / math.sqrt(fan_in),
-                    "bias": torch.zeros(mod.bias.shape)}
+                    / math.sqrt(fan_in)}
+            if mod.bias is not None:
+                vals["bias"] = torch.zeros(mod.bias.shape)
         else:
             vals = {}
         for name, p in params.items():
@@ -71,8 +93,8 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class AsrModel(nn.Module):
-    """Frontend, encoder, CTC head and (for ctc_weight < 1) the transformer
-    decoder on one device.
+    """Frontend, encoder, CTC head and (for ctc_weight < 1) the decoder on
+    one device.
 
     `cfg` is resolved for `device` (None -> 'cuda'; the caller's config is
     not modified) and the weights are drawn from `seed`."""
@@ -84,13 +106,14 @@ class AsrModel(nn.Module):
         self.cfg = cfg
         self.frontend = Frontend(cfg.frontend, dev)
         m = cfg.model
-        if m.ctc_weight < 1.0 and m.decoder != "transformer":
-            raise NotImplementedError(f"decoder {m.decoder!r} is not ported "
-                                      "yet (set model.decoder=transformer)")
+        decoders = {"transformer": TransformerDecoder,
+                    "lstm": AttentionDecoder}
+        if m.ctc_weight < 1.0 and m.decoder not in decoders:
+            raise ValueError(f"unknown decoder kind {m.decoder}")
         with torch.device("meta"):
             self.encoder = build_encoder(cfg.frontend.n_mels, m)
             self.ctc_head = CtcHead(self.encoder.d_out, m.vocab_size)
-            self.decoder = (TransformerDecoder(self.encoder.d_out, m)
+            self.decoder = (decoders[m.decoder](self.encoder.d_out, m)
                             if m.ctc_weight < 1.0 else None)
         gen = torch.Generator().manual_seed(seed)
         for part in (self.encoder, self.ctc_head, self.decoder):

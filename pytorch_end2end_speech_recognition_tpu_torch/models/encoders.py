@@ -1,4 +1,5 @@
-"""Conformer encoder (the port of the JAX package's `models/encoders.py`).
+"""Encoders (the port of the JAX package's `models/encoders.py`): the
+stacked BiLSTM, the pyramidal BiLSTM with its VGG front, and the Conformer.
 
 Modules take (feats (B, T, F), frame_lens) and return (enc (B, T', D),
 enc_lens) with the reference's length math. Parameters are float32 and
@@ -7,8 +8,8 @@ matrix product and convolution runs in `cfg.dtype` and the residual stream
 is kept in `cfg.residual_dtype`, exactly where the JAX modules cast. Layer
 norms use eps 1e-6 (Flax's default) and compute in float32. With
 `train=True` and a `torch.Generator`, dropout applies at the reference's
-sites (MHSA and FFN outputs, the conv module's output, and after the
-subsampling); the generator's numbers are not JAX's keys, so the tests run
+sites (MHSA and FFN outputs, the conv module's output, after the
+subsampling, and after every LSTM layer); the generator's numbers are not JAX's keys, so the tests run
 training with dropout 0.
 """
 
@@ -25,6 +26,7 @@ from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
     toeplitz_dense,
     toeplitz_expand,
 )
+from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn import bilstm_layer
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import ModelConfig
 
 LN_EPS = 1e-6
@@ -65,14 +67,137 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dt: torch.dtype) -> torch.Tensor:
-    """nnx.Linear(dtype=dt): input, kernel and bias cast to dt."""
-    return F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+    """nnx.Linear(dtype=dt): input, kernel and bias (if any) cast to dt."""
+    bias = None if layer.bias is None else layer.bias.to(dt)
+    return F.linear(x.to(dt), layer.weight.to(dt), bias)
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     """nnx.LayerNorm with float32 params: computed and returned in float32."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
                         LN_EPS)
+
+
+class LstmParams(nn.Module):
+    """One LSTM direction's parameters in the JAX layout: w_ih (d_in, 4H),
+    w_hh (H, 4H), bias (4H,), gate order i, f, g, o."""
+
+    def __init__(self, d_in: int, d_hid: int):
+        super().__init__()
+        self.w_ih = nn.Parameter(torch.empty(d_in, 4 * d_hid))
+        self.w_hh = nn.Parameter(torch.empty(d_hid, 4 * d_hid))
+        self.bias = nn.Parameter(torch.empty(4 * d_hid))
+
+    def tup(self):
+        return self.w_ih, self.w_hh, self.bias
+
+
+class BiLstmLayer(nn.Module):
+    """One bidirectional layer; `pyramid` marks a 2x time-downsample
+    (frame-pair concat) before it."""
+
+    def __init__(self, d_in: int, d_hid: int, pyramid: bool = False):
+        super().__init__()
+        self.pyramid = pyramid
+        self.fwd = LstmParams(d_in, d_hid)
+        self.bwd = LstmParams(d_in, d_hid)
+
+    def forward(self, x, lens, dtype=torch.float32, impl: str = "torch"):
+        return bilstm_layer(x, lens, self.fwd.tup(), self.bwd.tup(),
+                            dtype=dtype, impl=impl)
+
+
+class BiLstmEncoder(nn.Module):
+    """Stacked bidirectional LSTM encoder (rung 1): (B, T, 2H) float32."""
+
+    def __init__(self, d_in: int, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        H = cfg.encoder_dim
+        dims = [d_in] + [2 * H] * (cfg.encoder_layers - 1)
+        self.layers = nn.ModuleList([BiLstmLayer(d, H) for d in dims])
+        self.d_out = 2 * H
+
+    def forward(self, x, lens, train: bool = False,
+                generator: torch.Generator | None = None):
+        x = _masked(x, length_mask(lens, x.shape[1])[..., None])
+        for layer in self.layers:
+            x = layer(x, lens, _dt(self.cfg), self.cfg.lstm_impl)
+            x = dropout(x, self.cfg.encoder_dropout, generator, train)
+        return x, lens
+
+
+class VggExtractor(nn.Module):
+    """VGG-style 2 x (conv3x3, conv3x3, pool2) over (time, mel): (B, T, F)
+    -> (B, T//4, (F//4) * 128) float32, floor pools, the lengths halved
+    twice, padding frames re-masked after every convolution."""
+
+    def __init__(self, n_mels: int, cfg: ModelConfig):
+        super().__init__()
+        self.conv1a = nn.Conv2d(1, 64, 3)
+        self.conv1b = nn.Conv2d(64, 64, 3)
+        self.conv2a = nn.Conv2d(64, 128, 3)
+        self.conv2b = nn.Conv2d(128, 128, 3)
+        self.d_out = (n_mels // 4) * 128
+        self.dt = _dt(cfg)
+
+    def _conv(self, h: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+        return F.relu(F.conv2d(h.to(self.dt), conv.weight.to(self.dt),
+                               conv.bias.to(self.dt), padding=1))
+
+    def forward(self, x: torch.Tensor, lens: torch.Tensor):
+        def mask4(h, l):
+            return _masked(h, length_mask(l, h.shape[2])[:, None, :, None])
+
+        h = mask4(x[:, None], lens)                      # (B, 1, T, F)
+        h = mask4(self._conv(h, self.conv1a), lens)
+        h = mask4(self._conv(h, self.conv1b), lens)
+        lens = lens // 2
+        h = mask4(F.max_pool2d(h, 2), lens)
+        h = mask4(self._conv(h, self.conv2a), lens)
+        h = mask4(self._conv(h, self.conv2b), lens)
+        lens = lens // 2
+        h = mask4(F.max_pool2d(h, 2), lens)
+        B, C, T, Fo = h.shape
+        # Flax is NHWC and flattens (F, C) with C fastest
+        return h.permute(0, 2, 3, 1).reshape(B, T, Fo * C).float(), lens
+
+
+class PyramidalBiLstmEncoder(nn.Module):
+    """LAS-style pBLSTM (rung 2): layer i, 0 < i <= pyramid_layers,
+    concatenates adjacent frames first (an odd last frame dropped), halving
+    time and the lengths; optional VGG front."""
+
+    def __init__(self, d_in: int, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        H = cfg.encoder_dim
+        self.vgg = VggExtractor(d_in, cfg) if cfg.vgg_frontend else None
+        d = self.vgg.d_out if self.vgg is not None else d_in
+        layers = []
+        for i in range(cfg.encoder_layers):
+            pyramid = 0 < i <= cfg.pyramid_layers
+            if pyramid:
+                d = 2 * d
+            layers.append(BiLstmLayer(d, H, pyramid=pyramid))
+            d = 2 * H
+        self.layers = nn.ModuleList(layers)
+        self.d_out = 2 * H
+
+    def forward(self, x, lens, train: bool = False,
+                generator: torch.Generator | None = None):
+        x = _masked(x, length_mask(lens, x.shape[1])[..., None])
+        if self.vgg is not None:
+            x, lens = self.vgg(x, lens)
+        for layer in self.layers:
+            if layer.pyramid:
+                B, T, D = x.shape
+                x = x[:, :T - T % 2].reshape(B, T // 2, 2 * D)
+                lens = lens // 2
+            x = layer(x, lens, _dt(self.cfg), self.cfg.lstm_impl)
+            x = dropout(x, self.cfg.encoder_dropout, generator, train)
+        # a pyramid pair that straddles a row's end is half valid: re-mask
+        return _masked(x, length_mask(lens, x.shape[1])[..., None]), lens
 
 
 def _same_pad_s2(n: int) -> tuple[int, int]:
@@ -316,8 +441,12 @@ class ConformerEncoder(nn.Module):
 
 
 def build_encoder(d_in: int, cfg: ModelConfig) -> nn.Module:
+    if cfg.encoder == "blstm":
+        return BiLstmEncoder(d_in, cfg)
+    if cfg.encoder == "pblstm":
+        return PyramidalBiLstmEncoder(d_in, cfg)
     if cfg.encoder == "conformer":
         return ConformerEncoder(d_in, cfg)
-    if cfg.encoder in ("blstm", "pblstm", "transformer"):
+    if cfg.encoder == "transformer":
         raise NotImplementedError(f"encoder {cfg.encoder!r} is not ported yet")
     raise ValueError(f"unknown encoder kind {cfg.encoder}")

@@ -57,6 +57,11 @@ SIGNATURES = {
     # lp, skip, sok, tlen, last, alpha, ll, g, grad, B, T, S, stream
     "ctc_beta_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _P],
+    # xg, whh, lens, h_all, c_all, hbuf, B, T, H, stream
+    "lstm_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # xg, whh, lens, h_all, c_all, g, dxg, dwhh, dgbuf, B, T, H, stream
+    "lstm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _P],
 }
 
 

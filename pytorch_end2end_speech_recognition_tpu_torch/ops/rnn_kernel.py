@@ -1,0 +1,189 @@
+"""The LSTM recurrence (`csrc/lstm.cu`): the kernels of the JAX package's
+`ops/rnn_pallas.py`.
+
+The input projection `x @ W_ih` stays one large matrix product in torch
+(as it stays in XLA there); the sequential part is a kernel. What the
+kernels compute is not `ops/rnn.py` `lstm_scan`: the recurrent product is
+float32 with W_hh not cast, the forward also returns c_all (the frozen c
+past each row's length), and the backward recomputes the gates from
+(xg, h_prev, c_prev), takes no cotangent for c_all, and returns dxg and
+dW_hh. `lstm_seq_fwd` and `lstm_seq_bwd` launch their kernel on CUDA
+tensors, count the launch, and take the plain version only for CPU
+tensors. `LstmSeq` makes the pair one differentiable function of (xg,
+W_hh), and `lstm_scan_kernel` is the counterpart of `lstm_scan_pallas`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _gates(xg_t, h, c, whh):
+    """One step's (h', c', (i, f, g, o)) from float32 inputs."""
+    gates = xg_t + h @ whh
+    i, f, g, o = gates.chunk(4, dim=-1)
+    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), \
+        torch.sigmoid(o)
+    c_new = f * c + i * g
+    return o * torch.tanh(c_new), c_new, (i, f, g, o)
+
+
+def lstm_seq_fwd_plain(xg, whh, lens):
+    """The forward kernel in torch: xg (B, T, 4H) float32, whh (H, 4H)
+    float32, lens (B,) -> (h_all, c_all), (B, T, H) float32. h_all is 0
+    and c_all holds the frozen c at steps t >= lens[b]."""
+    B, T, H4 = xg.shape
+    h = xg.new_zeros(B, H4 // 4)
+    c = torch.zeros_like(h)
+    hs, cs = [], []
+    for t in range(T):
+        h_new, c_new, _ = _gates(xg[:, t], h, c, whh)
+        valid = (t < lens)[:, None]
+        hs.append(torch.where(valid, h_new, torch.zeros_like(h_new)))
+        c = torch.where(valid, c_new, c)
+        h = torch.where(valid, h_new, h)
+        cs.append(c)
+    return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
+
+
+def lstm_seq_bwd_plain(xg, whh, lens, h_all, c_all, g):
+    """The backward kernel in torch: the cotangent g (B, T, H) of h_all ->
+    (dxg (B, T, 4H), dW_hh (H, 4H)), reverse in time, the gates recomputed
+    from (xg, h_prev, c_prev) with h_prev/c_prev the forward's outputs
+    shifted by one step (zeros at t = 0). dgates are zero at steps t >=
+    lens[b], where the carries keep their value."""
+    B, T, H4 = xg.shape
+    h_prev = F.pad(h_all, (0, 0, 1, 0))[:, :T]
+    c_prev = F.pad(c_all, (0, 0, 1, 0))[:, :T]
+    dh = xg.new_zeros(B, H4 // 4)
+    dc = torch.zeros_like(dh)
+    dwhh = torch.zeros_like(whh)
+    dxg = torch.empty_like(xg)
+    for t in reversed(range(T)):
+        _, c_new, (i, f, gg, o) = _gates(xg[:, t], h_prev[:, t], c_prev[:, t],
+                                         whh)
+        tc = torch.tanh(c_new)
+        dh_t = dh + g[:, t]
+        dc_t = dc + dh_t * o * (1.0 - tc * tc)
+        dgates = torch.cat([dc_t * gg * i * (1.0 - i),
+                            dc_t * c_prev[:, t] * f * (1.0 - f),
+                            dc_t * i * (1.0 - gg * gg),
+                            dh_t * tc * o * (1.0 - o)], dim=-1)
+        valid = (t < lens)[:, None]
+        dgates = torch.where(valid, dgates, torch.zeros_like(dgates))
+        dxg[:, t] = dgates
+        dwhh += h_prev[:, t].T @ dgates
+        dh = torch.where(valid, dgates @ whh.T, dh)
+        dc = torch.where(valid, dc_t * f, dc)
+    return dxg, dwhh
+
+
+def _check(name, xg, whh, lens, *more):
+    if xg.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {xg.device}")
+    if xg.dim() != 3 or xg.dtype != torch.float32 or xg.shape[2] % 16:
+        raise TypeError(f"{name}: xg must be (B, T, 4H) float32 with H a "
+                        f"multiple of 4, got {tuple(xg.shape)} {xg.dtype}")
+    B, T, H4 = xg.shape
+    shapes = [("whh", whh, (H4 // 4, H4)), ("lens", lens, (B,))]
+    shapes += [(n, t, (B, T, H4 // 4)) for n, t in more]
+    for nm, t, shape in shapes:
+        if tuple(t.shape) != shape or t.device != xg.device:
+            raise ValueError(f"{name}: {nm} must be {shape} on {xg.device}")
+        if nm != "lens" and t.dtype != torch.float32:
+            raise TypeError(f"{name}: {nm} must be float32, got {t.dtype}")
+
+
+def lstm_seq_fwd(xg, whh, lens):
+    """(h_all, c_all) of the recurrence: the forward kernel on CUDA
+    tensors, `lstm_seq_fwd_plain` on CPU tensors."""
+    if xg.device.type == "cpu":
+        return lstm_seq_fwd_plain(xg, whh, lens)
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
+
+    _check("lstm_seq_fwd", xg, whh, lens)
+    B, T, H4 = xg.shape
+    H = H4 // 4
+    xg, whh = xg.contiguous(), whh.contiguous()
+    lens32 = lens.to(torch.int32).contiguous()
+    h_all = xg.new_empty(B, T, H)
+    c_all = xg.new_empty(B, T, H)
+    if B and T:
+        hbuf = xg.new_empty(2, B, H)
+        err = _build.load().lstm_fwd_launch(
+            xg.data_ptr(), whh.data_ptr(), lens32.data_ptr(),
+            h_all.data_ptr(), c_all.data_ptr(), hbuf.data_ptr(), B, T, H,
+            torch.cuda.current_stream(xg.device).cuda_stream)
+        _build.check(err, "lstm_seq_fwd")
+        lstm_seq_fwd.launches += 1
+    return h_all, c_all
+
+
+lstm_seq_fwd.launches = 0
+
+
+def lstm_seq_bwd(xg, whh, lens, h_all, c_all, g):
+    """(dxg, dW_hh) for the cotangent g of h_all: the backward kernel on
+    CUDA tensors, `lstm_seq_bwd_plain` on CPU tensors."""
+    if xg.device.type == "cpu":
+        return lstm_seq_bwd_plain(xg, whh, lens, h_all, c_all, g)
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
+
+    g = g.float()
+    _check("lstm_seq_bwd", xg, whh, lens, ("h_all", h_all), ("c_all", c_all),
+           ("g", g))
+    B, T, H4 = xg.shape
+    xg, whh, h_all, c_all, g = (t.contiguous()
+                                for t in (xg, whh, h_all, c_all, g))
+    lens32 = lens.to(torch.int32).contiguous()
+    dxg = torch.empty_like(xg)
+    dwhh = torch.zeros_like(whh)
+    if B and T:
+        dgbuf = xg.new_empty(2, B, H4)
+        err = _build.load().lstm_bwd_launch(
+            xg.data_ptr(), whh.data_ptr(), lens32.data_ptr(),
+            h_all.data_ptr(), c_all.data_ptr(), g.data_ptr(), dxg.data_ptr(),
+            dwhh.data_ptr(), dgbuf.data_ptr(), B, T, H4 // 4,
+            torch.cuda.current_stream(xg.device).cuda_stream)
+        _build.check(err, "lstm_seq_bwd")
+        lstm_seq_bwd.launches += 1
+    return dxg, dwhh
+
+
+lstm_seq_bwd.launches = 0
+
+
+class LstmSeq(torch.autograd.Function):
+    """h_all (B, T, H) of the recurrence over xg (B, T, 4H) with W_hh (H,
+    4H), differentiable in both (outputs only, as `lstm_seq_pallas`)."""
+
+    @staticmethod
+    def forward(ctx, xg, whh, lens):
+        h_all, c_all = lstm_seq_fwd(xg, whh, lens)
+        ctx.save_for_backward(xg, whh, lens, h_all, c_all)
+        return h_all
+
+    @staticmethod
+    def backward(ctx, g):
+        xg, whh, lens, h_all, c_all = ctx.saved_tensors
+        dxg, dwhh = lstm_seq_bwd(xg, whh, lens, h_all, c_all, g)
+        return dxg, dwhh, None
+
+
+def lstm_scan_kernel(x, lens, w_ih, w_hh, bias, reverse: bool = False,
+                     dtype=torch.float32):
+    """One LSTM direction through the recurrence kernels (outputs only, the
+    counterpart of `lstm_scan_pallas`): the input product in `dtype` with a
+    float32 result plus the bias, then `LstmSeq` with W_hh in float32."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn import (
+        flip_sequences,
+    )
+
+    if reverse:
+        x = flip_sequences(x, lens)
+    xg = (x.to(dtype) @ w_ih.to(dtype)).float() + bias
+    ys = LstmSeq.apply(xg, w_hh.float(), lens)
+    if reverse:
+        ys = flip_sequences(ys, lens)
+    return ys

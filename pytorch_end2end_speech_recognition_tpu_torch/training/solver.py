@@ -2,11 +2,13 @@
 `training/solver.py` train step and fit loop).
 
 One step: frontend -> SpecAugment -> encoder (dropout) -> CTC head +
-transformer decoder -> hybrid loss -> backward -> global-norm clip -> adamw
-with the schedule -> in-place update. On CUDA the loss's backward runs the
-hand-written backward kernels (attention, Toeplitz reduce, CTC). Random
-draws come from one `torch.Generator` on the model's device, seeded from
-`train.seed`.
+decoder (the transformer decoder, or the LSTM speller with scheduled
+sampling) -> hybrid loss -> backward -> global-norm clip -> adamw with the
+schedule -> in-place update. On CUDA the loss's backward runs the
+hand-written backward kernels (attention, Toeplitz reduce, the LSTM
+recurrence, CTC). Random draws (SpecAugment, dropout, the scheduled-sampling
+coins) come from one `torch.Generator` on the model's device, seeded from
+`train.seed`; tests inject the SpecAugment mask and the coins instead.
 
 Not ported yet: evaluation (greedy WER), checkpoints and resume, the
 metrics log file and tensorboard, the bucketed loader and tokenizers,
@@ -22,6 +24,9 @@ import torch
 
 from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import Batch
 from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
+from pytorch_end2end_speech_recognition_tpu_torch.models.decoder import (
+    AttentionDecoder,
+)
 from pytorch_end2end_speech_recognition_tpu_torch.training.losses import (
     hybrid_loss,
 )
@@ -63,17 +68,24 @@ class Solver:
                      for a in (batch.audio, batch.audio_lens, batch.tokens,
                                batch.token_lens))
 
-    def grads(self, batch: Batch, spec_mask=None):
+    def grads(self, batch: Batch, spec_mask=None, coins=None):
         """(metrics, gradients in parameter order) of the train-mode pass
         over one batch, without updating: SpecAugment (from `spec_mask` when
-        given), dropout, CTC head and decoder, hybrid loss, backward."""
+        given), dropout, CTC head and decoder (the speller's
+        scheduled-sampling coins (B, U+1) from `coins` when given), hybrid
+        loss, backward."""
         m, mc = self.model, self.cfg.model
         audio, audio_lens, tokens, token_lens = self._put(batch)
         enc, enc_lens = m.encode(audio, audio_lens, train=True,
                                  generator=self.generator, spec_mask=spec_mask)
         logits = m.ctc_logits(enc)
         att = None
-        if m.decoder is not None:
+        if isinstance(m.decoder, AttentionDecoder):
+            att = m.decoder(enc, enc_lens, tokens, train=True,
+                            generator=self.generator,
+                            scheduled_sampling=self.cfg.train.scheduled_sampling,
+                            coins=coins)
+        elif m.decoder is not None:
             att = m.decoder(enc, enc_lens, tokens, train=True,
                             generator=self.generator)
         loss, metrics = hybrid_loss(logits, enc_lens, att, tokens, token_lens,
@@ -82,11 +94,11 @@ class Solver:
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
-    def train_step(self, batch: Batch, spec_mask=None) -> dict:
+    def train_step(self, batch: Batch, spec_mask=None, coins=None) -> dict:
         """One update; returns the step's metrics as 0-dim device tensors:
         loss, ctc_loss, att_loss (those the model has) and grad_norm, the
         global norm before the clip."""
-        metrics, grads = self.grads(batch, spec_mask)
+        metrics, grads = self.grads(batch, spec_mask, coins)
         metrics["grad_norm"] = self.opt.step(grads, self.lr_scale)
         self.step += 1
         return metrics

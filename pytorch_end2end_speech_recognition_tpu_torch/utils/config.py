@@ -292,10 +292,9 @@ def resolve_device(cfg: AsrConfig, device) -> AsrConfig:
     touched.
 
     On CUDA: bfloat16 compute and residual stream, bfloat16 DFT operands,
-    and the hand-written kernels for the frontend, the encoder attention
-    and the CTC loss. On CPU: float32 and plain torch. `lstm_impl` and
-    `ffn_impl` resolve to 'torch' everywhere until their kernels are
-    ported. A concrete value is never overridden; 'cuda' on a non-CUDA
+    and the hand-written kernels for the frontend, the encoder attention,
+    the LSTM recurrence and the CTC loss. On CPU: float32 and plain torch.
+    `ffn_impl` resolves to 'torch' everywhere until its kernel is ported. A concrete value is never overridden; 'cuda' on a non-CUDA
     device raises.
     """
     import copy
@@ -314,12 +313,11 @@ def resolve_device(cfg: AsrConfig, device) -> AsrConfig:
         m.dtype = "bfloat16" if cuda else "float32"
     if m.residual_dtype == "auto":
         m.residual_dtype = "bfloat16" if cuda else "float32"
-    for k in ("attn_impl", "ctc_impl"):
+    for k in ("attn_impl", "ctc_impl", "lstm_impl"):
         if getattr(m, k) == "auto":
             setattr(m, k, "cuda" if cuda else "torch")
-    for k in ("lstm_impl", "ffn_impl"):
-        if getattr(m, k) == "auto":
-            setattr(m, k, "torch")
+    if m.ffn_impl == "auto":
+        m.ffn_impl = "torch"
     impls = {"frontend.impl": fe.impl, "model.attn_impl": m.attn_impl,
              "model.ctc_impl": m.ctc_impl, "model.lstm_impl": m.lstm_impl,
              "model.ffn_impl": m.ffn_impl}

@@ -262,3 +262,55 @@ def test_flash_kernel_rejects_a_dense_or_bf16_bias(dev):
                 torch.zeros(2, 70, 70, device=dev), None):
         with pytest.raises(ValueError, match="diag"):
             flash_fwd(q, k, v, bad, lens, 2)
+
+
+def _lstm_inputs(dev, B, T, D, H, seed):
+    g_ = torch.Generator(device="cpu").manual_seed(seed)
+    u = lambda *s, a: ((torch.rand(*s, generator=g_) * 2 - 1) * a).to(dev)  # noqa: E731
+    xg = torch.randn(B, T, D, generator=g_).to(dev) @ u(D, 4 * H, a=D ** -0.5)
+    xg[..., H:2 * H] += 1.0  # the forget-gate bias of the init
+    whh = u(H, 4 * H, a=H ** -0.5)
+    lens = torch.randint(1, T + 1, (B,), generator=g_).to(dev)
+    lens[0], lens[1] = T, 0
+    return xg, whh, lens, torch.randn(B, T, H, generator=g_).to(dev)
+
+
+@pytest.mark.parametrize("B,T,D,H", [(4, 37, 12, 16), (3, 200, 64, 320)])
+def test_lstm_kernels_match_plain(dev, B, T, D, H):
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
+        lstm_seq_bwd,
+        lstm_seq_bwd_plain,
+        lstm_seq_fwd,
+        lstm_seq_fwd_plain,
+    )
+
+    xg, whh, lens, g = _lstm_inputs(dev, B, T, D, H, T)
+    h, c = lstm_seq_fwd(xg, whh, lens)
+    hp, cp = lstm_seq_fwd_plain(xg, whh, lens)
+    dx, dw = lstm_seq_bwd(xg, whh, lens, hp, cp, g)
+    dxp, dwp = lstm_seq_bwd_plain(xg, whh, lens, hp, cp, g)
+    torch.cuda.synchronize()
+    # float32 on both sides, sums in another order (chip_smoke.py LSTM_TOL)
+    for name, a, b in (("h", h, hp), ("c", c, cp), ("dxg", dx, dxp)):
+        assert (a - b).abs().max() <= 2.0 ** -16 * (1 + b.abs().max()), name
+    assert _rel_err(dw, dwp) < 1e-5
+    assert torch.all(h[1] == 0) and torch.all(dx[1] == 0)
+    assert torch.all(h[2, int(lens[2]):] == 0)
+
+
+def test_lstm_kernels_raise_on_what_they_do_not_take(dev):
+    """No fallback: a width that is not a multiple of 4, a bf16 input, and
+    a batch whose staged h does not fit shared memory all raise."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
+        lstm_seq_fwd,
+    )
+
+    xg, whh, lens, _ = _lstm_inputs(dev, 2, 5, 8, 16, 0)
+    with pytest.raises(TypeError, match="multiple of 4"):
+        lstm_seq_fwd(torch.zeros(2, 5, 72, device=dev),
+                     torch.zeros(18, 72, device=dev), lens)
+    with pytest.raises(TypeError, match="float32"):
+        lstm_seq_fwd(xg.to(torch.bfloat16), whh, lens)
+    xg, whh, lens, _ = _lstm_inputs(dev, 512, 3, 8, 320, 1)
+    with pytest.raises(RuntimeError, match="lstm_seq_fwd"):
+        lstm_seq_fwd(xg, whh, lens)

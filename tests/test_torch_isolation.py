@@ -55,6 +55,7 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("module", [
     "ops.ctc_kernel", "ops.specaugment", "models.decoder_transformer",
+    "models.decoder", "ops.rnn", "ops.rnn_kernel",
     "training.losses", "training.schedules", "training.solver",
     "data.dataset"])
 def test_training_slice_modules_stand_alone(module):
@@ -88,13 +89,13 @@ def test_resolve_device_copies_and_resolves(name):
     assert gpu is not cfg and cpu is not cfg
     assert (gpu.model.dtype, gpu.model.residual_dtype, gpu.frontend.dft_dtype
             ) == ("bfloat16",) * 3
-    assert (gpu.frontend.impl, gpu.model.attn_impl, gpu.model.ctc_impl
-            ) == ("cuda",) * 3
+    assert (gpu.frontend.impl, gpu.model.attn_impl, gpu.model.ctc_impl,
+            gpu.model.lstm_impl) == ("cuda",) * 4
     assert (cpu.model.dtype, cpu.frontend.dft_dtype) == ("float32",) * 2
-    assert (cpu.frontend.impl, cpu.model.attn_impl, cpu.model.ctc_impl
-            ) == ("torch",) * 3
+    assert (cpu.frontend.impl, cpu.model.attn_impl, cpu.model.ctc_impl,
+            cpu.model.lstm_impl) == ("torch",) * 4
     for c in (gpu, cpu):
-        assert (c.model.lstm_impl, c.model.ffn_impl) == ("torch",) * 2
+        assert c.model.ffn_impl == "torch"
 
 
 def test_resolve_device_keeps_concrete_values_and_refuses_cuda_on_cpu():
