@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --train-seeds 0,1,2   # [8]/[13] over draws
 
 Phases, every one of which must pass (the script exits non-zero otherwise):
 
@@ -68,7 +69,31 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    0.1) on a ragged B=32 batch of 8-16 s rows, U <= 200: one step against
    plain torch on the card (loss, every gradient) with a control, launch
    counts (logmel 1, LSTM 8 + 8, CTC 1 + 1), five Solver steps, train
-   throughput, peak memory and a profile; one an4_ctc CTC-only step.
+   throughput, peak memory and a profile; one an4_ctc CTC-only step;
+3j. (run after [3i]) the fused FFN kernels (LayerNorm, fc1, SiLU, fc2,
+   dropout, residual), forward and backward, against their plain versions
+   at the flagship's and rung 3's rows (R = 32 x 750 = 24,000, D 256, F
+   1,024), a ragged R and rung 4's width (D 512, F 2,048), rates 0 and 0.1,
+   every element of out and the seven gradients held to 2^-6 (|plain| +
+   m); controls that must fail it (b1 dropped, gamma ignored, the backward
+   seeded with seed + 1, the last row tile left out); the dropout mask read
+   from both kernels against the plain formula, its drop fraction and kept
+   scale; kernel, plain, unfused-torch and bound times;
+13. the flagship with model.ffn_impl=cuda: serving launch counts (logmel 1,
+   Toeplitz 1, attention 12, FFN 24) against all-plain torch (with the
+   bias-zeroed control) and against the same kernels with ffn_impl=torch;
+   one hybrid step at dropout 0 against plain torch (FFN 24 + 24); five
+   Solver steps with dropout 0.1 and SpecAugment; serving and training
+   throughput of ffn_impl=cuda and torch in turns; rung 4 with
+   ffn_impl=cuda takes plain torch FFNs, as the JAX gate does;
+14. libri100_transformer (rung 3: 12-layer Transformer encoder d256, H4,
+   FFN 1,024, relative bias, 6-layer decoder, vocab 256) with
+   ffn_impl=cuda on the B=32 x 30 s ragged batch: serving launch counts
+   (logmel 1, Toeplitz 1, attention 12, FFN 12) against plain torch with a
+   bias-zeroed control, throughput and a profile; one hybrid step (U <=
+   128; attention 12 + 12, FFN 12 + 12, Toeplitz 1 + 1, CTC 1 + 1) against
+   plain torch with a control; five Solver steps; train throughput, peak
+   memory.
 
 It then prints the `kernels` JSON line, the card's name and power limit, and
 last `{"ok": true, "device": {...}}`. Without a card it exits non-zero
@@ -137,13 +162,19 @@ TOL_CTC_LL = 1e-5      # |d ll| <= TOL (1 + |ll|)
 TOL_CTC_GRAD = 2.0 ** -18
 CTC_ABS = 2.0 ** -24
 # the training step, kernel model vs plain model on the card (bf16, 12
-# layers, same weights, same mask, dropout 0). Measured on an H100: loss
-# 9.6e-6 relative, every gradient's cosine >= 0.99945 and relative error
-# <= 0.033; the loss tolerance is 10x, the gradients' 2x (the cosine's gap
-# to 1). The control (relative bias zeroed) measured 2.6e-3, 0.46 and 2.0.
-TOL_TRAIN_LOSS = 1e-4  # relative
-TRAIN_MIN_COS = 0.9989  # every parameter's gradient, cosine to plain's
-TRAIN_MAX_REL = 0.07   # and relative error ||g_k - g_p|| / ||g_p||
+# layers, same weights, same mask, dropout 0). Measured on an H100 over
+# twelve draws of the batch, mask and bias table (`--train-seeds 0,...,5`,
+# [8] and [13]): loss <= 1.23e-4 relative, every gradient's relative error
+# <= 0.053 and cosine >= 0.99860. The lowest are the attention query and
+# key weights (decoder block 0's cross-attention, encoder block 11), whose
+# gradients pass through the softmax's p (dp - delta), a difference of
+# near-equal terms that magnifies the bf16 noise upstream. The tolerances
+# are about 2x (4x the loss); where the norms agree 1 - cosine = rel^2 /
+# 2, so the cosine's is the relative error's, 1 - 0.1^2 / 2. The control
+# (relative bias zeroed) measured 2.3e-3, 0.26 and 1.8.
+TOL_TRAIN_LOSS = 5e-4  # relative
+TRAIN_MIN_COS = 0.995  # every parameter's gradient, cosine to plain's
+TRAIN_MAX_REL = 0.1    # and relative error ||g_k - g_p|| / ||g_p||
 U_TOKENS = 64          # tokens per row, as the JAX package's benchmarks.py
 TRAIN_WINDOWS, TRAIN_ITERS = 5, 2
 # long audio ([3h], [9], [10]): rows padded to 2^20 samples, T' = 1,638
@@ -197,10 +228,36 @@ LAS_MIN_COS = 0.992    # every parameter's gradient, cosine to plain's
 LAS_MAX_REL = 0.18     # and relative error
 AN4_SECONDS, LAS_SECONDS = 8, 16
 U_LAS = 200            # padded tokens per row of the wsj_las step
+# the fused FFN kernels against their plain versions ([3j]): both round y,
+# a, g2 and gh1 to bf16 at the same points and sum in float32 in other
+# orders, so a rounded operand can differ by one bf16 ulp (2^-7 of it)
+# where the float32 values straddle a rounding boundary, and its
+# propagation from the previous product by less than another. With m the
+# magnitude of the product or sum that yields each output, computed from
+# the plain version's absolute values (`ffn_magnitudes`):
+#   |kernel - plain| <= FFN_TOL (|plain| + m),  FFN_TOL = 2 x 2^-7
+# for out and dx. dgamma, dbeta, dW1, db1, dW2 and db2 are sums over the R
+# rows of terms t_r whose errors e_r, by the same rule, are bounded by
+# FFN_TOL c_r (c_r the magnitude of row r's term), independent between
+# rows and of either sign. The sum of the c_r grows as R while the output
+# grows as sqrt(R) (the cotangent's signs are random): as m it would pass
+# a kernel that drops a tenth of the rows or returns dgamma = 0. Hoeffding's
+# inequality gives P(|sum e_r| > k FFN_TOL sqrt(sum c_r^2)) <=
+# 2 exp(-k^2 / 2), 5e-11 per element at k = FFN_SUM_K = 7, so for these
+#   m = FFN_SUM_K sqrt(sum_r c_r^2)
+FFN_TOL = 2.0 ** -6
+FFN_SUM_K = 7.0
+# (tag, R, D, F): the flagship's and rung 3's rows (B=32 x T' 750) and a
+# ragged count (a partial last row tile), and rung 4's width
+FFN_SHAPES = (("flagship, R = 32 x 750", 24000, 256, 1024),
+              ("ragged R", 23977, 256, 1024),
+              ("rung 4's width", 11999, 512, 2048))
+U_RUNG3, V_RUNG3 = 128, 256  # rung 3's tokens per row and BPE vocabulary
 
 
 # kernel-name patterns for the profile summary, first match wins
 PROFILE_GROUPS = (
+    ("ffn", ("ffn_",)),
     ("lstm", ("lstm_",)),
     ("flash", ("kernel<64, 2>",)),  # the attention kernels in kDiag mode
     ("logmel", ("logmel_",)),
@@ -319,21 +376,29 @@ def attn_bwd_magnitudes(q, k, v, bias, lens, g, H):
     return m_dq, m_dk, m_dv, m_db
 
 
-def grad_stats(got: dict, want: dict) -> tuple[float, float, float, int]:
-    """(min cosine, max relative error, median cosine, parameters compared)
-    of two name -> gradient dicts, over the parameters whose plain gradient
-    norm exceeds 1e-3 of the median norm (the key projections' biases have
-    zero gradient in exact arithmetic and carry only rounding noise)."""
+def grad_table(got: dict, want: dict) -> list[tuple[float, float, str]]:
+    """(cosine, relative error, name) of two name -> gradient dicts, lowest
+    cosine first, over the parameters whose plain gradient norm exceeds
+    1e-3 of the median norm (the key projections' biases have zero gradient
+    in exact arithmetic and carry only rounding noise)."""
     norms = {k: float(w.float().norm()) for k, w in want.items()}
     floor = 1e-3 * statistics.median(norms.values())
-    cos, rel = [], []
+    rows = []
     for k, w in want.items():
         if norms[k] <= floor:
             continue
         a, b = got[k].float().flatten(), w.float().flatten()
-        cos.append(float(torch.dot(a, b) / (a.norm() * b.norm())))
-        rel.append(float((a - b).norm() / b.norm()))
-    return min(cos), max(rel), statistics.median(cos), len(cos)
+        rows.append((float(torch.dot(a, b) / (a.norm() * b.norm())),
+                     float((a - b).norm() / b.norm()), k))
+    return sorted(rows)
+
+
+def grad_stats(got: dict, want: dict) -> tuple[float, float, float, int]:
+    """(min cosine, max relative error, median cosine, parameters compared)
+    of `grad_table`."""
+    rows = grad_table(got, want)
+    return (rows[0][0], max(r[1] for r in rows),
+            statistics.median(r[0] for r in rows), len(rows))
 
 
 def profile_step(fn, iters: int):
@@ -566,6 +631,282 @@ def lstm_kernel_phase(dev, gen, peaks, card, kernels) -> None:
             del lstm, packed, xq, out, g_pk, params
     kernels["lstm_fwd"]["max_abs_err"] = err_f
     kernels["lstm_bwd"]["max_abs_err"] = err_b
+
+
+FFN_OUTPUTS = ("out", "dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+
+
+def ffn_inputs(R, D, F, gen, dev):
+    """x (R, D) bf16, gamma, beta (D,) float32, w1 (F, D), b1, w2 (D, F),
+    b2 bf16 at the init's scale, and a cotangent g (R, D) bf16. The biases
+    (std 0.5) and the LayerNorm scale (1 + 0.5 N) sit far from their init,
+    so that the controls that drop them can fail."""
+    r = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    bf = torch.bfloat16
+    return (r(R, D).to(bf), 1.0 + 0.5 * r(D), 0.5 * r(D),
+            (r(F, D) * D ** -0.5).to(bf), (0.5 * r(F)).to(bf),
+            (r(D, F) * F ** -0.5).to(bf), (0.5 * r(D)).to(bf),
+            r(R, D).to(bf))
+
+
+def ffn_magnitudes(x, g, gamma, beta, w1, b1, w2, b2, seed, rate, scale):
+    """The magnitude terms m of the FFN_TOL bound, float32, for the outputs
+    FFN_OUTPUTS, from the absolute values of the operands, rounded where
+    the kernels round them (y, a, g2, gh1 to bf16): for out, those of the
+    product a W2^T and the sum that yields it; for dx, those of gy = gh1
+    W1 (m_gy) through the LayerNorm backward. For the six sums over rows,
+    FFN_SUM_K sqrt(sum c^2) over their terms' magnitudes c:
+      dW1  |gh1| |y|    db1  |gh1|    dW2  |g2| |a|    db2  |g2|
+    (db2 sums float32 g2, which both sides compute alike: a loose term);
+    dgamma and dbeta sum gy = gh1 W1 over rows, so their independent
+    terms are one per row and F column: |gh1| |W1| |xn| and |gh1| |W1|."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
+        LN_EPS,
+        keep_multiplier,
+    )
+
+    bf = torch.bfloat16
+    R, D = x.shape
+    xf = x.float()
+    mean = xf.mean(1, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(1, keepdim=True) + LN_EPS)
+    xn = (xf - mean) * rstd
+    y = (xn * gamma + beta).to(bf).float()
+    W1, W2 = w1.float(), w2.float()
+    h1 = y @ W1.t() + b1.float()
+    sig = torch.sigmoid(h1)
+    a = (h1 * sig).to(bf).float()
+    h2 = a @ W2.t() + b2.float()
+    keep = 1.0
+    if rate > 0:
+        keep = keep_multiplier(seed, torch.arange(R, device=x.device), D,
+                               rate)
+    m_out = scale * keep * (a.abs() @ W2.abs().t() + b2.float().abs()
+                            + h2.abs())
+    g2 = scale * g.float() * keep
+    g2w = g2.to(bf).float()
+    ga = g2w @ W2
+    gh1 = (ga * (sig * (1.0 + h1 * (1.0 - sig)))).to(bf).float()
+    del ga, sig, h1, h2
+    m_gy = gh1.abs() @ W1.abs()
+    gm = gamma.abs() * m_gy
+    m_dx = rstd * (gm + gm.mean(1, keepdim=True) + xn.abs() * (
+        gm * xn.abs()).mean(1, keepdim=True))
+    del gm, m_gy
+    q = gh1.square() @ W1.square()
+    sums = ((q * xn.square()).sum(0), q.sum(0),
+            gh1.square().t() @ y.square(), gh1.square().sum(0),
+            g2w.square().t() @ a.square(), g2.square().sum(0))
+    return (m_out, m_dx, *(FFN_SUM_K * s.sqrt() for s in sums))
+
+
+def ffn_excess(got, want, mags):
+    """Per output: (max |kernel - plain|, share of elements beyond FFN_TOL
+    (|plain| + m), largest ratio to that bound)."""
+    res = []
+    for a, w, m in zip(got, want, mags):
+        d = (a.float() - w.float()).abs()
+        lim = (FFN_TOL * (w.float().abs() + m)).clamp_min(1e-30)
+        res.append((d.max().item(), (d > lim).float().mean().item(),
+                    (d / lim).max().item()))
+    return res
+
+
+def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
+    """[3j] the fused FFN kernels (TPU kernels 13 and 14) against their
+    plain versions on the card: the flagship's rows (R = 24,000, D 256, F
+    1,024), a ragged R and rung 4's width (D 512, F 2,048), bf16 x and
+    weights, scale 0.5, rates 0 and 0.1, every element of out and the
+    seven gradients held to FFN_TOL; controls that must fail it; the
+    dropout mask read from the kernels and held to the plain formula and
+    its statistics; times beside the bound and the unfused torch sequence
+    as the library yardstick."""
+    import torch.nn.functional as F
+
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
+        LN_EPS,
+        ffn_bwd,
+        ffn_bwd_plain,
+        ffn_fwd,
+        ffn_fwd_plain,
+        keep_multiplier,
+    )
+
+    scale = 0.5
+    seed = torch.tensor([20261016], dtype=torch.int32, device=dev)
+    err_f = err_b = 0.0
+    for si, (tag, R, D, F_) in enumerate(FFN_SHAPES):
+        x, gamma, beta, w1, b1, w2, b2, g = ffn_inputs(R, D, F_, gen, dev)
+        w = (gamma, beta, w1, b1, w2, b2)
+        for rate in (0.0, 0.1):
+            out = ffn_fwd(x, *w, seed, rate, scale)
+            grads = ffn_bwd(x, g, *w, seed, rate, scale)
+            want = (ffn_fwd_plain(x, *w, seed, rate, scale),
+                    *ffn_bwd_plain(x, g, *w, seed, rate, scale))
+            mags = ffn_magnitudes(x, g, *w, seed, rate, scale)
+            torch.cuda.synchronize()
+            res = ffn_excess((out, *grads), want, mags)
+            err_f = max(err_f, res[0][0])
+            err_b = max([err_b] + [r[0] for r in res[1:]])
+            print(f"[3j] ffn {tag} (R {R}, D {D}, F {F_}, bf16, scale "
+                  f"{scale}), rate {rate}: " + "; ".join(
+                      f"{n} max |kernel - plain| {e:.3e}, share beyond 2^-6 "
+                      f"(|plain| + m) {sh:.3e}, ratio {r:.3e}"
+                      for n, (e, sh, r) in zip(FFN_OUTPUTS, res)), flush=True)
+            check(all(r[1] == 0.0 for r in res) and all(
+                t.dtype == p.dtype for t, p in zip((out, *grads), want)),
+                f"ffn kernels disagree ({tag}, rate {rate}): {res}")
+            if si == 1 and rate > 0:
+                # controls, each a kernel that misreads its inputs or drops
+                # part of a sum, with the outputs it must fail on: b1
+                # dropped, gamma ignored, the backward's mask from seed + 1,
+                # the last (partial) row tile never computed; one of the S
+                # row splits left out of launch B's weight gradients, the
+                # same rows left out of launch A's column sums, and dgamma
+                # zeroed
+                ones, zb1 = torch.ones_like(gamma), torch.zeros_like(b1)
+                w_nob1 = (gamma, beta, w1, zb1, w2, b2)
+                w_nog = (ones, beta, w1, b1, w2, b2)
+                Rc = (R - 1) // 64 * 64
+                cut = ffn_bwd(x[:Rc], g[:Rc], *w, seed, rate, scale)
+                S = _build.load().ffn_bwd_splits(R, D, F_)
+                n_tiles = -(-R // 64)
+                per = -(-n_tiles // S) * 64  # rows per split
+                r0, r1 = S // 2 * per, min(S // 2 * per + per, R)
+                g_cut = g.clone()
+                g_cut[r0:r1] = 0
+                sp = ffn_bwd(x, g_cut, *w, seed, rate, scale)
+                full = (out, *grads)
+                for ctag, must, c_got in (
+                        ("b1 dropped", ("out",),
+                         (ffn_fwd(x, *w_nob1, seed, rate, scale),
+                          *ffn_bwd(x, g, *w_nob1, seed, rate, scale))),
+                        ("gamma ignored", ("out",),
+                         (ffn_fwd(x, *w_nog, seed, rate, scale),
+                          *ffn_bwd(x, g, *w_nog, seed, rate, scale))),
+                        ("the backward seeded with seed + 1", ("dx",),
+                         (out, *ffn_bwd(x, g, *w, seed + 1, rate, scale))),
+                        (f"the last row tile ({R - Rc} rows) left out",
+                         ("out", "dx"),
+                         (torch.cat([ffn_fwd(x[:Rc], *w, seed, rate, scale),
+                                     x[Rc:]]),
+                          torch.cat([cut[0], torch.zeros_like(x[Rc:])]),
+                          *cut[1:])),
+                        (f"launch B's row split {S // 2} of {S} (rows {r0}-"
+                         f"{r1 - 1}) left out", ("dw1", "db1", "dw2"),
+                         full[:4] + sp[3:6] + full[7:]),
+                        (f"launch A's column sums over rows {r0}-{r1 - 1} "
+                         "left out", ("dgamma", "dbeta", "db2"),
+                         full[:2] + sp[1:3] + full[4:7] + sp[6:]),
+                        ("dgamma zeroed", ("dgamma",),
+                         full[:2] + (torch.zeros_like(grads[1]),) + full[3:])):
+                    shares = dict(zip(FFN_OUTPUTS, (
+                        r[1] for r in ffn_excess(c_got, want, mags))))
+                    print(f"[3j] ffn control, {ctag}: share beyond the bound "
+                          + ", ".join(f"{n} {s:.3e}" for n, s in
+                                      shares.items())
+                          + f"; fails on {[n for n, s in shares.items() if s]}"
+                          f" (must include {list(must)})", flush=True)
+                    check(all(shares[n] > 0.0 for n in must),
+                          f"ffn control '{ctag}' passed on {must}")
+                del cut, c_got, sp, g_cut, full
+            if si == 0 and rate > 0:
+                # the forward's mask: out = 0 + 1 * keep * (a 0 + 1) at x = 0
+                # float32; the backward's, row by row: db2 = sum_r g keep
+                # with g one-hot in row r
+                xz = torch.zeros(R, D, device=dev)
+                w_read = (gamma, beta, w1, b1, torch.zeros_like(w2),
+                          torch.ones_like(b2))
+                mask = ffn_fwd(xz, *w_read, seed, rate, 1.0)
+                mask2 = ffn_fwd(xz, *w_read, seed + 7, rate, 1.0)
+                plain_mask = keep_multiplier(seed, torch.arange(R, device=dev),
+                                             D, rate)
+                rows_b = (0, 63, 64, R // 2 + 5, R - 1)
+                bwd_same = 0
+                for r in rows_b:
+                    g1 = torch.zeros(R, D, device=dev)
+                    g1[r] = 1.0
+                    db2 = ffn_bwd(xz, g1, *w, seed, rate, 1.0)[6]
+                    bwd_same += int(torch.equal(db2 != 0, mask[r] != 0))
+                frac = (mask == 0).float().mean().item()
+                sigma = math.sqrt(rate * (1 - rate) / mask.numel())
+                kept = mask[mask != 0]
+                ks = float(np.float32(1.0 / (1.0 - rate)))
+                other = (mask2 != mask).float().mean().item()
+                print(f"[3j] ffn dropout mask at rate {rate} over {R} x {D}: "
+                      f"kernel == plain formula: {torch.equal(mask, plain_mask)}"
+                      f"; drop fraction {frac:.5f} ({(frac - rate) / sigma:+.2f}"
+                      f" sigma); kept elements all {ks!r} (= 1/(1-rate) in "
+                      f"float32): {bool(torch.all(kept == ks))}; seed + 7 "
+                      f"differs on {other:.4f} of elements; the backward's "
+                      f"mask equals the forward's on {bwd_same}/{len(rows_b)} "
+                      f"rows {rows_b}", flush=True)
+                check(torch.equal(mask, plain_mask)
+                      and abs(frac - rate) <= 6 * sigma
+                      and bool(torch.all(kept == ks)) and other > 0.1
+                      and bwd_same == len(rows_b), "ffn dropout mask")
+                del xz, mask, mask2, plain_mask
+            if si in (0, 2) and rate > 0:
+                # times at the training path's rate; the library yardstick
+                # is the unfused torch sequence (no single PyTorch call
+                # computes the block): F.layer_norm, two cuBLAS F.linear,
+                # SiLU, the residual, and its autograd backward
+                leaves = [t.detach().requires_grad_() for t in (x, *w)]
+
+                def unfused(xx, gm, bt, w1_, b1_, w2_, b2_):
+                    y = F.layer_norm(xx.float(), (D,), gm, bt, LN_EPS)
+                    h = F.silu(F.linear(y.to(torch.bfloat16), w1_, b1_))
+                    return xx + scale * F.linear(h, w2_, b2_)
+
+                fb = bound(nbytes(x, *w, out),
+                           4.0 * R * D * F_ / peaks["bf16_flops"], peaks)
+                # the backward's five products (h1, dW2, ga, dW1, gy; h2
+                # enters no gradient): 10 R D F; the kernel does 14 (launch
+                # B recomputes h1 and ga)
+                bb = bound(nbytes(x, g, *w, *grads),
+                           10.0 * R * D * F_ / peaks["bf16_flops"], peaks)
+                row_f = dict(
+                    ms=cuda_ms(lambda: ffn_fwd(x, *w, seed, rate, scale)),
+                    plain_ms=cuda_ms(lambda: ffn_fwd_plain(
+                        x, *w, seed, rate, scale), iters=5),
+                    bound_ms=fb[0], bound_by=fb[1],
+                    library_ms=cuda_ms(lambda: unfused(x, *w)))
+                row_b = dict(
+                    ms=cuda_ms(lambda: ffn_bwd(x, g, *w, seed, rate, scale)),
+                    plain_ms=cuda_ms(lambda: ffn_bwd_plain(
+                        x, g, *w, seed, rate, scale), iters=5),
+                    bound_ms=bb[0], bound_by=bb[1],
+                    library_ms=cuda_ms(lambda: torch.autograd.grad(
+                        unfused(*leaves), leaves, g), iters=10))
+                fwd0 = cuda_ms(lambda: ffn_fwd(x, *w, seed, 0.0, scale))
+                for kname, row in (("forward", row_f), ("backward", row_b)):
+                    print(f"[3j] ffn {kname} {tag}: kernel {row['ms']:.4f} ms"
+                          f", plain {row['plain_ms']:.4f} ms, unfused torch "
+                          f"sequence {'fwd' if row is row_f else 'fwd + bwd'}"
+                          f" {row['library_ms']:.4f} ms, bound "
+                          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                          f"{card}", flush=True)
+                print(f"[3j] ffn forward {tag} at rate 0 (serving): kernel "
+                      f"{fwd0:.4f} ms", flush=True)
+                if si == 0:
+                    kernels["ffn_fwd"] = dict(
+                        name="ffn_fwd", route="cuda",
+                        source=f"{PKG}/csrc/ffn.cu",
+                        replaces="pytorch_end2end_speech_recognition_tpu/ops/"
+                                 "ffn_pallas.py:167", **row_f)
+                    kernels["ffn_bwd"] = dict(
+                        name="ffn_bwd", route="cuda",
+                        source=f"{PKG}/csrc/ffn.cu",
+                        replaces="pytorch_end2end_speech_recognition_tpu/ops/"
+                                 "ffn_pallas.py:202", **row_b)
+                del leaves
+            del out, grads, want, mags
+    print("[3j] ffn library yardstick: the unfused torch sequence (bf16 "
+          "cuBLAS linears, float32 layer norm), forward and forward + "
+          "backward; no single PyTorch call computes the block", flush=True)
+    kernels["ffn_fwd"]["max_abs_err"] = err_f
+    kernels["ffn_bwd"]["max_abs_err"] = err_b
 
 
 def serve(m, a, al):
@@ -847,6 +1188,539 @@ def las_train_phase(dev, gen, card, kernels, counted, t_start) -> None:
           "an4_ctc step not finite or not CTC-only")
 
 
+def ffn_path(model) -> str:
+    """Which FFN path each FfnBlock of `model` takes."""
+    from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
+        FfnBlock,
+    )
+
+    blocks = [b for b in model.modules() if isinstance(b, FfnBlock)]
+    n = sum(b.fused for b in blocks)
+    return (f"ffn_impl={model.cfg.model.ffn_impl}: {n} of {len(blocks)} "
+            "FfnBlocks on the fused FFN kernels, "
+            f"{len(blocks) - n} on plain torch")
+
+
+def _launches(counted) -> dict:
+    return {f.__name__: f.launches for f in counted if f.launches}
+
+
+def _with_table(model, table):
+    with torch.no_grad():
+        model.encoder.rel.table.copy_(table)
+    return model
+
+
+def _abba(tag, runs, windows, seconds_per_call, card, t_start):
+    """Throughput of each (name, fn) in `runs`, timed in turns (A B, B A,
+    ...): audio-seconds per second per window of fn(), median per name."""
+    rates = {name: [] for name, _ in runs}
+    for wi in range(windows):
+        for name, fn in (runs if wi % 2 == 0 else runs[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            rates[name].append(seconds_per_call / (time.perf_counter() - t0))
+    print(f"{tag}: " + "; ".join(
+        f"{name} median {statistics.median(r):.1f} audio-s/s (min "
+        f"{min(r):.1f}, max {max(r):.1f})" for name, r in rates.items())
+        + f" over {windows} windows each, in turns; {card}; "
+        f"{time.perf_counter() - t_start:.0f} s since start", flush=True)
+
+
+def flagship_ffn_phase(dev, card, kernels, counted, t_start, audio,
+                       audio_lens, full_lens, table, batch, spec_mask) -> None:
+    """[13] flagship_conformer with model.ffn_impl=cuda at B=32 x 30 s: the
+    serving forward's launch counts, held against the all-plain model (with
+    its bias-zeroed control) and against the same kernels with
+    ffn_impl=torch; one hybrid step at dropout 0 against plain torch with
+    launch counts; five Solver steps with dropout 0.1 and SpecAugment;
+    serving and training throughput of ffn_impl=cuda and torch in turns.
+    Rung 4 with ffn_impl=cuda takes the plain FFN (the JAX gate)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        flagship_conformer,
+        libri960_conformer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import Batch
+    from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
+    from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
+        FfnBlock,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+
+    def cfg(ffn: str, impl: str = "cuda", dropout: float | None = None):
+        c = flagship_conformer()
+        c.model.ffn_impl = ffn
+        if impl == "torch":
+            c.frontend.impl = "torch"
+            c.model.attn_impl = c.model.ctc_impl = "torch"
+        if dropout is not None:
+            c.model.encoder_dropout = c.model.decoder_dropout = dropout
+        return c
+
+    V = flagship_conformer().model.vocab_size
+    L = flagship_conformer().model.encoder_layers
+    mk = _with_table(AsrModel(cfg("cuda"), device=dev, seed=0).eval(), table)
+    mt = _with_table(AsrModel(cfg("torch"), device=dev, seed=0).eval(), table)
+    mp = _with_table(AsrModel(cfg("torch", "torch"), device=dev,
+                              seed=0).eval(), table)
+    r4 = libri960_conformer().model
+    r4.ffn_impl = "cuda"
+    r4_fused = FfnBlock(r4).fused
+    for tag, m in (("ffn kernels", mk), ("same kernels, ffn torch", mt),
+                   ("all plain", mp)):
+        print(f"[13] flagship FFN path ({tag}): {ffn_path(m)}", flush=True)
+    print(f"[13] rung 4 (D {r4.encoder_dim}, F {r4.encoder_ffn_dim}) with "
+          f"ffn_impl=cuda: fused FFN {r4_fused} (fits_vmem false: plain torch,"
+          " as the JAX gate)", flush=True)
+    check(all(b.fused for b in mk.modules() if isinstance(b, FfnBlock))
+          and not any(b.fused for b in mt.modules() if isinstance(b, FfnBlock))
+          and not r4_fused, "the FFN gate")
+    for fn in counted:
+        fn.launches = 0
+    with torch.inference_mode():
+        enc, elens, logits, _, _ = serve(mk, audio, audio_lens)
+    torch.cuda.synchronize()
+    counts = _launches(counted)
+    print(f"[13] flagship ffn_impl=cuda serving launches: {counts}",
+          flush=True)
+    check(counts == {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
+                     "ffn_fwd": 2 * L}, f"[13] serving launch counts {counts}")
+    kernels["ffn_fwd"]["launches"] = counts["ffn_fwd"]
+    check(bool(torch.isfinite(logits).all()) and enc.dtype == torch.bfloat16,
+          "[13] logits not finite")
+    with torch.inference_mode():
+        p_logits = serve(mp, audio, audio_lens)[2]
+        t_logits = serve(mt, audio, audio_lens)[2]
+    compare(f"[13] ffn kernels vs all plain torch (bf16, {L} L, ragged B={B} "
+            f"x {SECONDS:.0f} s)", logits, p_logits, elens, need_sure=True)
+    compare("[13] ffn kernels vs the same kernels with ffn_impl=torch",
+            logits, t_logits, elens, need_sure=True)
+    with torch.no_grad():
+        mp.encoder.rel.table.zero_()
+    with torch.inference_mode():
+        ctl_logits = serve(mp, audio, audio_lens)[2]
+    valid = (torch.arange(logits.shape[1], device=dev)[None, :]
+             < elens[:, None])
+    ctl = (logits - ctl_logits).abs().amax(-1)[valid].max().item()
+    print(f"[13] control, plain model with the relative bias zeroed: max "
+          f"|dlogit| {ctl:.4f} (must exceed {TOL_LOGITS})", flush=True)
+    check(ctl > TOL_LOGITS, "[13] the logit tolerance cannot see the bias")
+    del mp, p_logits, t_logits, ctl_logits, enc
+
+    def serve_iters(m):
+        def run():
+            with torch.inference_mode():
+                for _ in range(ITERS):
+                    serve(m, audio, full_lens)
+        return run
+
+    for m in (mt, mk):
+        serve_iters(m)()
+    _abba(f"[13] flagship serving throughput, {ITERS} x (B={B} x "
+          f"{SECONDS:.0f} s) per window", [("ffn_impl=torch", serve_iters(mt)),
+                                           ("ffn_impl=cuda", serve_iters(mk))],
+          WINDOWS, B * SECONDS * ITERS, card, t_start)
+    with torch.inference_mode():
+        wall_ms, kernel_ms, n = profile_step(
+            lambda: serve(mk, audio, full_lens), ITERS)
+    print_profile("[13] profile of one flagship forward, ffn_impl=cuda",
+                  wall_ms, kernel_ms, n, card)
+    del mk, mt
+
+    # one hybrid step at dropout 0, kernels (FFN included) vs plain torch
+    ks = Solver(cfg("cuda", dropout=0.0), V, device=dev)
+    _with_table(ks.model, table)
+    for fn in counted:
+        fn.launches = 0
+    km, kg = ks.grads(batch, spec_mask=spec_mask)
+    torch.cuda.synchronize()
+    counts = _launches(counted)
+    print(f"[13] flagship ffn_impl=cuda hybrid step launches: {counts}",
+          flush=True)
+    check(counts == {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
+                     "attention_bwd": L, "toeplitz_reduce": 1, "ctc_alpha": 1,
+                     "ctc_beta": 1, "ffn_fwd": 2 * L, "ffn_bwd": 2 * L},
+          f"[13] step launch counts {counts}")
+    kernels["ffn_bwd"]["launches"] = counts["ffn_bwd"]
+    kg = {n_: g.detach() for n_, g in zip(ks.names, kg)}
+    del ks
+    ps = Solver(cfg("torch", "torch", 0.0), V, device=dev)
+    _with_table(ps.model, table)
+    pm, pg = ps.grads(batch, spec_mask=spec_mask)
+    pg = {n_: g.detach() for n_, g in zip(ps.names, pg)}
+    d_loss = abs(float(km["loss"]) - float(pm["loss"])) / float(pm["loss"])
+    cmin, rmax, cmed, n_cmp = grad_stats(kg, pg)
+    print(f"[13] ffn kernels vs plain torch, one hybrid step (B={B} x "
+          f"{SECONDS:.0f} s ragged, U<={U_TOKENS}, bf16, {L} L): loss "
+          f"{float(km['loss']):.5f} vs {float(pm['loss']):.5f}, relative "
+          f"|d loss| {d_loss:.2e} (tol {TOL_TRAIN_LOSS}); gradients of "
+          f"{n_cmp} parameters: cosine min {cmin:.5f} median {cmed:.5f} (tol "
+          f"{TRAIN_MIN_COS}), relative error max {rmax:.4f} (tol "
+          f"{TRAIN_MAX_REL})", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in kg.values())
+          and d_loss <= TOL_TRAIN_LOSS and cmin >= TRAIN_MIN_COS
+          and rmax <= TRAIN_MAX_REL, "[13] kernel step disagrees with plain")
+    with torch.no_grad():
+        ps.model.encoder.rel.table.zero_()
+    cm, cg = ps.grads(batch, spec_mask=spec_mask)
+    cg = {n_: g.detach() for n_, g in zip(ps.names, cg)}
+    c_loss = abs(float(cm["loss"]) - float(km["loss"])) / float(cm["loss"])
+    cmin_c, rmax_c, cmed_c, _ = grad_stats(kg, cg)
+    print(f"[13] control, plain model with the relative bias zeroed: "
+          f"relative |d loss| {c_loss:.2e}, cosine min {cmin_c:.5f} median "
+          f"{cmed_c:.5f}, relative error max {rmax_c:.4f} (must fail)",
+          flush=True)
+    check(c_loss > TOL_TRAIN_LOSS or cmin_c < TRAIN_MIN_COS
+          or rmax_c > TRAIN_MAX_REL, "[13] the train-step tolerance cannot "
+          "see the bias")
+    del ps, pg, cg, kg
+
+    # five Solver steps with dropout 0.1 and SpecAugment, then throughput
+    # of ffn_impl=cuda and torch in turns on full rows
+    sk = Solver(cfg("cuda"), V, device=dev)
+    check(sk.cfg.model.encoder_dropout > 0 and sk.cfg.frontend.spec_augment,
+          "[13] training draws are off")
+    sk.cfg.train.log_every = 1
+    sk.fit([batch] * 5, steps=5)
+    losses = [r["loss"] for r in sk.log]
+    print(f"[13] 5 Solver steps, ffn_impl=cuda (dropout 0.1, SpecAugment): "
+          f"loss {[round(v, 4) for v in losses]}, grad_norm "
+          f"{[round(r['grad_norm'], 3) for r in sk.log]}", flush=True)
+    check(len(losses) == 5 and all(math.isfinite(v) for v in losses)
+          and all(bool(torch.isfinite(p).all())
+                  for p in sk.model.parameters()), "[13] Solver steps")
+    st = Solver(cfg("torch"), V, device=dev)
+    full_batch = Batch(batch.audio, np.full(B, batch.audio.shape[1], np.int32),
+                       batch.tokens, batch.token_lens)
+
+    def steps(sv):
+        def run():
+            for _ in range(TRAIN_ITERS):
+                sv.train_step(full_batch)
+        return run
+
+    for sv in (st, sk):
+        sv.train_step(full_batch)
+    torch.cuda.reset_peak_memory_stats()
+    _abba(f"[13] flagship train throughput, {TRAIN_ITERS} steps x (B={B} x "
+          f"{SECONDS:.0f} s, U={U_TOKENS}) per window",
+          [("ffn_impl=torch", steps(st)), ("ffn_impl=cuda", steps(sk))],
+          TRAIN_WINDOWS, B * SECONDS * TRAIN_ITERS, card, t_start)
+    print(f"[13] peak memory over both: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del st
+    wall_ms, kernel_ms, n = profile_step(lambda: sk.train_step(full_batch), 1)
+    print_profile("[13] profile of one flagship train step, ffn_impl=cuda",
+                  wall_ms, kernel_ms, n, card)
+    del sk
+
+
+def rung3_phase(dev, gen, card, kernels, counted, t_start, audio, audio_lens,
+                full_lens, spec_mask) -> None:
+    """[14] libri100_transformer (rung 3: 12-layer Transformer encoder d256,
+    H4, FFN 1,024, relative bias; 6-layer transformer decoder; vocab 256)
+    at full width with ffn_impl=cuda on the ragged B=32 x 30 s batch:
+    serving launch counts, against plain torch with a bias-zeroed control,
+    throughput and a profile; one hybrid step (U <= 128) against plain
+    torch with launch counts and a control; five Solver steps with dropout
+    0.1; train throughput and peak memory."""
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        libri100_transformer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import Batch
+    from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
+    from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
+        TransformerEncoder,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+
+    def cfg(impl: str, dropout: float | None = None):
+        c = libri100_transformer()
+        c.model.vocab_size = V_RUNG3
+        if impl == "cuda":
+            c.model.ffn_impl = "cuda"
+        else:
+            c.frontend.impl = "torch"
+            c.model.attn_impl = c.model.ctc_impl = "torch"
+        if dropout is not None:
+            c.model.encoder_dropout = c.model.decoder_dropout = dropout
+        return c
+
+    m0 = libri100_transformer().model
+    L, V = m0.encoder_layers, V_RUNG3
+    table = torch.randn(L, m0.encoder_heads, 64, device=dev,
+                        generator=gen) * BIAS_STD
+    mk = _with_table(AsrModel(cfg("cuda"), device=dev, seed=0).eval(), table)
+    mp = _with_table(AsrModel(cfg("torch"), device=dev, seed=0).eval(), table)
+    mc = mk.cfg.model
+    check(isinstance(mk.encoder, TransformerEncoder) and mc.attn_impl == "cuda"
+          and mc.dtype == "bfloat16" and mk.decoder is not None
+          and len(mk.decoder.blocks) == 6, "rung 3 did not build as shipped")
+    print(f"[14] rung 3 FFN path: {ffn_path(mk)}; plain: {ffn_path(mp)}",
+          flush=True)
+    for fn in counted:
+        fn.launches = 0
+    with torch.inference_mode():
+        enc, elens, logits, tokens, tlens = serve(mk, audio, audio_lens)
+    torch.cuda.synchronize()
+    counts = _launches(counted)
+    print(f"[14] rung 3 serving launches: {counts}", flush=True)
+    check(counts == {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
+                     "ffn_fwd": L}, f"[14] serving launch counts {counts}")
+    T_enc = enc.shape[1]
+    check(tuple(enc.shape) == (B, T_enc, mc.encoder_dim)
+          and enc.dtype == torch.float32 and T_enc <= 768
+          and tuple(logits.shape) == (B, T_enc, V)
+          and bool(torch.isfinite(logits).all()),
+          f"[14] encoder output {tuple(enc.shape)} {enc.dtype}")
+    with torch.inference_mode():
+        p_logits = serve(mp, audio, audio_lens)[2]
+    compare(f"[14] rung 3 kernels vs plain torch (bf16, {L} L, ragged B={B} "
+            f"x {SECONDS:.0f} s, T' {T_enc})", logits, p_logits, elens,
+            need_sure=True)
+    with torch.no_grad():
+        mp.encoder.rel.table.zero_()
+    with torch.inference_mode():
+        ctl_logits = serve(mp, audio, audio_lens)[2]
+    valid = torch.arange(T_enc, device=dev)[None, :] < elens[:, None]
+    ctl = (logits - ctl_logits).abs().amax(-1)[valid].max().item()
+    print(f"[14] control, plain model with the relative bias zeroed: max "
+          f"|dlogit| {ctl:.4f} (must exceed {TOL_LOGITS})", flush=True)
+    check(ctl > TOL_LOGITS, "[14] the logit tolerance cannot see the bias")
+    toks = tokens[0, :int(tlens[0])].tolist()
+    print(f"[14] row 0: {int(elens[0])} frames, {len(toks)} tokens "
+          f"{toks[:16]}{' ...' if len(toks) > 16 else ''}", flush=True)
+    del mp, p_logits, ctl_logits, enc
+    rates = []
+    with torch.inference_mode():
+        for _ in range(2):
+            serve(mk, audio, full_lens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(WINDOWS):
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                serve(mk, audio, full_lens)
+            torch.cuda.synchronize()
+            rates.append(B * SECONDS * ITERS / (time.perf_counter() - t0))
+    print(f"[14] rung 3 serving throughput: median "
+          f"{statistics.median(rates):.1f} audio-s/s over {WINDOWS} windows "
+          f"of {ITERS} x (B={B} x {SECONDS:.0f} s) (min {min(rates):.1f}, max "
+          f"{max(rates):.1f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}; "
+          f"{time.perf_counter() - t_start:.0f} s since start", flush=True)
+    with torch.inference_mode():
+        wall_ms, kernel_ms, n = profile_step(
+            lambda: serve(mk, audio, full_lens), ITERS)
+    print_profile("[14] profile of one rung 3 forward", wall_ms, kernel_ms, n,
+                  card)
+    del mk
+
+    # one hybrid step, U <= 128 BPE tokens of 256, kernels vs plain torch
+    tok = 1 + torch.cumsum(torch.randint(1, V - 1, (B, U_RUNG3), device=dev,
+                                         generator=gen), 1) % (V - 1)
+    tok_lens = torch.minimum(
+        torch.randint(U_RUNG3 // 2, U_RUNG3 + 1, (B,), device=dev,
+                      generator=gen), elens // 2)
+    tok = tok * (torch.arange(U_RUNG3, device=dev)[None, :]
+                 < tok_lens[:, None])
+    host = lambda t: t.cpu().numpy().astype(np.int32)  # noqa: E731
+    batch = Batch(audio.cpu().numpy(), host(audio_lens), host(tok),
+                  host(tok_lens))
+    ks = Solver(cfg("cuda", 0.0), V, device=dev)
+    _with_table(ks.model, table)
+    for fn in counted:
+        fn.launches = 0
+    km, kg = ks.grads(batch, spec_mask=spec_mask)
+    torch.cuda.synchronize()
+    counts = _launches(counted)
+    print(f"[14] rung 3 hybrid step launches: {counts}", flush=True)
+    check(counts == {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
+                     "attention_bwd": L, "toeplitz_reduce": 1, "ctc_alpha": 1,
+                     "ctc_beta": 1, "ffn_fwd": L, "ffn_bwd": L},
+          f"[14] step launch counts {counts}")
+    kg = {n_: g.detach() for n_, g in zip(ks.names, kg)}
+    del ks
+    ps = Solver(cfg("torch", 0.0), V, device=dev)
+    _with_table(ps.model, table)
+    pm, pg = ps.grads(batch, spec_mask=spec_mask)
+    pg = {n_: g.detach() for n_, g in zip(ps.names, pg)}
+    d_loss = abs(float(km["loss"]) - float(pm["loss"])) / float(pm["loss"])
+    cmin, rmax, cmed, n_cmp = grad_stats(kg, pg)
+    print(f"[14] rung 3 kernels vs plain torch, one hybrid step (B={B} x "
+          f"{SECONDS:.0f} s ragged, U<={U_RUNG3}, token lens "
+          f"{int(tok_lens.min())}-{int(tok_lens.max())}, bf16, {L} L + 6-layer"
+          f" decoder): loss {float(km['loss']):.5f} vs {float(pm['loss']):.5f}"
+          f" (ctc {float(km['ctc_loss']):.4f} vs {float(pm['ctc_loss']):.4f}, "
+          f"att {float(km['att_loss']):.4f} vs {float(pm['att_loss']):.4f}), "
+          f"relative |d loss| {d_loss:.2e} (tol {TOL_TRAIN_LOSS}); gradients "
+          f"of {n_cmp} parameters: cosine min {cmin:.5f} median {cmed:.5f} "
+          f"(tol {TRAIN_MIN_COS}), relative error max {rmax:.4f} (tol "
+          f"{TRAIN_MAX_REL})", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in kg.values())
+          and d_loss <= TOL_TRAIN_LOSS and cmin >= TRAIN_MIN_COS
+          and rmax <= TRAIN_MAX_REL, "[14] kernel step disagrees with plain")
+    with torch.no_grad():
+        ps.model.encoder.rel.table.zero_()
+    cm, cg = ps.grads(batch, spec_mask=spec_mask)
+    cg = {n_: g.detach() for n_, g in zip(ps.names, cg)}
+    c_loss = abs(float(cm["loss"]) - float(km["loss"])) / float(cm["loss"])
+    cmin_c, rmax_c, cmed_c, _ = grad_stats(kg, cg)
+    print(f"[14] control, plain model with the relative bias zeroed: "
+          f"relative |d loss| {c_loss:.2e}, cosine min {cmin_c:.5f} median "
+          f"{cmed_c:.5f}, relative error max {rmax_c:.4f} (must fail)",
+          flush=True)
+    check(c_loss > TOL_TRAIN_LOSS or cmin_c < TRAIN_MIN_COS
+          or rmax_c > TRAIN_MAX_REL, "[14] the train-step tolerance cannot "
+          "see the bias")
+    del ps, pg, cg, kg
+
+    solver = Solver(cfg("cuda"), V, device=dev)
+    check(solver.cfg.model.encoder_dropout > 0, "[14] dropout is off")
+    solver.cfg.train.log_every = 1
+    solver.fit([batch] * 5, steps=5)
+    losses = [r["loss"] for r in solver.log]
+    print(f"[14] 5 rung 3 Solver steps (dropout 0.1, SpecAugment): loss "
+          f"{[round(v, 4) for v in losses]}, grad_norm "
+          f"{[round(r['grad_norm'], 3) for r in solver.log]}", flush=True)
+    check(len(losses) == 5 and all(math.isfinite(v) for v in losses)
+          and all(bool(torch.isfinite(p).all())
+                  for p in solver.model.parameters()), "[14] Solver steps")
+    full_batch = Batch(batch.audio, np.full(B, batch.audio.shape[1], np.int32),
+                       batch.tokens, batch.token_lens)
+    solver.train_step(full_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(TRAIN_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_ITERS):
+            solver.train_step(full_batch)
+        torch.cuda.synchronize()
+        rates.append(B * SECONDS * TRAIN_ITERS / (time.perf_counter() - t0))
+    print(f"[14] rung 3 train throughput: median {statistics.median(rates):.1f}"
+          f" audio-s/s over {TRAIN_WINDOWS} windows of {TRAIN_ITERS} steps x "
+          f"(B={B} x {SECONDS:.0f} s, U={U_RUNG3}) (min {min(rates):.1f}, max "
+          f"{max(rates):.1f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}; "
+          f"{time.perf_counter() - t_start:.0f} s since start", flush=True)
+    wall_ms, kernel_ms, n = profile_step(lambda: solver.train_step(full_batch),
+                                         1)
+    print_profile("[14] profile of one rung 3 train step", wall_ms, kernel_ms,
+                  n, card)
+    del solver
+
+
+def train_seed_sweep(seeds: list[int]) -> int:
+    """`python3 chip_smoke.py --train-seeds 0,1,2`: the train-step
+    comparisons of [8] (the kernels, ffn_impl=torch) and [13]
+    (ffn_impl=cuda) against plain torch, at [8]'s size and weights, on a
+    fresh draw of the batch, SpecAugment mask and relative-bias table per
+    seed. Prints, per seed and comparison, the loss difference and the
+    three lowest gradient cosines with their parameters, and the largest
+    relative error; the spread that TRAIN_MIN_COS must clear."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        flagship_conformer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import Batch
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import frontend as fe
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.specaugment import (
+        spec_augment_mask,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils import device as dv
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        resolve_device,
+    )
+
+    dev = torch.device("cuda")
+    dv.set_tf32(False)
+    card = dv.card_info()
+    _build.build()
+    _build.load()
+    mcfg = resolve_device(flagship_conformer(), dev).model
+    fcfg = resolve_device(flagship_conformer(), dev).frontend
+    V, L, H = mcfg.vocab_size, mcfg.encoder_layers, mcfg.encoder_heads
+    Ts = int(SECONDS * SR)
+    front = fe.Frontend(fcfg, dev)
+    n_frames = front.n_frames(Ts)
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+
+    def cfg(impl: str, ffn: str):
+        c = flagship_conformer()
+        c.model.encoder_dropout = c.model.decoder_dropout = 0.0
+        c.model.ffn_impl = ffn
+        if impl == "torch":
+            c.frontend.impl = "torch"
+            c.model.attn_impl = c.model.ctc_impl = "torch"
+        return c
+
+    lowest = {}
+    for seed in seeds:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        audio = speechlike(B, Ts, gen, dev)
+        lens = torch.full((B,), Ts, dtype=torch.int64, device=dev)
+        lens[1::2] = torch.randint(SR, Ts + 1, (B // 2,), device=dev,
+                                   generator=gen)
+        table = torch.randn(L, H, 64, device=dev, generator=gen) * BIAS_STD
+        nf = (lens - WIN) // HOP + 1
+        enc_lens = ((nf + 1) // 2 + 1) // 2
+        tok = 1 + torch.cumsum(torch.randint(
+            1, V - 1, (B, U_TOKENS), device=dev, generator=gen), 1) % (V - 1)
+        tok_lens = torch.minimum(torch.randint(
+            U_TOKENS // 2, U_TOKENS + 1, (B,), device=dev, generator=gen),
+            enc_lens // 2)
+        tok = tok * (torch.arange(U_TOKENS, device=dev)[None, :]
+                     < tok_lens[:, None])
+        batch = Batch(host(audio), host(lens).astype(np.int32),
+                      host(tok).astype(np.int32),
+                      host(tok_lens).astype(np.int32))
+        spec_mask = spec_augment_mask(front.frame_lens(lens), n_frames,
+                                      fcfg.n_mels, fcfg, gen)
+        res = {}
+        for tag, c in (("plain", cfg("torch", "torch")),
+                       ("[8]", cfg("cuda", "torch")),
+                       ("[13]", cfg("cuda", "cuda"))):
+            sv = Solver(c, V, device=dev)
+            with torch.no_grad():
+                sv.model.encoder.rel.table.copy_(table)
+            m, g = sv.grads(batch, spec_mask=spec_mask)
+            res[tag] = (float(m["loss"]),
+                        {n: t.detach() for n, t in zip(sv.names, g)})
+            del sv, g
+        for tag in ("[8]", "[13]"):
+            rows = grad_table(res[tag][1], res["plain"][1])
+            d_loss = abs(res[tag][0] - res["plain"][0]) / res["plain"][0]
+            worst = max(rows, key=lambda r: r[1])
+            lowest.setdefault(tag, []).append((rows[0][0], worst[1], d_loss))
+            print(f"[sweep] seed {seed} {tag} vs plain: relative |d loss| "
+                  f"{d_loss:.2e}; lowest cosines " + ", ".join(
+                      f"{n} {c:.5f} (rel {r:.4f})" for c, r, n in rows[:3])
+                  + f"; largest relative error {worst[1]:.4f} ({worst[2]})",
+                  flush=True)
+        del res
+    for tag, v in lowest.items():
+        cos, rel, dl = zip(*v)
+        print(f"[sweep] {tag} over seeds {seeds}: lowest cosine "
+              f"{min(cos):.5f} (each: {[round(c, 5) for c in cos]}; tol "
+              f"{TRAIN_MIN_COS}), largest relative error {max(rel):.4f} (tol "
+              f"{TRAIN_MAX_REL}), largest relative |d loss| {max(dl):.2e} "
+              f"(tol {TOL_TRAIN_LOSS}); {card}", flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -897,6 +1771,10 @@ def main() -> int:
         resolve_device,
     )
 
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
+        ffn_bwd,
+        ffn_fwd,
+    )
     from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
         lstm_seq_bwd,
         lstm_seq_fwd,
@@ -904,7 +1782,7 @@ def main() -> int:
 
     COUNTED = (logmel, toeplitz_fwd, attention_fwd, attention_bwd,
                toeplitz_reduce, ctc_alpha, ctc_beta, flash_fwd, flash_bwd,
-               lstm_seq_fwd, lstm_seq_bwd)
+               lstm_seq_fwd, lstm_seq_bwd, ffn_fwd, ffn_bwd)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     dv.set_tf32(False)
@@ -1577,6 +2455,11 @@ def main() -> int:
 
     # ---- [3i] the LSTM recurrence (rungs 1 and 2)
     lstm_kernel_phase(dev, gen, peaks, card, kernels)
+    # ---- [3j] the fused FFN block (the flagship and rung 3, ffn_impl=cuda),
+    # on a generator of its own: the later phases draw what they drew
+    # before it was added
+    ffn_kernel_phase(dev, torch.Generator(device=dev).manual_seed(13), peaks,
+                     card, kernels)
 
     # ---- [4] the main path, full width, bf16, through the kernels
     model = AsrModel(flagship_conformer(), device=dev, seed=0).eval()
@@ -1898,7 +2781,8 @@ def main() -> int:
                           "attention_bwd": 0, "toeplitz_reduce": 0,
                           "ctc_alpha": 0, "ctc_beta": 0,
                           "flash_fwd": mcfg.encoder_layers, "flash_bwd": 0,
-                          "lstm_seq_fwd": 0, "lstm_seq_bwd": 0},
+                          "lstm_seq_fwd": 0, "lstm_seq_bwd": 0,
+                          "ffn_fwd": 0, "ffn_bwd": 0},
           f"long-audio forward launch counts {long_counts}")
     kernels["flash_attention"]["launches"] = long_counts["flash_fwd"]
     check(tuple(enc.shape) == (Bl, T_long, D) and bool(
@@ -2051,7 +2935,8 @@ def main() -> int:
     check(step_l == {"logmel": 1, "toeplitz_fwd": 0, "attention_fwd": 0,
                      "attention_bwd": 0, "toeplitz_reduce": 0,
                      "ctc_alpha": 1, "ctc_beta": 1, "flash_fwd": L,
-                     "flash_bwd": L, "lstm_seq_fwd": 0, "lstm_seq_bwd": 0},
+                     "flash_bwd": L, "lstm_seq_fwd": 0, "lstm_seq_bwd": 0,
+                     "ffn_fwd": 0, "ffn_bwd": 0},
           f"long train step launch counts {step_l}")
     check(math.isfinite(float(metrics["loss"])), "long train step not finite")
     kernels["flash_attention_bwd"]["launches"] = step_l["flash_bwd"]
@@ -2081,10 +2966,16 @@ def main() -> int:
     # ---- [11] an4_ctc serving, [12] the wsj_las hybrid step (LSTM rungs)
     an4_serve_phase(dev, gen, card, kernels, COUNTED, t_start)
     las_train_phase(dev, gen, card, kernels, COUNTED, t_start)
+    # ---- [13] the flagship with ffn_impl=cuda, [14] rung 3 (Transformer)
+    flagship_ffn_phase(dev, card, kernels, COUNTED, t_start, audio,
+                       audio_lens, full_lens, table, batch, spec_mask)
+    rung3_phase(dev, gen, card, kernels, COUNTED, t_start, audio, audio_lens,
+                full_lens, spec_mask)
 
     order = ("logmel", "toeplitz", "attention", "attention_bwd",
              "toeplitz_reduce", "flash_attention", "flash_attention_bwd",
-             "ctc_alpha", "ctc_beta", "lstm_fwd", "lstm_bwd")
+             "ctc_alpha", "ctc_beta", "lstm_fwd", "lstm_bwd", "ffn_fwd",
+             "ffn_bwd")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2093,4 +2984,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-seeds"]:
+        sys.exit(train_seed_sweep([int(s) for s in sys.argv[2].split(",")]))
     sys.exit(main())

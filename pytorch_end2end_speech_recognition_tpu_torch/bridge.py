@@ -20,7 +20,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pytorch_end2end_speech_recognition_tpu_torch.utils.config import AsrConfig
 
 def _convert(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     parent, _, leaf = name.rpartition(".")
@@ -39,14 +38,12 @@ def _convert(name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     raise ValueError(f"{name}: no mapping for this parameter")
 
 
-def state_dict_from_jax(flat: dict[str, np.ndarray], cfg: AsrConfig
+def state_dict_from_jax(flat: dict[str, np.ndarray]
                         ) -> dict[str, torch.Tensor]:
     """Map a flattened nnx state onto `AsrModel`'s parameter names: a
     state_dict of float32 CPU tensors. Load it with
     `model.load_state_dict(sd, strict=False)`: the frontend's buffers are
     computed, not learned."""
-    if cfg.model.encoder == "transformer":
-        raise NotImplementedError("encoder 'transformer' is not ported yet")
     sd = {}
     for name, arr in sorted(flat.items()):
         key, val = _convert(name, np.asarray(arr, np.float32))

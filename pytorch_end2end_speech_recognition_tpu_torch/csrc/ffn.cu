@@ -1,0 +1,1037 @@
+// Fused FFN block: LayerNorm -> fc1 -> SiLU -> fc2 -> dropout -> residual,
+// forward and backward, the (R, F) intermediates never written to memory.
+//
+// Replaces: pytorch_end2end_speech_recognition_tpu/ops/ffn_pallas.py
+//   _ffn_fwd (pallas_call at :172, kernel body _fwd_kernel :77) and
+//   _ffn_bwd (pallas_call at :209, kernel body _bwd_kernel :94).
+//
+// Per row r of x (R, D), with W1 = fc1.weight (F, D) and W2 = fc2.weight
+// (D, F) as nn.Linear holds them (the JAX kernel's w1 and w2 are their
+// transposes), all bf16:
+//   y  = LN(x) = (x - mean) rstd gamma + beta      float32, eps 1e-6
+//   h1 = bf16(y) W1^T + b1                          float32 accumulation
+//   a  = h1 sigmoid(h1)                             float32
+//   h2 = rd(bf16(a) W2^T + b2)                      rd: rounded to x's dtype
+//   out = x + scale keep(r, c) h2                   rounded once to x's dtype
+// keep(r, c) is 0 or 1/(1-rate): a counter-based hash of (seed, global row,
+// column), murmur3's fmix32 three times, drops iff (low 24 bits) / 2^24 <
+// rate. It depends on nothing but those three, so no tile size changes it,
+// and the backward regenerates it bit for bit (the TPU kernel draws the
+// same role from its hardware PRNG). The seed is read from device memory.
+// The backward recomputes y, h1 and a from x and returns, as the TPU kernel:
+//   g2 = scale g keep,  dW2 = bf16(g2)^T bf16(a),  db2 = sum_r g2,
+//   gh1 = (bf16(g2) W2) sigmoid'(h1 ...) (silu'),  dW1 = bf16(gh1)^T bf16(y),
+//   db1 = sum_r gh1,  gy = bf16(gh1) W1,  dgamma = sum_r gy xn,
+//   dbeta = sum_r gy,  dx = g + rstd (gy gamma - mean(gy gamma)
+//   - xn mean(gy gamma xn)), the weight gradients summed in float32.
+//
+// Bound on the H100 at the flagship shape (R = 24,000, D 256, F 1,024):
+// the forward does 4 R D F = 25 GFLOP (25 us at 989 TFLOP/s bf16) against
+// ~25 MB of x and out (7.5 us at 3.35 TB/s); the backward's function needs
+// five products (h1, dW2, ga, dW1, gy; h2 enters no gradient), 10 R D F =
+// 63 GFLOP (64 us) against ~40 MB: the tensor cores bound both. These
+// kernels do 14 R D F in the backward (launch B recomputes h1 and ga), part
+// of their gap to the bound. Unfused, the two (R, F) activations alone
+// would move ~200 MB each way.
+//
+// Design. The TPU kernel keeps W1, W2 and their float32 gradient sums
+// (6 MB) in VMEM and walks row tiles in order. One SM holds 227 KB, so
+// here the weights stream through shared memory and the weight gradients
+// come from a second pass:
+// - forward: one block (D threads: 4 row warps x D/128 column warps) owns
+//   64 rows, keeps bf16 LN(x) in shared memory, and walks F in chunks
+//   (64, or 32 at D 512); each chunk's W1 rows and W2 columns arrive by
+//   cp.async into a double buffer. Per chunk: h1 = y W1c^T on the tensor
+//   cores (mma.sync m16n8k16, bf16 in, float32 out), SiLU, bf16 a into
+//   shared memory, then out_acc += a W2c^T into a (64, D) float32
+//   accumulator held in registers (64 per thread). The epilogue adds b2,
+//   applies the mask and the residual, and stores.
+// - backward, launch A (row-tile-major): the same tile walk recomputes
+//   h1 and also ga = bf16(g2) W2c, forms gh1, and accumulates gy += gh1
+//   W1c in registers; then dx, and this tile's column sums of gy xn, gy
+//   and g2 (dgamma, dbeta, db2 partials). It writes bf16 y and bf16 g2
+//   (R, D) for launch B, never the (R, F) intermediates.
+// - launch B (F-chunk-major): a block owns one F chunk (its W1 rows and W2
+//   columns stay in shared memory) and 1/S of the rows: per 64-row tile it
+//   recomputes h1 and ga from y and g2, and accumulates dW2c += g2^T a and
+//   dW1c += gh1^T y in registers (operands transposed on the way by
+//   ldmatrix.trans). S is the SM count over the chunk count, so the blocks
+//   fill the card once.
+// - launch C sums launch B's S partials and launch A's per-tile partials
+//   in a fixed order: the weight gradients are deterministic.
+// Operands not in the product's layout come through ldmatrix.trans. No
+// library product is called. wgmma/TMA and a persistent schedule are later
+// work; launch B re-reads y and g2 once per F chunk (from L2).
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BR = 64;  // rows per tile: 4 warps x 16
+constexpr float LN_EPS = 1e-6f;
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// mma fragments (g = lane / 4, t = lane % 4). A is 16 x 16 at (m0, k0), B
+// is 16 x 8 at (k0, n0).
+// A from a row-major [M][K] tile.
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s, int ld,
+                                       int m0, int k0, int g, int t) {
+  const bf16* p0 = s + (m0 + g) * ld + k0 + 2 * t;
+  const bf16* p1 = p0 + 8 * ld;
+  a[0] = ld32(p0);
+  a[1] = ld32(p1);
+  a[2] = ld32(p0 + 8);
+  a[3] = ld32(p1 + 8);
+}
+
+// A from a [K][M] tile (A^T stored row-major), transposed by ldmatrix.
+__device__ __forceinline__ void frag_a_t(uint32_t (&a)[4], const bf16* s,
+                                         int ld, int m0, int k0, int lane) {
+  const int q = lane >> 3, r = lane & 7;
+  const bf16* p = s + (k0 + (q >> 1) * 8 + r) * ld + m0 + (q & 1) * 8;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_addr(p)));
+}
+
+// B from an [N][K] tile (B column-major: nn.Linear's weight rows).
+__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1,
+                                       const bf16* s, int ld, int n0, int k0,
+                                       int g, int t) {
+  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
+  b0 = ld32(p);
+  b1 = ld32(p + 8);
+}
+
+// B from a [K][N] tile (B row-major), transposed by ldmatrix.
+__device__ __forceinline__ void frag_b_t(uint32_t& b0, uint32_t& b1,
+                                         const bf16* s, int ld, int n0, int k0,
+                                         int lane) {
+  const int l = lane & 15;
+  const bf16* p = s + (k0 + (l >> 3) * 8 + (l & 7)) * ld + n0;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b0), "=r"(b1)
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---- the dropout mask: keep(r, c) from (seed, global row, column)
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t row_key(uint32_t seed, uint32_t row) {
+  return fmix32(fmix32(seed + 0x9E3779B9u) ^ row);
+}
+
+// 0 (dropped) or keep_scale = 1 / (1 - rate)
+__device__ __forceinline__ float keep_mult(uint32_t rk, uint32_t col,
+                                           float rate, float keep_scale) {
+  const uint32_t u24 = fmix32(rk ^ col) & 0xFFFFFFu;
+  return (float)u24 * (1.0f / 16777216.0f) < rate ? 0.f : keep_scale;
+}
+
+// ---- the residual dtype (float or bf16)
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16(v));
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ void load2(const T* p, float& a, float& b) {
+  if constexpr (sizeof(T) == 2) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+    a = __low2float(v);
+    b = __high2float(v);
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    a = v.x;
+    b = v.y;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b) {
+  if constexpr (sizeof(T) == 2)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+
+// LayerNorm of the tile's 64 rows, a warp per row: bf16 y into sY (and
+// into y_out when given), the rows' mean and rstd into s_mean / s_rstd.
+// Rows past R read as zeros (y = beta; finite, and never stored).
+template <int D, typename XT>
+__device__ void layer_norm_tile(const XT* __restrict__ x,
+                                const float* __restrict__ gamma,
+                                const float* __restrict__ beta, int R, int r0,
+                                bf16* sY, float* s_mean, float* s_rstd,
+                                bf16* __restrict__ y_out, int warp, int lane,
+                                int nwarps) {
+  constexpr int PER = D / 32, LDD = D + 8;
+  for (int r = warp; r < BR; r += nwarps) {
+    const int row = r0 + r;
+    float v[PER];
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      v[j] = row < R ? to_f(x[(size_t)row * D + lane + 32 * j]) : 0.f;
+      sum += v[j];
+    }
+    const float mean = warp_sum(sum) * (1.f / D);
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const float d = v[j] - mean;
+      sq += d * d;
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(sq) * (1.f / D) + LN_EPS);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = lane + 32 * j;
+      const bf16 y = __float2bfloat16((v[j] - mean) * rstd * gamma[c] + beta[c]);
+      sY[r * LDD + c] = y;
+      if (y_out != nullptr && row < R) y_out[(size_t)row * D + c] = y;
+    }
+    if (lane == 0) {
+      s_mean[r] = mean;
+      s_rstd[r] = rstd;
+    }
+  }
+}
+
+// F-chunk of the weights into shared memory: W1 rows f0.. as [FC][D+8],
+// W2 columns f0.. as [D][FC+8].
+template <int D, int FC>
+__device__ __forceinline__ void load_weight_chunk(
+    const bf16* __restrict__ w1, const bf16* __restrict__ w2, int F, int f0,
+    bf16* d1, bf16* d2, int tid, int nthreads) {
+  constexpr int LDD = D + 8, LDF = FC + 8;
+  for (int i = tid; i < FC * (D / 8); i += nthreads) {
+    const int r = i / (D / 8), cc = (i % (D / 8)) * 8;
+    cp_async16(d1 + r * LDD + cc, w1 + (size_t)(f0 + r) * D + cc, true);
+  }
+  for (int i = tid; i < D * (FC / 8); i += nthreads) {
+    const int r = i / (FC / 8), cc = (i % (FC / 8)) * 8;
+    cp_async16(d2 + r * LDF + cc, w2 + (size_t)r * F + f0 + cc, true);
+  }
+}
+
+template <int D, int FC, int STAGES>
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  return 2 * BR * sizeof(float) +
+         (size_t)(BR * (D + 8) + STAGES * (FC * (D + 8) + D * (FC + 8)) +
+                  BR * (FC + 8)) * sizeof(bf16);
+}
+
+// ------------------------------------------------------------------ forward
+// grid: one block per 64-row tile; D threads (4 row warps x D/128 column
+// warps). Each warp owns 16 rows x 128 columns of the output accumulator.
+template <int D, int FC, typename XT>
+__global__ void __launch_bounds__(D)
+ffn_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, const bf16* __restrict__ w1,
+               const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+               const bf16* __restrict__ b2, const int* __restrict__ seed,
+               XT* __restrict__ out, int R, int F, float scale, float rate,
+               float keep_scale) {
+  constexpr int C = D / 128;         // column warps
+  constexpr int LDD = D + 8, LDF = FC + 8;
+  constexpr int CW = FC / C;         // h1 columns per warp
+  constexpr int NT1 = CW / 8;
+  constexpr int STAGE = FC * LDD + D * LDF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_mean = reinterpret_cast<float*>(smem_raw);
+  float* s_rstd = s_mean + BR;
+  bf16* sY = reinterpret_cast<bf16*>(s_rstd + BR);
+  bf16* sStage = sY + BR * LDD;
+  bf16* sA = sStage + 2 * STAGE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp & 3, cw = warp >> 2;
+  const int r0 = blockIdx.x * BR;
+  const int nC = F / FC;
+
+  load_weight_chunk<D, FC>(w1, w2, F, 0, sStage, sStage + FC * LDD, tid, D);
+  cp_async_commit();
+  layer_norm_tile<D, XT>(x, gamma, beta, R, r0, sY, s_mean, s_rstd, nullptr,
+                         warp, lane, D / 32);
+
+  float acc[16][4];
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+  for (int c = 0; c < nC; ++c) {
+    const int s = c & 1;
+    if (c + 1 < nC) {
+      bf16* nxt = sStage + (s ^ 1) * STAGE;
+      load_weight_chunk<D, FC>(w1, w2, F, (c + 1) * FC, nxt, nxt + FC * LDD,
+                               tid, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* W1 = sStage + s * STAGE;
+    const bf16* W2 = W1 + FC * LDD;
+
+    // h1 = y W1c^T: this warp's 16 rows x CW columns of the chunk
+    float h[NT1][4];
+#pragma unroll
+    for (int nt = 0; nt < NT1; ++nt) h[nt][0] = h[nt][1] = h[nt][2] = h[nt][3] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      frag_a(a, sY, LDD, rw * 16, kk * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT1; ++nt) {
+        uint32_t b0, b1v;
+        frag_b(b0, b1v, W1, LDD, cw * CW + nt * 8, kk * 16, g, t);
+        mma_bf16(h[nt], a, b0, b1v);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT1; ++nt) {
+      const int col = cw * CW + nt * 8 + 2 * t;
+      const float c0 = __bfloat162float(b1[c * FC + col]);
+      const float c1 = __bfloat162float(b1[c * FC + col + 1]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float v0 = h[nt][2 * half] + c0, v1 = h[nt][2 * half + 1] + c1;
+        *reinterpret_cast<uint32_t*>(sA + (rw * 16 + g + 8 * half) * LDF + col) =
+            pack_bf16(v0 * sigmoid(v0), v1 * sigmoid(v1));
+      }
+    }
+    __syncthreads();
+
+    // out_acc += a W2c^T: 16 rows x this warp's 128 output columns
+#pragma unroll
+    for (int kk = 0; kk < FC / 16; ++kk) {
+      uint32_t a[4];
+      frag_a(a, sA, LDF, rw * 16, kk * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        uint32_t b0, b1v;
+        frag_b(b0, b1v, W2, LDF, cw * 128 + nt * 8, kk * 16, g, t);
+        mma_bf16(acc[nt], a, b0, b1v);
+      }
+    }
+    __syncthreads();  // stage s and sA are free for the next chunk
+  }
+
+  const uint32_t sd = rate > 0.f ? static_cast<uint32_t>(seed[0]) : 0u;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + rw * 16 + g + 8 * half;
+    if (row >= R) continue;
+    const uint32_t rk = row_key(sd, row);
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const int col = cw * 128 + nt * 8 + 2 * t;
+      float v0 = round_to<XT>(acc[nt][2 * half] + __bfloat162float(b2[col]));
+      float v1 = round_to<XT>(acc[nt][2 * half + 1] + __bfloat162float(b2[col + 1]));
+      if (rate > 0.f) {
+        v0 *= keep_mult(rk, col, rate, keep_scale);
+        v1 *= keep_mult(rk, col + 1, rate, keep_scale);
+      }
+      float x0, x1;
+      load2(x + (size_t)row * D + col, x0, x1);
+      store2(out + (size_t)row * D + col, x0 + scale * v0, x1 + scale * v1);
+    }
+  }
+}
+
+// ------------------------------------------------- backward A: row tiles
+template <int D, int FC, int STAGES>
+__host__ __device__ constexpr size_t rows_smem_bytes() {
+  return (2 * BR + 2 * (D / 128) * BR) * sizeof(float) +
+         (size_t)(2 * BR * (D + 8) + STAGES * (FC * (D + 8) + D * (FC + 8)) +
+                  BR * (FC + 8)) * sizeof(bf16);
+}
+
+// grid: one block per 64-row tile; D threads as in the forward. Writes dx,
+// bf16 y and g2 (R, D) for launch B, and part[tile] = (column sums over
+// the tile's rows of gy xn, gy, g2), (3, D) float32.
+template <int D, int FC, int STAGES, typename XT>
+__global__ void __launch_bounds__(D)
+ffn_bwd_rows_kernel(const XT* __restrict__ x, const XT* __restrict__ gin,
+                    const float* __restrict__ gamma,
+                    const float* __restrict__ beta, const bf16* __restrict__ w1,
+                    const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+                    const int* __restrict__ seed, XT* __restrict__ dx,
+                    bf16* __restrict__ y_out, bf16* __restrict__ g2_out,
+                    float* __restrict__ part, int R, int F, float scale,
+                    float rate, float keep_scale) {
+  constexpr int C = D / 128;
+  constexpr int LDD = D + 8, LDF = FC + 8;
+  constexpr int CW = FC / C;
+  constexpr int NT1 = CW / 8;
+  constexpr int STAGE = FC * LDD + D * LDF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_mean = reinterpret_cast<float*>(smem_raw);
+  float* s_rstd = s_mean + BR;
+  float* s_row = s_rstd + BR;                       // [C][BR][2]
+  bf16* sY = reinterpret_cast<bf16*>(s_row + 2 * C * BR);
+  bf16* sG = sY + BR * LDD;
+  bf16* sStage = sG + BR * LDD;
+  bf16* sH = sStage + STAGES * STAGE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp & 3, cw = warp >> 2;
+  const int r0 = blockIdx.x * BR;
+  const int nC = F / FC;
+  const uint32_t sd = rate > 0.f ? static_cast<uint32_t>(seed[0]) : 0u;
+
+  load_weight_chunk<D, FC>(w1, w2, F, 0, sStage, sStage + FC * LDD, tid, D);
+  cp_async_commit();
+  layer_norm_tile<D, XT>(x, gamma, beta, R, r0, sY, s_mean, s_rstd, y_out,
+                         warp, lane, D / 32);
+  {
+    // g2 = scale g keep, a thread per column: bf16 into sG and g2_out, its
+    // float32 column sum (db2's partial) into part
+    const int col = tid;
+    float colsum = 0.f;
+    for (int r = 0; r < BR; ++r) {
+      const int row = r0 + r;
+      float v = 0.f;
+      if (row < R) {
+        v = scale * to_f(gin[(size_t)row * D + col]);
+        if (rate > 0.f) v *= keep_mult(row_key(sd, row), col, rate, keep_scale);
+      }
+      colsum += v;
+      const bf16 vb = __float2bfloat16(v);
+      sG[r * LDD + col] = vb;
+      if (row < R) g2_out[(size_t)row * D + col] = vb;
+    }
+    part[((size_t)blockIdx.x * 3 + 2) * D + col] = colsum;
+  }
+
+  float gy[16][4];
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) gy[nt][0] = gy[nt][1] = gy[nt][2] = gy[nt][3] = 0.f;
+
+  for (int c = 0; c < nC; ++c) {
+    const int s = STAGES == 2 ? (c & 1) : 0;
+    if constexpr (STAGES == 2) {
+      if (c + 1 < nC) {
+        bf16* nxt = sStage + (s ^ 1) * STAGE;
+        load_weight_chunk<D, FC>(w1, w2, F, (c + 1) * FC, nxt, nxt + FC * LDD,
+                                 tid, D);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      if (c > 0) {
+        load_weight_chunk<D, FC>(w1, w2, F, c * FC, sStage, sStage + FC * LDD,
+                                 tid, D);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* W1 = sStage + s * STAGE;
+    const bf16* W2 = W1 + FC * LDD;
+
+    // h1 = y W1c^T and ga = g2 W2c, the same 16 rows x CW columns
+    float h[NT1][4], ga[NT1][4];
+#pragma unroll
+    for (int nt = 0; nt < NT1; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[nt][e] = ga[nt][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ay[4], ag[4];
+      frag_a(ay, sY, LDD, rw * 16, kk * 16, g, t);
+      frag_a(ag, sG, LDD, rw * 16, kk * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT1; ++nt) {
+        const int n0 = cw * CW + nt * 8;
+        uint32_t b0, b1v;
+        frag_b(b0, b1v, W1, LDD, n0, kk * 16, g, t);
+        mma_bf16(h[nt], ay, b0, b1v);
+        frag_b_t(b0, b1v, W2, LDF, n0, kk * 16, lane);
+        mma_bf16(ga[nt], ag, b0, b1v);
+      }
+    }
+    // gh1 = ga silu'(h1), bf16 into sH
+#pragma unroll
+    for (int nt = 0; nt < NT1; ++nt) {
+      const int col = cw * CW + nt * 8 + 2 * t;
+      const float c0 = __bfloat162float(b1[c * FC + col]);
+      const float c1 = __bfloat162float(b1[c * FC + col + 1]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float v0 = h[nt][2 * half] + c0, v1 = h[nt][2 * half + 1] + c1;
+        const float s0 = sigmoid(v0), s1 = sigmoid(v1);
+        const float q0 = ga[nt][2 * half] * (s0 * (1.f + v0 * (1.f - s0)));
+        const float q1 = ga[nt][2 * half + 1] * (s1 * (1.f + v1 * (1.f - s1)));
+        *reinterpret_cast<uint32_t*>(sH + (rw * 16 + g + 8 * half) * LDF + col) =
+            pack_bf16(q0, q1);
+      }
+    }
+    __syncthreads();
+
+    // gy += gh1 W1c: W1c is [K = FC][N = D]
+#pragma unroll
+    for (int kk = 0; kk < FC / 16; ++kk) {
+      uint32_t a[4];
+      frag_a(a, sH, LDF, rw * 16, kk * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        uint32_t b0, b1v;
+        frag_b_t(b0, b1v, W1, LDD, cw * 128 + nt * 8, kk * 16, lane);
+        mma_bf16(gy[nt], a, b0, b1v);
+      }
+    }
+    __syncthreads();
+  }
+
+  // epilogue: the stages are free; colred [4 row warps][2][D] lives there
+  float* colred = reinterpret_cast<float*>(sStage);
+  const int ra = r0 + rw * 16 + g, rb = ra + 8;  // this thread's two rows
+  const bool oka = ra < R, okb = rb < R;
+  const float mean_a = s_mean[rw * 16 + g], rstd_a = s_rstd[rw * 16 + g];
+  const float mean_b = s_mean[rw * 16 + g + 8], rstd_b = s_rstd[rw * 16 + g + 8];
+  float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int col = cw * 128 + nt * 8 + 2 * t;
+    float xa0 = 0.f, xa1 = 0.f, xb0 = 0.f, xb1 = 0.f;
+    if (oka) load2(x + (size_t)ra * D + col, xa0, xa1);
+    if (okb) load2(x + (size_t)rb * D + col, xb0, xb1);
+    // xn of rows past R: 0
+    const float na0 = oka ? (xa0 - mean_a) * rstd_a : 0.f;
+    const float na1 = oka ? (xa1 - mean_a) * rstd_a : 0.f;
+    const float nb0 = okb ? (xb0 - mean_b) * rstd_b : 0.f;
+    const float nb1 = okb ? (xb1 - mean_b) * rstd_b : 0.f;
+    const float ga0 = gamma[col], ga1 = gamma[col + 1];
+    const float ya0 = oka ? gy[nt][0] : 0.f, ya1 = oka ? gy[nt][1] : 0.f;
+    const float yb0 = okb ? gy[nt][2] : 0.f, yb1 = okb ? gy[nt][3] : 0.f;
+    s1a += ya0 * ga0 + ya1 * ga1;
+    s2a += ya0 * ga0 * na0 + ya1 * ga1 * na1;
+    s1b += yb0 * ga0 + yb1 * ga1;
+    s2b += yb0 * ga0 * nb0 + yb1 * ga1 * nb1;
+    // column sums over the warp's 16 rows (dgamma, dbeta partials)
+    float dg0 = ya0 * na0 + yb0 * nb0, dg1 = ya1 * na1 + yb1 * nb1;
+    float db0 = ya0 + yb0, db1 = ya1 + yb1;
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      dg0 += __shfl_xor_sync(0xffffffffu, dg0, o);
+      dg1 += __shfl_xor_sync(0xffffffffu, dg1, o);
+      db0 += __shfl_xor_sync(0xffffffffu, db0, o);
+      db1 += __shfl_xor_sync(0xffffffffu, db1, o);
+    }
+    if (g == 0) {
+      colred[(rw * 2 + 0) * D + col] = dg0;
+      colred[(rw * 2 + 0) * D + col + 1] = dg1;
+      colred[(rw * 2 + 1) * D + col] = db0;
+      colred[(rw * 2 + 1) * D + col + 1] = db1;
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    s1a += __shfl_xor_sync(0xffffffffu, s1a, o);
+    s2a += __shfl_xor_sync(0xffffffffu, s2a, o);
+    s1b += __shfl_xor_sync(0xffffffffu, s1b, o);
+    s2b += __shfl_xor_sync(0xffffffffu, s2b, o);
+  }
+  if (t == 0) {
+    s_row[(cw * BR + rw * 16 + g) * 2 + 0] = s1a;
+    s_row[(cw * BR + rw * 16 + g) * 2 + 1] = s2a;
+    s_row[(cw * BR + rw * 16 + g + 8) * 2 + 0] = s1b;
+    s_row[(cw * BR + rw * 16 + g + 8) * 2 + 1] = s2b;
+  }
+  __syncthreads();
+  {
+    const int col = tid;  // dgamma and dbeta partials, summed in fixed order
+    float dg = 0.f, db = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      dg += colred[(q * 2 + 0) * D + col];
+      db += colred[(q * 2 + 1) * D + col];
+    }
+    part[((size_t)blockIdx.x * 3 + 0) * D + col] = dg;
+    part[((size_t)blockIdx.x * 3 + 1) * D + col] = db;
+  }
+  float m1a = 0.f, m2a = 0.f, m1b = 0.f, m2b = 0.f;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    m1a += s_row[(q * BR + rw * 16 + g) * 2 + 0];
+    m2a += s_row[(q * BR + rw * 16 + g) * 2 + 1];
+    m1b += s_row[(q * BR + rw * 16 + g + 8) * 2 + 0];
+    m2b += s_row[(q * BR + rw * 16 + g + 8) * 2 + 1];
+  }
+  m1a *= 1.f / D;
+  m2a *= 1.f / D;
+  m1b *= 1.f / D;
+  m2b *= 1.f / D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (row >= R) continue;
+    const float mean = half ? mean_b : mean_a, rstd = half ? rstd_b : rstd_a;
+    const float m1 = half ? m1b : m1a, m2 = half ? m2b : m2a;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      const int col = cw * 128 + nt * 8 + 2 * t;
+      float x0, x1, g0, g1;
+      load2(x + (size_t)row * D + col, x0, x1);
+      load2(gin + (size_t)row * D + col, g0, g1);
+      const float n0 = (x0 - mean) * rstd, n1 = (x1 - mean) * rstd;
+      const float q0 = gy[nt][2 * half] * gamma[col];
+      const float q1 = gy[nt][2 * half + 1] * gamma[col + 1];
+      store2(dx + (size_t)row * D + col, g0 + rstd * (q0 - m1 - n0 * m2),
+             g1 + rstd * (q1 - m1 - n1 * m2));
+    }
+  }
+}
+
+// ---------------------------------------------- backward B: weight chunks
+template <int D, int FCB>
+__host__ __device__ constexpr size_t weights_smem_bytes() {
+  return 4 * FCB * sizeof(float) +
+         (size_t)(FCB * (D + 8) + D * (FCB + 8) + 2 * BR * (D + 8) +
+                  2 * BR * (FCB + 8)) * sizeof(bf16);
+}
+
+// grid (F / FCB, S), 256 threads. Block (c, s) sums over the 64-row tiles
+// [s * tps, (s + 1) * tps): dW2p[s][:, chunk] = g2^T a, dW1p[s][chunk, :] =
+// gh1^T y and db1p[s][chunk] = sum gh1, from bf16 y and g2 of launch A.
+template <int D, int FCB>
+__global__ void __launch_bounds__(256, 1)
+ffn_bwd_weights_kernel(const bf16* __restrict__ yw, const bf16* __restrict__ g2w,
+                       const bf16* __restrict__ w1, const bf16* __restrict__ b1,
+                       const bf16* __restrict__ w2, float* __restrict__ dw1p,
+                       float* __restrict__ dw2p, float* __restrict__ db1p,
+                       int R, int F, int tps) {
+  constexpr int LDD = D + 8, LDF = FCB + 8;
+  constexpr int CW = FCB / 2;                 // h1 / ga columns per warp
+  constexpr int NTP = CW / 8;
+  constexpr int MT3 = D / 128, NT3 = FCB / 8;  // dW2c: warp rows D / 8
+  constexpr int MT4 = FCB / 16, NT4 = D / 64;  // dW1c: warp columns D / 8
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* db1red = reinterpret_cast<float*>(smem_raw);   // [4][FCB]
+  bf16* sW1 = reinterpret_cast<bf16*>(db1red + 4 * FCB);
+  bf16* sW2 = sW1 + FCB * LDD;
+  bf16* sY = sW2 + D * LDF;
+  bf16* sG = sY + BR * LDD;
+  bf16* sA = sG + BR * LDD;
+  bf16* sH = sA + BR * LDF;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp & 3, cw = warp >> 2;
+  const int f0 = blockIdx.x * FCB, split = blockIdx.y;
+
+  load_weight_chunk<D, FCB>(w1, w2, F, f0, sW1, sW2, tid, 256);
+  cp_async_commit();
+
+  float acc2[MT3][NT3][4], acc1[MT4][NT4][4], db1acc[NTP][2];
+#pragma unroll
+  for (int i = 0; i < MT3; ++i)
+#pragma unroll
+    for (int j = 0; j < NT3; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc2[i][j][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < MT4; ++i)
+#pragma unroll
+    for (int j = 0; j < NT4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc1[i][j][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NTP; ++i) db1acc[i][0] = db1acc[i][1] = 0.f;
+
+  for (int it = 0; it < tps; ++it) {
+    const int r0 = (split * tps + it) * BR;
+    if (r0 >= R) break;
+    for (int i = tid; i < BR * (D / 8); i += 256) {
+      const int r = i / (D / 8), cc = (i % (D / 8)) * 8;
+      const bool ok = r0 + r < R;
+      const size_t off = (size_t)(ok ? r0 + r : 0) * D + cc;
+      cp_async16(sY + r * LDD + cc, yw + off, ok);
+      cp_async16(sG + r * LDD + cc, g2w + off, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // h1 = y W1c^T, ga = g2 W2c; a and gh1 into sA and sH as bf16
+    float h[NTP][4], ga[NTP][4];
+#pragma unroll
+    for (int nt = 0; nt < NTP; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[nt][e] = ga[nt][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ay[4], ag[4];
+      frag_a(ay, sY, LDD, rw * 16, kk * 16, g, t);
+      frag_a(ag, sG, LDD, rw * 16, kk * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt) {
+        const int n0 = cw * CW + nt * 8;
+        uint32_t b0, b1v;
+        frag_b(b0, b1v, sW1, LDD, n0, kk * 16, g, t);
+        mma_bf16(h[nt], ay, b0, b1v);
+        frag_b_t(b0, b1v, sW2, LDF, n0, kk * 16, lane);
+        mma_bf16(ga[nt], ag, b0, b1v);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTP; ++nt) {
+      const int col = cw * CW + nt * 8 + 2 * t;
+      const float c0 = __bfloat162float(b1[f0 + col]);
+      const float c1 = __bfloat162float(b1[f0 + col + 1]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float v0 = h[nt][2 * half] + c0, v1 = h[nt][2 * half + 1] + c1;
+        const float s0 = sigmoid(v0), s1 = sigmoid(v1);
+        const float q0 = ga[nt][2 * half] * (s0 * (1.f + v0 * (1.f - s0)));
+        const float q1 = ga[nt][2 * half + 1] * (s1 * (1.f + v1 * (1.f - s1)));
+        const int r = rw * 16 + g + 8 * half;
+        *reinterpret_cast<uint32_t*>(sA + r * LDF + col) =
+            pack_bf16(v0 * s0, v1 * s1);
+        *reinterpret_cast<uint32_t*>(sH + r * LDF + col) = pack_bf16(q0, q1);
+        db1acc[nt][0] += q0;  // rows past R have g2 = 0, so gh1 = 0
+        db1acc[nt][1] += q1;
+      }
+    }
+    __syncthreads();
+
+    // dW2c (D x FCB) += g2^T a; this warp's D / 8 rows
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) {
+      uint32_t a[MT3][4];
+#pragma unroll
+      for (int mt = 0; mt < MT3; ++mt)
+        frag_a_t(a[mt], sG, LDD, warp * (D / 8) + mt * 16, kk * 16, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT3; ++nt) {
+        uint32_t b0, b1v;
+        frag_b_t(b0, b1v, sA, LDF, nt * 8, kk * 16, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT3; ++mt) mma_bf16(acc2[mt][nt], a[mt], b0, b1v);
+      }
+    }
+    // dW1c (FCB x D) += gh1^T y; this warp's D / 8 columns
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) {
+      uint32_t a[MT4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT4; ++mt)
+        frag_a_t(a[mt], sH, LDF, mt * 16, kk * 16, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT4; ++nt) {
+        uint32_t b0, b1v;
+        frag_b_t(b0, b1v, sY, LDD, warp * (D / 8) + nt * 8, kk * 16, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT4; ++mt) mma_bf16(acc1[mt][nt], a[mt], b0, b1v);
+      }
+    }
+    __syncthreads();  // the tile's buffers are free for the next one
+  }
+
+  float* p2 = dw2p + (size_t)split * D * F;
+#pragma unroll
+  for (int mt = 0; mt < MT3; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT3; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int d = warp * (D / 8) + mt * 16 + g + 8 * half;
+        *reinterpret_cast<float2*>(p2 + (size_t)d * F + f0 + nt * 8 + 2 * t) =
+            make_float2(acc2[mt][nt][2 * half], acc2[mt][nt][2 * half + 1]);
+      }
+  float* p1 = dw1p + (size_t)split * F * D;
+#pragma unroll
+  for (int mt = 0; mt < MT4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int f = f0 + mt * 16 + g + 8 * half;
+        *reinterpret_cast<float2*>(p1 + (size_t)f * D + warp * (D / 8) + nt * 8 + 2 * t) =
+            make_float2(acc1[mt][nt][2 * half], acc1[mt][nt][2 * half + 1]);
+      }
+#pragma unroll
+  for (int nt = 0; nt < NTP; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = db1acc[nt][j];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (g == 0) db1red[rw * FCB + cw * CW + nt * 8 + 2 * t + j] = v;
+    }
+  __syncthreads();
+  if (tid < FCB) {
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v += db1red[q * FCB + tid];
+    db1p[(size_t)split * F + f0 + tid] = v;
+  }
+}
+
+// ------------------------------------------------- backward C: the sums
+// Blocks [0, dense_blocks): a thread per element of dW1, dW2, db1, the S
+// partials summed in order. The rest: a warp per element of (dgamma, dbeta,
+// db2), the per-tile partials summed lane-strided then by a fixed butterfly.
+__global__ void ffn_bwd_reduce_kernel(
+    const float* __restrict__ dw1p, const float* __restrict__ dw2p,
+    const float* __restrict__ db1p, const float* __restrict__ part,
+    bf16* __restrict__ dw1, bf16* __restrict__ dw2, bf16* __restrict__ db1,
+    float* __restrict__ dgamma, float* __restrict__ dbeta,
+    bf16* __restrict__ db2, int S, int F, int D, int n_tiles,
+    int dense_blocks) {
+  if ((int)blockIdx.x < dense_blocks) {
+    const size_t FD = (size_t)F * D, total = 2 * FD + F;
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+         i += (size_t)dense_blocks * blockDim.x) {
+      const float* src = dw1p;
+      bf16* dst = dw1;
+      size_t j = i, stride = FD;
+      if (i >= 2 * FD) {
+        src = db1p, dst = db1, j = i - 2 * FD, stride = F;
+      } else if (i >= FD) {
+        src = dw2p, dst = dw2, j = i - FD;
+      }
+      float v = 0.f;
+      for (int s = 0; s < S; ++s) v += src[s * stride + j];
+      dst[j] = __float2bfloat16(v);
+    }
+    return;
+  }
+  const int w = (int)(((blockIdx.x - dense_blocks) * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (w >= 3 * D) return;
+  const int k = w / D, c = w % D;
+  float v = 0.f;
+  for (int i = lane; i < n_tiles; i += 32) v += part[((size_t)i * 3 + k) * D + c];
+  v = warp_sum(v);
+  if (lane == 0) {
+    if (k == 0) dgamma[c] = v;
+    else if (k == 1) dbeta[c] = v;
+    else db2[c] = __float2bfloat16(v);
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The F-chunk widths: 64, or 32 at D 512, where a 64-wide chunk of both
+// weights (and the backward's two (64, D) tiles) would not fit beside the
+// rest of a block's 227 KB.
+constexpr int chunk_of(int D) { return D <= 256 ? 64 : 32; }
+
+template <int D, typename XT>
+cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta,
+                       const void* w1, const void* b1, const void* w2,
+                       const void* b2, const void* seed, void* out, int R,
+                       int F, float scale, float rate, float keep_scale,
+                       cudaStream_t s) {
+  constexpr int FC = chunk_of(D);
+  constexpr size_t bytes = fwd_smem_bytes<D, FC, 2>();
+  cudaError_t e = allow_smem(ffn_fwd_kernel<D, FC, XT>, bytes);
+  if (e != cudaSuccess) return e;
+  ffn_fwd_kernel<D, FC, XT><<<(R + BR - 1) / BR, D, bytes, s>>>(
+      static_cast<const XT*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const bf16*>(b2), static_cast<const int*>(seed),
+      static_cast<XT*>(out), R, F, scale, rate, keep_scale);
+  return cudaGetLastError();
+}
+
+int splits_of(int R, int D, int F) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 132;
+  const int chunks = F / chunk_of(D), tiles = (R + BR - 1) / BR;
+  int S = sms / chunks;
+  if (S < 1) S = 1;
+  if (S > tiles) S = tiles;
+  return S;
+}
+
+template <int D, typename XT>
+cudaError_t launch_bwd(const void* x, const void* g, const void* gamma,
+                       const void* beta, const void* w1, const void* b1,
+                       const void* w2, const void* seed, void* dx, void* yw,
+                       void* g2w, void* part, void* dw1p, void* dw2p,
+                       void* db1p, void* dgamma, void* dbeta, void* dw1,
+                       void* db1, void* dw2, void* db2, int R, int F, int S,
+                       float scale, float rate, float keep_scale,
+                       cudaStream_t s) {
+  constexpr int FC = chunk_of(D);
+  constexpr int STAGES = D <= 256 ? 2 : 1;
+  constexpr size_t a_bytes = rows_smem_bytes<D, FC, STAGES>();
+  constexpr size_t b_bytes = weights_smem_bytes<D, FC>();
+  const int n_tiles = (R + BR - 1) / BR;
+  const int tps = (n_tiles + S - 1) / S;
+  cudaError_t e = allow_smem(ffn_bwd_rows_kernel<D, FC, STAGES, XT>, a_bytes);
+  if (e == cudaSuccess) e = allow_smem(ffn_bwd_weights_kernel<D, FC>, b_bytes);
+  if (e != cudaSuccess) return e;
+  ffn_bwd_rows_kernel<D, FC, STAGES, XT><<<n_tiles, D, a_bytes, s>>>(
+      static_cast<const XT*>(x), static_cast<const XT*>(g),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const int*>(seed),
+      static_cast<XT*>(dx), static_cast<bf16*>(yw), static_cast<bf16*>(g2w),
+      static_cast<float*>(part), R, F, scale, rate, keep_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ffn_bwd_weights_kernel<D, FC><<<dim3(F / FC, S), 256, b_bytes, s>>>(
+      static_cast<const bf16*>(yw), static_cast<const bf16*>(g2w),
+      static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(w2), static_cast<float*>(dw1p),
+      static_cast<float*>(dw2p), static_cast<float*>(db1p), R, F, tps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int dense_blocks = 264;
+  const int part_blocks = (3 * D * 32 + 255) / 256;
+  ffn_bwd_reduce_kernel<<<dense_blocks + part_blocks, 256, 0, s>>>(
+      static_cast<const float*>(dw1p), static_cast<const float*>(dw2p),
+      static_cast<const float*>(db1p), static_cast<const float*>(part),
+      static_cast<bf16*>(dw1), static_cast<bf16*>(dw2), static_cast<bf16*>(db1),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+      static_cast<bf16*>(db2), S, F, D, n_tiles, dense_blocks);
+  return cudaGetLastError();
+}
+
+bool shape_ok(int R, int D, int F) {
+  return R > 0 && (D == 256 || D == 512) && F >= 64 && F % 64 == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// x, out: (R, D), bf16 (x_is_bf16) or float32; gamma, beta: (D,) float32;
+// w1 (F, D), b1 (F,), w2 (D, F), b2 (D,): bf16; seed: (1,) int32 in
+// device memory (read only when rate > 0). D 256 (the flagship's and rung
+// 3's width) or 512 (rung 4's); F a multiple of 64. keep_scale = 1 / (1 - rate) as float32.
+int ffn_fwd_launch(const void* x, const void* gamma, const void* beta,
+                   const void* w1, const void* b1, const void* w2,
+                   const void* b2, const void* seed, void* out, int x_is_bf16,
+                   int R, int D, int F, float scale, float rate,
+                   float keep_scale, void* stream) {
+  if (!shape_ok(R, D, F)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FFN_FWD(DD, XT)                                                       \
+  return (int)launch_fwd<DD, XT>(x, gamma, beta, w1, b1, w2, b2, seed, out, R, \
+                                 F, scale, rate, keep_scale, s)
+  if (x_is_bf16) {
+    if (D == 256) FFN_FWD(256, bf16);
+    FFN_FWD(512, bf16);
+  }
+  if (D == 256) FFN_FWD(256, float);
+  FFN_FWD(512, float);
+#undef FFN_FWD
+}
+
+// The number S of row splits of the backward's weight-gradient pass (its
+// partial sums are S x the weights' size, float32).
+int ffn_bwd_splits(int R, int D, int F) {
+  if (!shape_ok(R, D, F)) return -1;
+  return splits_of(R, D, F);
+}
+
+// The backward. x, g (the cotangent of out), dx: (R, D) of x's dtype;
+// gamma, beta, w1, b1, w2 as in the forward; scratch: yw, g2w (R, D) bf16,
+// part (ceil(R / 64), 3, D), dw1p (S, F, D), dw2p (S, D, F), db1p (S, F)
+// float32 with S = ffn_bwd_splits(R, D, F); outputs dgamma, dbeta (D,)
+// float32 and dw1 (F, D), db1 (F,), dw2 (D, F), db2 (D,) bf16.
+int ffn_bwd_launch(const void* x, const void* g, const void* gamma,
+                   const void* beta, const void* w1, const void* b1,
+                   const void* w2, const void* seed, void* dx, void* yw,
+                   void* g2w, void* part, void* dw1p, void* dw2p, void* db1p,
+                   void* dgamma, void* dbeta, void* dw1, void* db1, void* dw2,
+                   void* db2, int x_is_bf16, int R, int D, int F, int S,
+                   float scale, float rate, float keep_scale, void* stream) {
+  if (!shape_ok(R, D, F) || S != splits_of(R, D, F))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FFN_BWD(DD, XT)                                                      \
+  return (int)launch_bwd<DD, XT>(x, g, gamma, beta, w1, b1, w2, seed, dx, yw, \
+                                 g2w, part, dw1p, dw2p, db1p, dgamma, dbeta, \
+                                 dw1, db1, dw2, db2, R, F, S, scale, rate,   \
+                                 keep_scale, s)
+  if (x_is_bf16) {
+    if (D == 256) FFN_BWD(256, bf16);
+    FFN_BWD(512, bf16);
+  }
+  if (D == 256) FFN_BWD(256, float);
+  FFN_BWD(512, float);
+#undef FFN_BWD
+}
+
+}  // extern "C"

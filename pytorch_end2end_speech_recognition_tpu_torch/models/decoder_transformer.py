@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -25,21 +24,12 @@ from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
     _layer_norm,
     _linear,
     dropout,
+    sinusoidal_pe,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import ModelConfig
 
 NEG_INF = -1e30
 SOS_EOS_ID = 1  # the tokenizers' shared <sos>/<eos> id (blank is 0)
-
-
-def sinusoidal_pe(T: int, D: int) -> np.ndarray:
-    pos = np.arange(T)[:, None]
-    i = np.arange(D // 2)[None, :]
-    angle = pos / np.power(10000.0, 2 * i / D)
-    pe = np.zeros((T, D), np.float32)
-    pe[:, 0::2] = np.sin(angle)
-    pe[:, 1::2] = np.cos(angle)
-    return pe
 
 
 def mha(q, k, v, mask, heads: int):

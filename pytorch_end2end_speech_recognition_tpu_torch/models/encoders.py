@@ -1,5 +1,6 @@
 """Encoders (the port of the JAX package's `models/encoders.py`): the
-stacked BiLSTM, the pyramidal BiLSTM with its VGG front, and the Conformer.
+stacked BiLSTM, the pyramidal BiLSTM with its VGG front, the Transformer and
+the Conformer.
 
 Modules take (feats (B, T, F), frame_lens) and return (enc (B, T', D),
 enc_lens) with the reference's length math. Parameters are float32 and
@@ -10,11 +11,15 @@ norms use eps 1e-6 (Flax's default) and compute in float32. With
 `train=True` and a `torch.Generator`, dropout applies at the reference's
 sites (MHSA and FFN outputs, the conv module's output, after the
 subsampling, and after every LSTM layer); the generator's numbers are not JAX's keys, so the tests run
-training with dropout 0.
+training with dropout 0. With `model.ffn_impl='cuda'` every `FfnBlock` that
+the JAX package's gate would send to its fused Pallas FFN runs the fused FFN
+kernels (`ops/ffn_kernel.py`), whose dropout draws its seed from the same
+generator.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -25,6 +30,10 @@ from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
     fused_attention,
     toeplitz_dense,
     toeplitz_expand,
+)
+from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
+    ffn_block_fused,
+    fits_vmem,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn import bilstm_layer
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import ModelConfig
@@ -239,6 +248,16 @@ class ConvSubsample(nn.Module):
         return _linear(h, self.proj, self.dt).to(self.rdt), lens
 
 
+def sinusoidal_pe(T: int, D: int) -> np.ndarray:
+    pos = np.arange(T)[:, None]
+    i = np.arange(D // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / D)
+    pe = np.zeros((T, D), np.float32)
+    pe[:, 0::2] = np.sin(angle)
+    pe[:, 1::2] = np.cos(angle)
+    return pe
+
+
 class RelPosBias(nn.Module):
     """Bucketed relative position bias: a learned (layers, heads, n_buckets)
     table. The 2T-1 relative offsets are bucketed (a small gather) into
@@ -349,6 +368,17 @@ class MhsaBlock(nn.Module):
 
 
 class FfnBlock(nn.Module):
+    """Pre-LN FFN: x + scale * dropout(fc2(silu(fc1(LN(x))))).
+
+    With `ffn_impl='cuda'` it takes the fused FFN kernels where the JAX
+    package's gate takes its Pallas kernel: no sequence or pipeline
+    parallelism (the port has no sharded encoder) and `fits_vmem(D, F)`.
+    Elsewhere (rung 4 and 5's widths) it runs plain torch, as the JAX
+    package runs XLA there. On the kernel path the weights are cast to
+    `cfg.dtype` first, as the JAX model casts them, so their gradients are
+    rounded where the JAX package's are; the kernels raise on what they do
+    not take (float32 weights on the card), there is no fallback."""
+
     def __init__(self, cfg: ModelConfig, scale: float = 1.0):
         super().__init__()
         D = cfg.encoder_dim
@@ -358,8 +388,18 @@ class FfnBlock(nn.Module):
         self.fc2 = nn.Linear(cfg.encoder_ffn_dim, D)
         self.rate = cfg.encoder_dropout
         self.dt, self.rdt = _dt(cfg), _rdt(cfg)
+        self.fused = (cfg.ffn_impl == "cuda" and not cfg.sp
+                      and cfg.pp_stages == 1
+                      and fits_vmem(D, cfg.encoder_ffn_dim))
 
     def forward(self, x, train=False, gen=None):
+        if self.fused:
+            dt = self.dt
+            return ffn_block_fused(
+                x, self.ln.weight, self.ln.bias, self.fc1.weight.to(dt),
+                self.fc1.bias.to(dt), self.fc2.weight.to(dt),
+                self.fc2.bias.to(dt), rate=self.rate, scale=self.scale,
+                train=train, generator=gen)
         h = F.silu(_linear(_layer_norm(x, self.ln), self.fc1, self.dt))
         h = _linear(h, self.fc2, self.dt).to(self.rdt)
         return x + self.scale * dropout(h, self.rate, gen, train)
@@ -408,8 +448,22 @@ class ConformerBlock(nn.Module):
         return _layer_norm(x, self.ln).to(x.dtype)  # keep the residual dtype
 
 
-class ConformerEncoder(nn.Module):
-    def __init__(self, d_in: int, cfg: ModelConfig):
+class TransformerBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.mhsa = MhsaBlock(cfg)
+        self.ffn = FfnBlock(cfg)
+
+    def forward(self, x, mask, bias=None, diag=None, train=False, gen=None):
+        return self.ffn(self.mhsa(x, mask, bias, diag, train, gen), train, gen)
+
+
+class _BlockEncoder(nn.Module):
+    """The conv-subsampled block stacks (the JAX package's Transformer and
+    Conformer encoders): subsampling, the relative-bias table when
+    `pos_encoding='relative'`, `cfg.encoder_layers` blocks of `block`."""
+
+    def __init__(self, d_in: int, cfg: ModelConfig, block):
         super().__init__()
         if cfg.cp_mode or cfg.pp_stages > 1:
             raise NotImplementedError(
@@ -419,24 +473,58 @@ class ConformerEncoder(nn.Module):
         self.rel = (RelPosBias(cfg.encoder_layers, cfg.encoder_heads)
                     if cfg.pos_encoding == "relative" else None)
         self.blocks = nn.ModuleList(
-            [ConformerBlock(cfg) for _ in range(cfg.encoder_layers)])
+            [block(cfg) for _ in range(cfg.encoder_layers)])
         self.rate = cfg.encoder_dropout
         self.d_out = cfg.encoder_dim
 
-    def forward(self, x, lens, train: bool = False,
-                generator: torch.Generator | None = None):
-        x = _masked(x, length_mask(lens, x.shape[1])[..., None])
-        x, lens = self.sub(x, lens)
-        T = x.shape[1]
-        x = dropout(x, self.rate, generator, train)
-        mask = length_mask(lens, T)
-        biases, diags = _rel_bias_repr(self.rel, self.cfg, T)
+    def _apply_blocks(self, x, mask, train, generator):
+        """The blocks in order, each with its layer's slice of the relative
+        bias (dense, or the diagonals past FLASH_T; none for absolute PE)."""
+        biases, diags = _rel_bias_repr(self.rel, self.cfg, mask.shape[1])
         # unbind: one stacked gradient for all layers in the backward
         none = [None] * len(self.blocks)
         biases = biases.unbind(0) if biases is not None else none
         diags = diags.unbind(0) if diags is not None else none
         for blk, bias, diag in zip(self.blocks, biases, diags):
             x = blk(x, mask, bias, diag, train, generator)
+        return x
+
+
+class TransformerEncoder(_BlockEncoder):
+    """Conv-subsampled Transformer encoder (rung 3): (MHSA, FFN) blocks,
+    sinusoidal PE added after the subsampling when `pos_encoding` is
+    'absolute', a final LayerNorm; (B, T', D) float32."""
+
+    def __init__(self, d_in: int, cfg: ModelConfig):
+        super().__init__(d_in, cfg, TransformerBlock)
+        self.ln_out = nn.LayerNorm(cfg.encoder_dim, eps=LN_EPS)
+
+    def forward(self, x, lens, train: bool = False,
+                generator: torch.Generator | None = None):
+        x = _masked(x, length_mask(lens, x.shape[1])[..., None])
+        x, lens = self.sub(x, lens)
+        T = x.shape[1]
+        if self.rel is None:
+            pe = torch.from_numpy(sinusoidal_pe(T, x.shape[2]))
+            x = x + pe.to(x.device, x.dtype)
+        x = dropout(x, self.rate, generator, train)
+        mask = length_mask(lens, T)
+        x = _layer_norm(self._apply_blocks(x, mask, train, generator),
+                        self.ln_out)
+        return _masked(x, mask[..., None]), lens
+
+
+class ConformerEncoder(_BlockEncoder):
+    def __init__(self, d_in: int, cfg: ModelConfig):
+        super().__init__(d_in, cfg, ConformerBlock)
+
+    def forward(self, x, lens, train: bool = False,
+                generator: torch.Generator | None = None):
+        x = _masked(x, length_mask(lens, x.shape[1])[..., None])
+        x, lens = self.sub(x, lens)
+        x = dropout(x, self.rate, generator, train)
+        mask = length_mask(lens, x.shape[1])
+        x = self._apply_blocks(x, mask, train, generator)
         return _masked(x, mask[..., None]), lens
 
 
@@ -448,5 +536,5 @@ def build_encoder(d_in: int, cfg: ModelConfig) -> nn.Module:
     if cfg.encoder == "conformer":
         return ConformerEncoder(d_in, cfg)
     if cfg.encoder == "transformer":
-        raise NotImplementedError(f"encoder {cfg.encoder!r} is not ported yet")
+        return TransformerEncoder(d_in, cfg)
     raise ValueError(f"unknown encoder kind {cfg.encoder}")

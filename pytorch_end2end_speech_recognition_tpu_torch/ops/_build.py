@@ -62,6 +62,15 @@ SIGNATURES = {
     # xg, whh, lens, h_all, c_all, g, dxg, dwhh, dgbuf, B, T, H, stream
     "lstm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _P],
+    # x, gamma, beta, w1, b1, w2, b2, seed, out, x_is_bf16, R, D, F,
+    # scale, rate, keep_scale, stream
+    "ffn_fwd_launch": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _P],
+    # R, D, F -> the backward's row splits S
+    "ffn_bwd_splits": [_I, _I, _I],
+    # x, g, gamma, beta, w1, b1, w2, seed, dx, yw, g2w, part, dw1p, dw2p,
+    # db1p, dgamma, dbeta, dw1, db1, dw2, db2, x_is_bf16, R, D, F, S,
+    # scale, rate, keep_scale, stream
+    "ffn_bwd_launch": [_P] * 21 + [_I, _I, _I, _I, _I, _F, _F, _F, _P],
 }
 
 

@@ -110,8 +110,9 @@ class ModelConfig:
     ctc_impl: str = "auto"
     lstm_impl: str = "auto"
     attn_impl: str = "auto"          # encoder self-attention (fused kernel)
-    # fused LN+fc1+SiLU+dropout+fc2+residual FFN block; its kernel is not
-    # ported, so 'auto' resolves to 'torch' on every device
+    # fused LN+fc1+SiLU+dropout+fc2+residual FFN block (the kernels of
+    # ops/ffn_kernel.py): opt-in, 'auto' resolves to 'torch' on every
+    # device, as the JAX package's resolves to 'xla'
     ffn_impl: str = "auto"
     remat: bool = False              # jax.checkpoint encoder blocks (memory)
     # context parallelism for encoder self-attention over the 'model' axis:
@@ -294,8 +295,11 @@ def resolve_device(cfg: AsrConfig, device) -> AsrConfig:
     On CUDA: bfloat16 compute and residual stream, bfloat16 DFT operands,
     and the hand-written kernels for the frontend, the encoder attention,
     the LSTM recurrence and the CTC loss. On CPU: float32 and plain torch.
-    `ffn_impl` resolves to 'torch' everywhere until its kernel is ported. A concrete value is never overridden; 'cuda' on a non-CUDA
-    device raises.
+    `ffn_impl` 'auto' resolves to 'torch' on every device, as the JAX
+    package's 'auto' resolves to 'xla': its fused FFN is opt-in there, so
+    one config takes one path in both packages; `--set model.ffn_impl=cuda`
+    asks for the fused FFN kernels. A concrete value is never overridden;
+    'cuda' on a non-CUDA device raises.
     """
     import copy
 

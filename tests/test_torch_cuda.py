@@ -314,3 +314,99 @@ def test_lstm_kernels_raise_on_what_they_do_not_take(dev):
     xg, whh, lens, _ = _lstm_inputs(dev, 512, 3, 8, 320, 1)
     with pytest.raises(RuntimeError, match="lstm_seq_fwd"):
         lstm_seq_fwd(xg, whh, lens)
+
+
+def _ffn_inputs(dev, R, D, F, x_dtype, seed):
+    """x, gamma, beta, w1 (F, D), b1, w2 (D, F), b2 and a cotangent g: the
+    weights bf16 at the init's scale, x and g of x_dtype."""
+    g_ = torch.Generator(device="cpu").manual_seed(seed)
+    r = lambda *s, k=1.0, c=0.0: c + k * torch.randn(*s, generator=g_)  # noqa: E731
+    bf = torch.bfloat16
+    return (r(R, D).to(dev, x_dtype), r(D, k=0.1, c=1.0).to(dev),
+            r(D, k=0.1).to(dev), r(F, D, k=D ** -0.5).to(dev, bf),
+            r(F, k=0.1).to(dev, bf), r(D, F, k=F ** -0.5).to(dev, bf),
+            r(D, k=0.1).to(dev, bf), r(R, D).to(dev, x_dtype))
+
+
+@pytest.mark.parametrize("R,D,F,x_dtype,rate", [
+    (1000, 256, 1024, torch.bfloat16, 0.0),
+    (777, 256, 1024, torch.float32, 0.1),
+    (200, 256, 256, torch.bfloat16, 0.1),
+    (300, 512, 2048, torch.bfloat16, 0.1)])
+def test_ffn_kernels_match_plain(dev, R, D, F, x_dtype, rate):
+    """The fused FFN forward and backward against their plain versions on
+    the same inputs and seed, ragged R (a partial last row tile): out and
+    the seven gradients within 1e-2 relative (bf16 operands rounded at the
+    same points, float32 sums in other orders), their dtypes the plain
+    versions'; the backward seeded with seed + 1 does not pass."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
+        ffn_bwd,
+        ffn_bwd_plain,
+        ffn_fwd,
+        ffn_fwd_plain,
+    )
+
+    *args, g = _ffn_inputs(dev, R, D, F, x_dtype, R)
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    out = ffn_fwd(*args, seed, rate, 0.5)
+    ref = ffn_fwd_plain(*args, seed, rate, 0.5)
+    got = ffn_bwd(args[0], g, *args[1:], seed, rate, 0.5)
+    want = ffn_bwd_plain(args[0], g, *args[1:], seed, rate, 0.5)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype == x_dtype
+    assert _rel_err(out - args[0], ref - args[0]) < 1e-2
+    for name, a, b in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2",
+                           "db2"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _rel_err(a, b) < 1e-2, (name, _rel_err(a, b))
+    if rate > 0:
+        bad = ffn_bwd(args[0], g, *args[1:], seed + 1, rate, 0.5)
+        assert _rel_err(bad[6], want[6]) > 2e-2
+
+
+def test_ffn_kernel_masks_are_the_plain_mask(dev):
+    """The forward's mask, read as out = 0 + 1 * keep * (0 W2 + 1) at x = 0
+    float32, equals `keep_multiplier` exactly; the backward's, read row by
+    row from db2 = sum_r 0.5 g keep with g one-hot in rows 0, 63, 64 and the
+    last (ragged) row, is the same mask."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
+        ffn_bwd,
+        ffn_fwd,
+        keep_multiplier,
+    )
+
+    R, D, F, rate = 333, 256, 1024, 0.1
+    x, gamma, beta, w1, b1, w2, b2, _ = _ffn_inputs(dev, R, D, F,
+                                                    torch.float32, 1)
+    seed = torch.tensor([99], dtype=torch.int32, device=dev)
+    mask = keep_multiplier(seed, torch.arange(R, device=dev), D, rate)
+    out = ffn_fwd(torch.zeros_like(x), gamma, beta, w1, b1,
+                  torch.zeros_like(w2), torch.ones_like(b2), seed, rate, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, mask)
+    for r in (0, 63, 64, R - 1):
+        g = torch.zeros_like(x)
+        g[r] = 1.0
+        db2 = ffn_bwd(x, g, gamma, beta, w1, b1, w2, b2, seed, rate, 0.5)[6]
+        assert torch.equal(db2 != 0, mask[r] != 0), r
+        assert torch.allclose(db2.float(), 0.5 * mask[r], rtol=2 ** -7)
+
+
+def test_ffn_kernels_raise_on_what_they_do_not_take(dev):
+    """No fallback: float32 weights, D 128, and F not a multiple of 64
+    raise."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
+        ffn_fwd,
+    )
+
+    x, gamma, beta, w1, b1, w2, b2, _ = _ffn_inputs(dev, 10, 256, 256,
+                                                    torch.bfloat16, 2)
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="w1"):
+        ffn_fwd(x, gamma, beta, w1.float(), b1, w2, b2, seed, 0.0, 1.0)
+    with pytest.raises(ValueError, match="D 256 or 512"):
+        ffn_fwd(x[:, :128], gamma[:128], beta[:128], w1[:, :128], b1,
+                w2[:128], b2[:128], seed, 0.0, 1.0)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ffn_fwd(x, gamma, beta, w1[:200], b1[:200], w2[:, :200], b2, seed,
+                0.0, 1.0)

@@ -55,9 +55,9 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("module", [
     "ops.ctc_kernel", "ops.specaugment", "models.decoder_transformer",
-    "models.decoder", "ops.rnn", "ops.rnn_kernel",
-    "training.losses", "training.schedules", "training.solver",
-    "data.dataset"])
+    "models.decoder", "ops.rnn", "ops.rnn_kernel", "ops.ffn_kernel",
+    "models.encoders", "training.losses", "training.schedules",
+    "training.solver", "data.dataset"])
 def test_training_slice_modules_stand_alone(module):
     """The training slice's modules exist, are among those imported with JAX
     blocked below, and import neither JAX nor the JAX package (nor optax:
@@ -136,3 +136,46 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Frontend(resolve_device(cfg, "cuda").frontend)
     assert resolve_device(cfg, "cuda").frontend.impl == "cuda"
+
+
+@pytest.mark.parametrize("name,layers,blocks_per_layer,fused", [
+    ("flagship_conformer", 2, 2, True),
+    ("libri100_transformer", 2, 1, True),
+    ("libri960_conformer", 1, 2, False)])
+def test_ffn_impl_cuda_routes_ffn_blocks_as_the_jax_gate(
+        monkeypatch, name, layers, blocks_per_layer, fused):
+    """With model.ffn_impl='cuda' every FfnBlock calls the fused FFN
+    wrapper (on CPU tensors it runs the kernel's plain version) where the
+    JAX gate would call its Pallas kernel: at the flagship's and rung 3's
+    D 256 / F 1024. At rung 4's D 512 / F 2048 `fits_vmem` is false, and
+    the blocks run plain torch, as the JAX package runs XLA there."""
+    from pytorch_end2end_speech_recognition_tpu_torch.models import (
+        encoders as tenc,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        ffn_kernel as fk,
+    )
+
+    cfg = PRESETS[name]()
+    m = cfg.model
+    m.encoder_layers, m.ffn_impl = layers, "cuda"
+    m.dtype = m.residual_dtype = "float32"
+    enc = tenc.build_encoder(80, m)
+    ffns = [b for b in enc.modules() if isinstance(b, tenc.FfnBlock)]
+    assert len(ffns) == layers * blocks_per_layer
+    assert all(b.fused == fused for b in ffns)
+    calls = []
+    plain = fk.ffn_fwd
+
+    def spy(x, *args):
+        calls.append(tuple(x.shape))
+        return plain(x, *args)
+
+    monkeypatch.setattr(fk, "ffn_fwd", spy)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.normal_(0, 0.05)
+        out, _ = enc(torch.randn(2, 40, 80), torch.tensor([40, 25]))
+    assert bool(torch.isfinite(out).all())
+    assert len(calls) == (len(ffns) if fused else 0)
+    assert all(c == (2 * out.shape[1], m.encoder_dim) for c in calls)

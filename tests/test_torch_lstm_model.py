@@ -255,7 +255,7 @@ def train_case(tmp_path_factory):
         jnp.asarray(1.0, jnp.float32))
     ts = Solver(tcfg, VOCAB, device="cpu")
     missing, unexpected = ts.model.load_state_dict(
-        bridge.state_dict_from_jax(flat0, ts.cfg), strict=False)
+        bridge.state_dict_from_jax(flat0), strict=False)
     assert not unexpected and all(k.startswith("frontend.") for k in missing)
     inj = dict(spec_mask=torch.from_numpy(mask),
                coins=torch.from_numpy(coins))

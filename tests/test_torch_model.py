@@ -102,7 +102,7 @@ def slice_pair():
     m.encoder_layers, m.encoder_dim, m.encoder_ffn_dim = 4, 128, 256
     m.decoder_dim = 128
     tmodel = AsrModel(tcfg, device="cpu", seed=1)
-    sd = bridge.state_dict_from_jax(_flat(jmodel), tcfg)
+    sd = bridge.state_dict_from_jax(_flat(jmodel))
     missing, unexpected = tmodel.load_state_dict(sd, strict=False)
     assert not unexpected
     assert all(k.startswith("frontend.") for k in missing)

@@ -1,8 +1,10 @@
 """The shared case of the hybrid-training-step parity tests
-(`test_torch_train*.py`): flagship-small (4 L, d128, 2-layer decoder d128,
-vocab 64) in both packages, float32 on the CPU, dropout 0, a short noam
-warmup, a ragged batch of 3 rows with one pad row, and the JAX SpecAugment
-mask that the JAX train step draws from its key, for the port to inject."""
+(`test_torch_train*.py`, `test_torch_transformer.py`): flagship-small (4 L,
+d128, 2-layer decoder d128, vocab 64) or rung-3-small (Transformer encoder
+d64 H4 FFN 256, 2-layer decoder d64 FFN 256) in both packages, float32 on
+the CPU, dropout 0, a short noam warmup, a ragged batch of 3 rows with one
+pad row, and the JAX SpecAugment mask that the JAX train step draws from
+its key, for the port to inject."""
 
 import jax
 import jax.numpy as jnp
@@ -25,21 +27,34 @@ def flat(state) -> dict:
         for path, v in nnx.to_flat_state(state)}
 
 
-def configs(layers: int = 4, jax_attn_impl: str | None = None):
-    """flagship-small in both packages; `jax_attn_impl` overrides the JAX
-    model's resolved attention ('pallas' takes its flash path past 768
-    frames, which on the CPU is the chunked XLA version)."""
+def configs(layers: int = 4, jax_attn_impl: str | None = None,
+            preset: str = "flagship_conformer"):
+    """flagship-small (or, with preset 'libri100_transformer', rung-3-small)
+    in both packages; `jax_attn_impl` overrides the JAX model's resolved
+    attention ('pallas' takes its flash path past 768 frames, which on the
+    CPU is the chunked XLA version)."""
     from __graft_entry__ import _flagship_cfg
-    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
-        flagship_conformer,
+    from pytorch_end2end_speech_recognition_tpu.configs import (
+        presets as jpresets,
     )
+    from pytorch_end2end_speech_recognition_tpu.utils.config import (
+        resolve_platform,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.configs import presets
 
-    jcfg = _flagship_cfg(small=True)
+    tcfg = getattr(presets, preset)()
+    if preset == "flagship_conformer":
+        jcfg = _flagship_cfg(small=True)
+        m = tcfg.model
+        m.encoder_dim, m.encoder_ffn_dim, m.decoder_dim = 128, 256, 128
+    else:
+        jcfg = resolve_platform(getattr(jpresets, preset)())
+        for m in (jcfg.model, tcfg.model):
+            m.encoder_dim, m.encoder_ffn_dim, m.encoder_heads = 64, 256, 4
+            m.decoder_dim, m.decoder_ffn_dim, m.decoder_layers = 64, 256, 2
+            m.vocab_size = VOCAB
     if jax_attn_impl is not None:
         jcfg.model.attn_impl = jax_attn_impl
-    tcfg = flagship_conformer()
-    m = tcfg.model
-    m.encoder_dim, m.encoder_ffn_dim, m.decoder_dim = 128, 256, 128
     for c in (jcfg, tcfg):
         c.model.encoder_layers = layers
         c.model.dtype = "float32"
@@ -52,7 +67,8 @@ def configs(layers: int = 4, jax_attn_impl: str | None = None):
 
 
 def build(tmp_dir, layers: int = 4, Ts: int = 20480, ragged: int = 12000,
-          jax_attn_impl: str | None = None):
+          jax_attn_impl: str | None = None,
+          preset: str = "flagship_conformer"):
     """The JAX model and Solver, the batch (numpy and jnp: rows of Ts and
     `ragged` samples and a pad row), the train step's key and its
     SpecAugment mask, the initial JAX params. The default Ts (126 frames)
@@ -67,7 +83,7 @@ def build(tmp_dir, layers: int = 4, Ts: int = 20480, ragged: int = 12000,
         Solver as JSolver,
     )
 
-    jcfg, tcfg = configs(layers, jax_attn_impl)
+    jcfg, tcfg = configs(layers, jax_attn_impl, preset)
     jcfg.train.metrics_path = str(tmp_dir / "metrics.jsonl")
     jmodel = JAsrModel(jcfg, nnx.Rngs(0))
 
@@ -104,7 +120,7 @@ def port_solver(case):
 
     solver = Solver(case["tcfg"], VOCAB, device="cpu")
     missing, unexpected = solver.model.load_state_dict(
-        bridge.state_dict_from_jax(case["flat0"], solver.cfg), strict=False)
+        bridge.state_dict_from_jax(case["flat0"]), strict=False)
     assert not unexpected and all(k.startswith("frontend.") for k in missing)
     return solver
 
