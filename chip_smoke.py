@@ -6,7 +6,8 @@
 Phases, every one of which must pass (the script exits non-zero otherwise):
 
 1. versions, and the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from `csrc/` (parallel nvcc, ptxas -v printed);
+2. build the CUDA kernels from `csrc/` (parallel nvcc, ptxas -v printed;
+   the wgmma/TMA kernels' registers and spills summed up);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, with kernel, plain, library and bound times:
    log-mel, Toeplitz expand and reduce, attention forward and backward
@@ -18,6 +19,11 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    flash forward: diagonals dropped, lengths ignored; flash backward, held
    on ddiag alone to its float32 bound: ddiag shifted by one diagonal, a
    batch row left out, diagonals reversed; CTC: skip transitions disabled);
+   the attention and flash forwards (wgmma/TMA) timed in turns against
+   SDPA (5 windows of 50 launches, medians) with their TFLOP/s and bound /
+   kernel; the three gradient sums (Toeplitz reduce, attention backward's
+   dbias, flash backward's ddiag) launched twice on the same inputs, the
+   count of elements whose bits differ printed, which must be 0;
 4. the main path: the `flagship_conformer` preset at full width (12 L, d256,
    H4, FFN 1024, vocab 64), bf16, seeded random weights, encode -> CTC
    logits -> greedy decode on a ragged batch of 32 requests padded to 30 s;
@@ -39,7 +45,10 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    with its relative bias zeroed) that must fail; launch counts of one
    Solver step; five Solver steps with dropout and SpecAugment on, finite;
    train throughput in audio-seconds per second, peak memory, and a
-   torch.profiler breakdown of one step;
+   torch.profiler breakdown of one step; [8r] the same step with
+   model.remat (every encoder block under torch.utils.checkpoint): its peak
+   memory against the step without, and its loss and gradients against
+   plain torch within [8]'s tolerances;
 9. long-audio serving at full width past FLASH_T (T' 1,638): a ragged batch
    of 16 speech-like rows of 17-65 s padded to 2^20 samples, against the
    same weights in plain torch with a bias-zeroed control; launch counts per
@@ -78,7 +87,8 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    m); controls that must fail it (b1 dropped, gamma ignored, the backward
    seeded with seed + 1, the last row tile left out); the dropout mask read
    from both kernels against the plain formula, its drop fraction and kept
-   scale; kernel, plain, unfused-torch and bound times;
+   scale; kernel, plain, unfused-torch and bound times, the D-256 forward
+   (wgmma/TMA) in turns with the unfused sequence at rates 0 and 0.1;
 13. the flagship with model.ffn_impl=cuda: serving launch counts (logmel 1,
    Toeplitz 1, attention 12, FFN 24) against all-plain torch (with the
    bias-zeroed control) and against the same kernels with ffn_impl=torch;
@@ -105,6 +115,7 @@ from __future__ import annotations
 import json
 import math
 import platform
+import re
 import statistics
 import sys
 import time
@@ -259,11 +270,12 @@ U_RUNG3, V_RUNG3 = 128, 256  # rung 3's tokens per row and BPE vocabulary
 PROFILE_GROUPS = (
     ("ffn", ("ffn_",)),
     ("lstm", ("lstm_",)),
-    ("flash", ("kernel<64, 2>",)),  # the attention kernels in kDiag mode
+    # the attention kernels in kDiag mode
+    ("flash", ("kernel<64, 2>", "fwd_kernel<2,", "ddiag_sum")),
     ("logmel", ("logmel_",)),
     ("toeplitz", ("toeplitz_",)),
     ("attention_bwd", ("attn_bwd_",)),
-    ("attention", ("attention_kernel",)),
+    ("attention", ("attention_fwd_kernel",)),
     ("ctc", ("ctc_",)),
     ("optimizer", ("foreach", "multi_tensor")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
@@ -293,6 +305,55 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def turns_ms(fns: dict, windows: int = 5, iters: int = 50,
+             warmup: int = 3) -> dict:
+    """Median device time of each fn, measured in turns: each of `windows`
+    windows times the fns in order and then in reverse (kernel, library,
+    library, kernel), `iters` launches per timing (CUDA events); the median
+    is taken over the 2 x windows means of each fn."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    samples = {name: [] for name in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(windows):
+        for name in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fns[name]()
+            end.record()
+            end.synchronize()
+            samples[name].append(start.elapsed_time(end) / iters)
+    return {name: statistics.median(v) for name, v in samples.items()}
+
+
+def bits_differ(a, b) -> int:
+    """Elements of the tensors in `a` whose bits differ from `b`'s."""
+    n = 0
+    for x, y in zip(a, b):
+        if x is None:
+            continue
+        dt = torch.int16 if x.element_size() == 2 else torch.int32
+        n += int((x.view(dt) != y.view(dt)).sum())
+    return n
+
+
+def print_turns(tag: str, turns: dict, flops: float, bound_ms: float,
+                card: str) -> None:
+    """One line for a kernel timed in turns against its library yardstick:
+    both medians, the kernel's TFLOP/s and bound / kernel, and whether the
+    kernel is at or below the yardstick."""
+    k, lib = turns["kernel"], turns["library"]
+    print(f"{tag}: kernel {k:.4f} ms, library {lib:.4f} ms (medians of "
+          f"5 windows x 50 launches in turns), {flops / k / 1e9:.1f} "
+          f"TFLOP/s, bound / kernel {bound_ms / k:.3f}, kernel "
+          f"{'at or below' if k <= lib else 'ABOVE'} the library; {card}",
+          flush=True)
 
 
 def bound(n_bytes: float, op_seconds: float, peaks: dict) -> tuple[float, str]:
@@ -866,12 +927,27 @@ def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
                 # B recomputes h1 and ga)
                 bb = bound(nbytes(x, g, *w, *grads),
                            10.0 * R * D * F_ / peaks["bf16_flops"], peaks)
+                if D == 256:  # the wgmma kernel, in turns with cuBLAS
+                    turns = turns_ms({
+                        "kernel": lambda: ffn_fwd(x, *w, seed, rate, scale),
+                        "library": lambda: unfused(x, *w)})
+                    turns0 = turns_ms({
+                        "kernel": lambda: ffn_fwd(x, *w, seed, 0.0, scale),
+                        "library": lambda: unfused(x, *w)})
+                    for rt, tt in ((rate, turns), (0.0, turns0)):
+                        print_turns(f"[3j] ffn forward (wgmma) {tag}, rate "
+                                    f"{rt}", tt, 4.0 * R * D * F_, fb[0],
+                                    card)
+                else:
+                    turns = {"kernel": cuda_ms(
+                                 lambda: ffn_fwd(x, *w, seed, rate, scale)),
+                             "library": cuda_ms(lambda: unfused(x, *w))}
                 row_f = dict(
-                    ms=cuda_ms(lambda: ffn_fwd(x, *w, seed, rate, scale)),
+                    ms=turns["kernel"],
                     plain_ms=cuda_ms(lambda: ffn_fwd_plain(
                         x, *w, seed, rate, scale), iters=5),
                     bound_ms=fb[0], bound_by=fb[1],
-                    library_ms=cuda_ms(lambda: unfused(x, *w)))
+                    library_ms=turns["library"])
                 row_b = dict(
                     ms=cuda_ms(lambda: ffn_bwd(x, g, *w, seed, rate, scale)),
                     plain_ms=cuda_ms(lambda: ffn_bwd_plain(
@@ -1795,11 +1871,31 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, log = _build.build()
     print(f"[2] built {lib_path} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in log.splitlines():
+    lines = log.splitlines()
+    for line in lines:
         if any(w in line for w in ("registers", "Compiling entry", "spill",
                                    "error")):
             print("    " + line.strip())
-    _build.load()
+    # the wgmma/TMA kernels (namespace hop): registers and spills, from the
+    # ptxas -v lines that follow each entry
+    for i, line in enumerate(lines):
+        m = re.search(r"hop\d+([a-z_]+)I(Li(\d+)E|f|13__nv_bfloat16)", line)
+        if "Compiling entry" in line and m:
+            info = " ".join(lines[i + 1:i + 5])
+            regs = re.search(r"Used (\d+) registers", info)
+            spill = re.search(r"(\d+) bytes spill stores", info)
+            targ = (f"bias mode {m.group(3)}" if m.group(3) else
+                    {"f": "float32 x", "13__nv_bfloat16": "bf16 x"}[m.group(2)])
+            print(f"[2] wgmma kernel {m.group(1)} ({targ}): "
+                  f"{regs.group(1) if regs else '?'} registers, "
+                  f"{spill.group(1) if spill else '?'} bytes spilled",
+                  flush=True)
+    lib = _build.load()
+    print("[2] wgmma kernels' dynamic shared memory: attention_fwd_kernel "
+          + ", ".join(f"{m} {lib.attention_fwd_smem_bytes(i)} B" for i, m in
+                      enumerate(("no bias", "dense", "diagonals")))
+          + f"; ffn_fwd_wgmma_kernel {lib.ffn_fwd_smem_bytes()} B (one "
+          "block an SM; a block may take 232,448)", flush=True)
 
     cfg = resolve_device(flagship_conformer(), dev)
     fcfg, mcfg = cfg.frontend, cfg.model
@@ -1943,16 +2039,28 @@ def main() -> int:
     b_ms, b_by = bound(  # q, k, v read, an output of q's shape written
         nbytes(q, k, v, q, full) + H * T_enc * T_enc * bias.element_size(),
         flops / peaks["bf16_flops"], peaks)
+    turns = turns_ms({
+        "kernel": lambda: attention_fwd(q, k, v, bias, full, H),
+        "library": lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask)})
     kernels["attention"] = dict(
         name="attention", route="cuda", source=f"{PKG}/csrc/attention.cu",
         replaces="pytorch_end2end_speech_recognition_tpu/ops/"
                  "attention_pallas.py:82",
-        max_abs_err=attn_err,
-        ms=cuda_ms(lambda: attention_fwd(q, k, v, bias, full, H)),
+        max_abs_err=attn_err, ms=turns["kernel"],
         plain_ms=cuda_ms(lambda: attention_plain(q, k, v, bias, full, H)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=sdpa_mask)))
-    del qh, kh, vh, sdpa_mask
+        bound_ms=b_ms, bound_by=b_by, library_ms=turns["library"])
+    print_turns("[3] attention forward (wgmma) B=32 x T' "
+                f"{T_enc}", turns, flops, b_ms, card)
+    # the same against SDPA on the bias alone, broadcast over the batch
+    # ((1, H, T, T): all keys valid at full lengths), which reads 32x less
+    # mask than the yardstick above
+    bcast = bias[None, :, :T_enc, :T_enc].contiguous()
+    print_turns("[3] attention forward (wgmma) against SDPA with the "
+                "batch-broadcast bias", turns_ms({
+                    "kernel": lambda: attention_fwd(q, k, v, bias, full, H),
+                    "library": lambda: sdpa(qh, kh, vh, attn_mask=bcast)}),
+                flops, b_ms, card)
+    del qh, kh, vh, sdpa_mask, bcast
 
     # ---- [3d] Toeplitz reduce: the cotangent of every layer's bias block,
     # bf16 with a zero pad band (as the attention backward leaves it)
@@ -1961,6 +2069,10 @@ def main() -> int:
     g_bias[:, :T_enc, :T_enc] = torch.randn(N, T_enc, T_enc, device=dev,
                                             generator=gen).to(torch.bfloat16)
     red = toeplitz_reduce(g_bias, T_enc)
+    n_diff = bits_differ((red,), (toeplitz_reduce(g_bias, T_enc),))
+    print(f"[3] toeplitz reduce determinism: two launches differ in {n_diff}"
+          f" of {red.numel()} elements (must be 0)", flush=True)
+    check(n_diff == 0, "toeplitz reduce is not deterministic")
     red_ref = toeplitz_reduce_plain(g_bias, T_enc)
     red_tol = T_enc * 2.0 ** -24 * toeplitz_reduce_plain(g_bias.abs(), T_enc)
     torch.cuda.synchronize()
@@ -2016,6 +2128,12 @@ def main() -> int:
         gg = masked_g(g_out, lens)
         _, lse = attention_fwd(q, k, v, bias, lens, H, with_lse=True)
         got = attention_bwd(q, k, v, bias, lens, gg, lse, H)
+        n_diff = bits_differ(got, attention_bwd(q, k, v, bias, lens, gg, lse,
+                                                H))
+        print(f"[3] attention backward determinism ({tag} lens): two "
+              f"launches differ in {n_diff} elements of dq, dk, dv and dbias"
+              " (must be 0)", flush=True)
+        check(n_diff == 0, "attention backward is not deterministic")
         err, share = bwd_excess(q, k, v, bias, lens, gg, H, got)
         bwd_err = max(bwd_err, err)
         print(f"[3] attention backward {tag} lens: max |kernel - plain| = "
@@ -2206,6 +2324,13 @@ def main() -> int:
             gg = masked_g(fg, lens)
             _, flse = flash_fwd(fq, fk, fv, fd, lens, HH, with_lse=True)
             got = flash_bwd(fq, fk, fv, fd, lens, gg, flse, HH)
+            if si == 0:
+                n_diff = bits_differ(got, flash_bwd(fq, fk, fv, fd, lens, gg,
+                                                    flse, HH))
+                print(f"[3] flash backward determinism ({tag}, {ltag} lens):"
+                      f" two launches differ in {n_diff} elements of dq, dk,"
+                      " dv and ddiag (must be 0)", flush=True)
+                check(n_diff == 0, "flash backward is not deterministic")
             ref = flash_bwd_ref(fq, fk, fv, fd, lens, gg, HH)
             (err, share, _, _), (derr, dshare, dworst, dratio) = (
                 flash_bwd_excess(got, ref))
@@ -2270,23 +2395,26 @@ def main() -> int:
         gh = heads_of(gg, HH).to(torch.bfloat16)
         lib_mask = toeplitz_expand(fd, TT, TT)[None].to(torch.bfloat16).expand(
             BB, HH, TT, TT).contiguous()
-        lib_fwd = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=lib_mask),
-                          iters=10)
+        flops = 4.0 * HH * TT * Dh_ * float(ffull.sum())
+        fb_ms, fb_by = bound(nbytes(fq, fk, fv, fq, ffull, fd),
+                             flops / peaks["bf16_flops"], peaks)
+        turns = turns_ms({
+            "kernel": lambda: flash_fwd(fq, fk, fv, fd, ffull, HH),
+            "library": lambda: sdpa(qh, kh, vh, attn_mask=lib_mask)})
+        print_turns(f"[3] flash forward (wgmma) {tag}", turns, flops, fb_ms,
+                    card)
         lib_mask.requires_grad_()
         lib_bwd = cuda_ms(lambda: torch.autograd.grad(
             sdpa(qh, kh, vh, attn_mask=lib_mask), (qh, kh, vh, lib_mask), gh),
             iters=5)
         del qh, kh, vh, gh, lib_mask
-        flops = 4.0 * HH * TT * Dh_ * float(ffull.sum())
-        fb_ms, fb_by = bound(nbytes(fq, fk, fv, fq, ffull, fd),
-                             flops / peaks["bf16_flops"], peaks)
         bb_ms, bb_by = bound(7 * nbytes(fq) + 2 * nbytes(fd) + nbytes(flse),
                              2.5 * flops / peaks["bf16_flops"], peaks)
         row_f = dict(
-            ms=cuda_ms(lambda: flash_fwd(fq, fk, fv, fd, ffull, HH)),
+            ms=turns["kernel"],
             plain_ms=cuda_ms(lambda: flash_fwd_plain(fq, fk, fv, fd, ffull,
                                                      HH), iters=5),
-            bound_ms=fb_ms, bound_by=fb_by, library_ms=lib_fwd)
+            bound_ms=fb_ms, bound_by=fb_by, library_ms=turns["library"])
         row_b = dict(
             ms=cuda_ms(lambda: flash_bwd(fq, fk, fv, fd, ffull, gg, flse,
                                          HH)),
@@ -2646,8 +2774,10 @@ def main() -> int:
             c.model.attn_impl = c.model.ctc_impl = "torch"
         return c
 
-    def solver_with_table(impl: str, tbl) -> "Solver":
-        sv = Solver(train_cfg(impl, 0.0), V, device=dev)
+    def solver_with_table(impl: str, tbl, remat: bool = False) -> "Solver":
+        c = train_cfg(impl, 0.0)
+        c.model.remat = remat
+        sv = Solver(c, V, device=dev)
         with torch.no_grad():
             sv.model.encoder.rel.table.copy_(tbl)
         return sv
@@ -2711,7 +2841,41 @@ def main() -> int:
     check(c_loss > TOL_TRAIN_LOSS or cmin_c < TRAIN_MIN_COS
           or rmax_c > TRAIN_MAX_REL, "the train-step tolerance cannot see "
           "the bias")
-    del ps, pg, cg, kg
+    del ps, cg
+    # ---- [8r] model.remat: the same step with every encoder block under
+    # torch.utils.checkpoint; peak memory of the step above what was
+    # allocated before it, remat off and on, and the remat step against
+    # plain torch within [8]'s tolerances
+    step_gib, runs = {}, {}
+    for remat in (False, False, True):
+        sv = solver_with_table("cuda", table, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rm, rg = sv.grads(batch, spec_mask=spec_mask)
+        torch.cuda.synchronize()
+        step_gib[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        rg = {n: g.detach() for n, g in zip(sv.names, rg)}
+        runs.setdefault(remat, []).append(rg)
+        del sv
+    r_loss = abs(float(rm["loss"]) - float(pm["loss"])) / float(pm["loss"])
+    rcmin, rrmax, rcmed, _ = grad_stats(rg, pg)
+    names = tuple(rg)
+    n_remat = bits_differ(tuple(rg[n] for n in names),
+                          tuple(runs[False][0][n] for n in names))
+    n_again = bits_differ(tuple(runs[False][1][n] for n in names),
+                          tuple(runs[False][0][n] for n in names))
+    print(f"[8r] remat: step peak memory {step_gib[False]:.3f} GiB without, "
+          f"{step_gib[True]:.3f} GiB with (B={B} x {SECONDS:.0f} s); vs "
+          f"plain torch: relative |d loss| {r_loss:.2e}, cosine min "
+          f"{rcmin:.5f} median {rcmed:.5f}, relative error max {rrmax:.4f}; "
+          f"gradient elements whose bits differ from a step without remat: "
+          f"{n_remat}, between two steps without remat: {n_again} (of "
+          f"{sum(g.numel() for g in rg.values())})", flush=True)
+    check(step_gib[True] < step_gib[False] and r_loss <= TOL_TRAIN_LOSS
+          and rcmin >= TRAIN_MIN_COS and rrmax <= TRAIN_MAX_REL,
+          "remat step disagrees with plain or saves no memory")
+    del pg, kg, rg, runs
 
     # five Solver steps on the kernels, dropout 0.1 and SpecAugment drawn
     # from the Solver's generator on the card

@@ -20,17 +20,14 @@
 //
 // Design. The TPU kernel keeps a whole (Tp, Tp) float32 score block in VMEM
 // (2.4 MB at Tp=768), ten times what one block's shared memory holds. Here
-// one block of 4 warps takes a 64-query tile of one (b, h); each warp owns
-// 16 query rows. The block walks 64-key tiles up to lens[b] only (keys past
-// the row's length are never loaded). K, V and the tile's bias arrive by
-// cp.async into a double buffer, so the next tile streams in while this one
-// computes. Q . K^T and P . V run on the tensor cores as mma.sync.m16n8k16
-// (bf16 in, float32 accumulate); V's fragments come from its row-major tile
-// through ldmatrix.trans. The softmax is online: running row max and row
-// sum in float32 registers, the output accumulator rescaled when the max
-// grows. Scores never leave registers. blockIdx.z = b is the slowest grid
-// index, so the blocks in flight share one layer's 4.7 MB bias, which stays
-// in the 50 MB L2 across the batch. wgmma/TMA is later work.
+// the forward is FlashAttention-3's loop (`hop::attention_fwd_kernel` below):
+// a block of three consumer warpgroups and a producer warpgroup takes a
+// 192-query tile of one (b, h) and walks 64-key tiles up to lens[b] only; K,
+// V and the tile's bias arrive by TMA into an mbarrier ring; Q K^T and P V
+// are wgmma (bf16 in, float32 accumulate), P from registers; the softmax is
+// online, in float32 registers, and scores never leave them. The work items
+// take b slowest, so the blocks in flight share one layer's 4.7 MB bias,
+// which stays in the 50 MB L2 across the batch.
 //
 // Long-audio flash attention (the same kernels, bias mode kDiag).
 //
@@ -43,21 +40,26 @@
 //   (H, 2T-1) float32, summed over the batch and all query rows.
 //
 // The TPU kernels keep whole K/V rows in VMEM, take a single-pass softmax
-// over all keys, and expand the bias with a strided roll. Here the 64 x 64
-// tiles above run unchanged; only the bias source differs. A tile (q0, k0)
-// reads the 127 consecutive diagonals diag[h, (T-1) + k0 - q0 - 63 ...],
-// staged by cp.async into the stage's bias slot as float32 and indexed
-// w[j - i + 63], so the bias is not rounded to bf16 (the one numerical
-// difference from the dense path). In the backward's dq kernel each block
-// sums its ds along diagonals in shared memory over its whole key sweep
-// (one float per diagonal it touches, T + 63 of them), then adds each with
-// one global atomic: ~2 T atomics per block instead of 4,096 per tile.
+// over all keys, and expand the bias with a strided roll. Here the tiles
+// above run unchanged; only the bias source differs. A forward tile (q0, k0)
+// of 192 queries reads the 255 consecutive diagonals diag[h, (T-1) + k0 - q0
+// - 191 ...], a backward tile of 64 the 127 from (T-1) + k0 - q0 - 63, staged
+// as float32 and indexed w[j - i + rows - 1], so the bias is not rounded to
+// bf16 (the one numerical difference from the dense path). In the backward's
+// dq kernel each block sums its ds along diagonals in shared memory over its
+// whole key sweep (one float per diagonal it touches, T + 63 of them; each
+// warp first gathers a tile's diagonals in a window of its own, one row per
+// lane column, and the windows are added in warp order), writes them to its
+// own row of a partial buffer, and a second launch adds the rows per diagonal
+// in a fixed order.
 // Any T, no padding. Bound (H100 SXM, 989 TFLOP/s bf16): the products, as
 // for the dense kernels; the diagonals add 16 KB per head.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -141,11 +143,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float pair_sum(uint32_t packed) {
-  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&packed);
-  return __low2float(v) + __high2float(v);
-}
-
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -164,240 +161,395 @@ __device__ __forceinline__ const typename BiasOf<BM>::T* head_bias(
   return nullptr;
 }
 
-template <int DH, int BM>
-__global__ void __launch_bounds__(128)
-attention_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const typename BiasOf<BM>::T* __restrict__ bias, int bias_ld,
-                 const int* __restrict__ lens, __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ lse, int T, int H, float sm_scale) {
-  constexpr int LDS = DH + 8;  // padded row of the Q/K/V tiles (bank spread)
-  constexpr int CH = DH / 8;   // 16-byte chunks per head row
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  // stage s: K tile [BK][LDS], V tile [BK][LDS], bias tile [BQ][LDB]
-  // (kDiag: the tile's 127 diagonals as float32 in the bias slot)
-  auto sK = [&](int s) { return smem + s * stage_elems<DH>(); };
-  auto sV = [&](int s) { return sK(s) + BK * LDS; };
-  auto sBias = [&](int s) { return sV(s) + BK * LDS; };
+// ------------------------------------------------- forward for Hopper
+// FlashAttention-3's structure at head width 64: a block takes a 192-query
+// tile of one (b, h) with three consumer warpgroups (64 queries each) and
+// one producer warpgroup, which hands its registers to them (setmaxnreg:
+// 160 a consumer thread).
+// - Blocks are persistent: one per SM walks the work items (query tile, head,
+//   batch row). One producer thread loads each item's Q tile into one of two
+//   buffers, so the next item's Q arrives while this one computes, and per
+//   64-key tile K, V and (kDense) the 192 x 64 bias tile by TMA into a three-
+//   stage mbarrier ring; the tensor maps are 3-D, (B, T, H*Dh) for q, k, v
+//   and (H, ld, ld) for the bias, so a box that runs past T reads zeros and
+//   never the next utterance's rows. kDiag: the tile's 255 diagonals
+//   (float32, not rounded) are stored by the producer's first warp, whose 32
+//   lanes arrive on the same barrier. Key tiles past lens[b] are never
+//   loaded.
+// - S = Q K^T is wgmma m64n64k16 with Q and K in 128-byte-swizzled shared
+//   memory (Q scaled in float32 and rounded to bf16 in place first). The
+//   online softmax runs in registers as in the mma.sync kernels (the
+//   accumulator layout per warp is the same): e rounded to bf16 before PV,
+//   lse from the sum of the unrounded e.
+// - [O | l] += P [V | 1] is wgmma m64n72k16 with P as the register A
+//   operand and V the B operand read from its row-major [key][d] tile
+//   through the descriptor's transpose (MN-major); columns 64-71 come from
+//   a block of ones, so the tensor cores also sum the rounded e of each
+//   row, rescaled with O.
+// - Within a warpgroup the next tile's S goes to the tensor cores before
+//   this tile's P V, so the softmax of tile j + 1 runs while P_j V_j
+//   computes; O is rescaled once that product is done.
+// The output and lse leave registers with the row < T test.
+namespace hop {
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group / column
-  const int len = min(max(lens[b], 0), T);
-  const size_t row0 = (size_t)b * T;
-  const auto* bias_h = head_bias<BM>(bias, h, bias_ld, T);
+using namespace hopper;
 
-  // Q tile, scaled in f32 and rounded back to bf16 (as the TPU kernel
-  // does), staged in stage 1's K buffer and moved to registers.
-  {
-    __nv_bfloat16* sQ = sK(1);
-    for (int c = tid; c < BQ * CH; c += blockDim.x) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      const int row = qt * BQ + r;
-      __align__(16) uint4 raw = make_uint4(0, 0, 0, 0);
-      if (row < T)
-        raw = *reinterpret_cast<const uint4*>(q + (row0 + row) * D + h * DH + cc);
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        e[u] = __float2bfloat16(__bfloat162float(e[u]) * sm_scale);
-      *reinterpret_cast<uint4*>(sQ + r * LDS + cc) = raw;
+// 2^x by the hardware's approximation (2 ulp; results below 2^-126 flush
+// to 0, far below what a bf16 e or the row sums can hold beside the row
+// maximum's 1)
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int CONSUMERS = 3;
+constexpr int QROWS = CONSUMERS * 64;         // 192 queries a block
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+// three stages let the producer stay a tile ahead of the two that each
+// consumer holds (S of tile j + 1 in flight beside P_j V_j)
+constexpr int STAGES = 3;
+constexpr uint32_t Q_BYTES = QROWS * 128;     // (192, 64) bf16
+constexpr uint32_t KV_BYTES = BK * 128;       // (64, 64) bf16
+constexpr uint32_t BIAS_BYTES = QROWS * 128;  // (192, 64) bf16, kDense
+constexpr int DIAG_N = QROWS + BK;            // 255 diagonals (+1)
+static_assert(DIAG_N % 32 == 0, "the producer warp stores DIAG_N / 32 each");
+
+template <int BM>
+__host__ __device__ constexpr uint32_t stage_bytes() {
+  return 2 * KV_BYTES + (BM == kDense ? BIAS_BYTES : 0) +
+         (BM == kDiag ? 1024 : 0);  // 256 floats
+}
+
+constexpr uint32_t ONES_BYTES = BK * 128;     // (64, 64) bf16 ones
+
+template <int BM>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return 1024 + 2 * Q_BYTES + STAGES * stage_bytes<BM>() + ONES_BYTES + 128;
+}
+
+template <int BM>
+__global__ void __launch_bounds__(THREADS, 1)
+attention_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_bias,
+                     const float* __restrict__ diag,
+                     const int* __restrict__ lens,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                     int B, int T, int H, float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  auto sQ = [&](int i) { return base + i * Q_BYTES; };  // 2 Q buffers
+  auto sK = [&](int s) { return base + 2 * Q_BYTES + s * stage_bytes<BM>(); };
+  auto sV = [&](int s) { return sK(s) + KV_BYTES; };
+  auto sB = [&](int s) { return sK(s) + 2 * KV_BYTES; };
+  // a block of ones: V's 8 extra columns in P [V | 1], whose product
+  // column is the row sum of the bf16 e
+  unsigned char* sOnes = base + 2 * Q_BYTES + STAGES * stage_bytes<BM>();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sOnes + ONES_BYTES);
+  uint64_t* qfull = bars;
+  uint64_t* qempty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = bars + 4 + STAGES;
+
+  // the work items (query tile, head, batch row), query tile fastest; the
+  // block takes blockIdx.x, + gridDim.x, ...
+  const int n_qt = (T + QROWS - 1) / QROWS;
+  const int n_work = n_qt * H * B;
+  const int D = H * 64;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&qfull[i], 1);
+      mbar_init(&qempty[i], CONSUMERS * 128);
     }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], BM == kDiag ? 33 : 1);
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    fence_barrier_init();
   }
   __syncthreads();
-  const int wr = warp * 16;
-  uint32_t qa[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const __nv_bfloat16* p0 = sK(1) + (wr + g) * LDS + kk * 16 + 2 * t;
-    const __nv_bfloat16* p1 = p0 + 8 * LDS;
-    qa[kk][0] = ld32(p0);
-    qa[kk][1] = ld32(p1);
-    qa[kk][2] = ld32(p0 + 8);
-    qa[kk][3] = ld32(p1 + 8);
-  }
-  __syncthreads();  // stage 1 is free for the pipeline
 
-  // start the async copies of key tile kt into stage s
-  auto load_tile = [&](int kt, int s) {
-    __nv_bfloat16* dk = sK(s);
-    __nv_bfloat16* dv = sV(s);
-    for (int c = tid; c < BK * CH; c += blockDim.x) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      const int row = kt * BK + r;
-      const size_t off = (row0 + min(row, T - 1)) * D + h * DH + cc;
-      cp_async16(dk + r * LDS + cc, k + off, row < T);
-      cp_async16(dv + r * LDS + cc, v + off, row < T);
-    }
-    if constexpr (BM == kDense) {
-      __nv_bfloat16* db = sBias(s);
-      for (int c = tid; c < BQ * (BK / 8); c += blockDim.x) {
-        const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-        const int row = qt * BQ + r, col = kt * BK + cc;
-        const bool ok = row < T && col < T;
-        const __nv_bfloat16* src =
-            bias_h + (size_t)(ok ? row : 0) * bias_ld + (ok ? col : 0);
-        cp_async16(db + r * LDB + cc, src, ok);
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {  // ------------------------------------ producer
+    setmaxnreg_dec<24>();
+    const int lane = threadIdx.x - CONSUMERS * 128;
+    if (lane < 32) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int w = blockIdx.x, it = 0; w < n_work; w += gridDim.x, ++it) {
+        const int qt = w % n_qt, h = (w / n_qt) % H, b = w / (n_qt * H);
+        const int len = min(max(lens[b], 0), T);
+        const int n_kt = (len + BK - 1) / BK;
+        const int q0 = qt * QROWS;
+        // Q into the buffer the work before last has released
+        mbar_wait(&qempty[it & 1], ((it >> 1) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&qfull[it & 1], Q_BYTES);
+          tma_load_3d(sQ(it & 1), &tm_q, &qfull[it & 1], h * 64, q0, b);
+        }
+        for (int kt = 0; kt < n_kt; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          if (lane == 0) {
+            mbar_arrive_expect_tx(
+                &full[stage], 2 * KV_BYTES + (BM == kDense ? BIAS_BYTES : 0));
+            tma_load_3d(sK(stage), &tm_k, &full[stage], h * 64, kt * BK, b);
+            tma_load_3d(sV(stage), &tm_v, &full[stage], h * 64, kt * BK, b);
+            if constexpr (BM == kDense)
+              tma_load_3d(sB(stage), &tm_bias, &full[stage], kt * BK, q0, h);
+          }
+          if constexpr (BM == kDiag) {
+            // w[c] = diag_h[(T-1) + k0 - q0 - (QROWS-1) + c]; diagonals
+            // outside [0, 2T-1) belong to rows or keys past T and read as 0
+            float* w = reinterpret_cast<float*>(sB(stage));
+            const float* dh = diag + (size_t)h * (2 * T - 1);
+            const int ws = (T - 1) + kt * BK - q0 - (QROWS - 1);
+            float vals[DIAG_N / 32];  // all loads in flight, then the stores
+#pragma unroll
+            for (int u = 0; u < DIAG_N / 32; ++u) {
+              const int d = ws + lane + 32 * u;
+              vals[u] = d >= 0 && d < 2 * T - 1 ? __ldg(dh + d) : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < DIAG_N / 32; ++u) w[lane + 32 * u] = vals[u];
+            mbar_arrive(&full[stage]);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
-    if constexpr (BM == kDiag)
-      load_diag_window(reinterpret_cast<float*>(sBias(s)), bias_h, T,
-                       qt * BQ, kt * BK, tid, blockDim.x);
-    cp_async_commit();
-  };
-
-  float o[DH / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // running max, log2 units
-  float l_run[2] = {0.f, 0.f};
-  float l_ex[2] = {0.f, 0.f};  // sum of the unrounded e, for the row's lse
-  const int i0 = qt * BQ + wr + g;  // this thread's two query rows
-  const int i1 = i0 + 8;
+  } else {  // ----------------------------------------------- consumers
+  setmaxnreg_inc<160>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int c = threadIdx.x; c < int(ONES_BYTES / 16); c += CONSUMERS * 128)
+    reinterpret_cast<uint4*>(sOnes)[c] =
+        make_uint4(0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u);
+  fence_proxy_async();
+  // named barrier 4: the consumers (1-3 are the warpgroups' own)
+  asm volatile("bar.sync 4, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int w = blockIdx.x, it = 0; w < n_work; w += gridDim.x, ++it) {
+  const int qt = w % n_qt, h = (w / n_qt) % H, b = w / (n_qt * H);
+  const int len = min(max(lens[b], 0), T);
   const int n_kt = (len + BK - 1) / BK;
-
-  if (n_kt > 0) load_tile(0, 0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < n_kt) {
-      load_tile(kt + 1, s ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* tK = sK(s);
-    const __nv_bfloat16* tV = sV(s);
-    const __nv_bfloat16* tB = sBias(s);
-
-    float sc[BK / 8][4];
+  const int q0 = qt * QROWS;
+  unsigned char* myQ = sQ(it & 1) + wg * (64 * 128);
+  mbar_wait(&qfull[it & 1], (it >> 1) & 1);
+  // q * sm_scale in float32, rounded back to bf16, in place (elementwise:
+  // the swizzle does not matter)
+  for (int c = tid; c < 64 * 8; c += 128) {
+    uint4 raw = *reinterpret_cast<uint4*>(myQ + c * 16);
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        const __nv_bfloat16* kp = tK + (nt * 8 + g) * LDS + kk * 16 + 2 * t;
-        mma_bf16(sc[nt], qa[kk], ld32(kp), ld32(kp + 8));
-      }
-    }
+    for (int u = 0; u < 8; ++u)
+      e[u] = __float2bfloat16(__bfloat162float(e[u]) * sm_scale);
+    *reinterpret_cast<uint4*>(myQ + c * 16) = raw;
+  }
+  fence_proxy_async();
+  warpgroup_sync(1 + wg);
 
-    // bias, key mask, row max (scores kept in log2 units from here on)
+  // O (64 x 64) and, in columns 64-71, the running sum of the bf16 e
+  float o[36];
+#pragma unroll
+  for (int i = 0; i < 36; ++i) o[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // running max of s + bias
+  float l_ex[2] = {0.f, 0.f};  // sum of the unrounded e, for the row's lse
+  float alpha[2] = {1.f, 1.f};  // O's rescale before the next P V
+  const int rb = wg * 64 + warp * 16 + g;  // block-local row of half 0
+  const int i0 = q0 + rb, i1 = i0 + 8;
+  float sc[32];
+  uint32_t pa[BK / 16][4], pa_next[BK / 16][4];
+
+  // S = (q sm_scale) K^T of the tile in stage st; issued, not awaited
+  auto issue_s = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_ss<0>(sc, desc_sw128(myQ + kk * 32),
+                            desc_sw128(sK(st) + kk * 32), kk > 0 ? 1 : 0);
+    wgmma_commit();
+  };
+  // the online softmax of key tile kt (its S in sc, its bias in stage st):
+  // bf16 e into dst, the running max and sums updated, O's rescale in alpha
+  auto softmax = [&](int kt, int st, uint32_t (&dst)[BK / 16][4]) {
+    const unsigned char* tB = sB(st);
+    const bool ragged = kt * BK + BK > len;  // keys past len in this tile
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int rl = wr + g + half * 8;  // block-local query row
-        const int col = kt * BK + nt * 8 + 2 * t;
+        const int rl = rb + half * 8;
+        const int cl = nt * 8 + 2 * t;
+        const int col = kt * BK + cl;
         float b0 = 0.f, b1 = 0.f;
         if constexpr (BM == kDense) {
           const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(
-              tB + rl * LDB + nt * 8 + 2 * t);
+              tB + sw128_offset(rl, cl));
           b0 = __low2float(bb);
           b1 = __high2float(bb);
         }
         if constexpr (BM == kDiag) {
-          const float* w = reinterpret_cast<const float*>(tB) +
-                           (nt * 8 + 2 * t - rl + BQ - 1);
+          const float* w =
+              reinterpret_cast<const float*>(tB) + (cl - rl + QROWS - 1);
           b0 = w[0];
           b1 = w[1];
         }
-        float v0 = (sc[nt][2 * half] + b0) * LOG2E;
-        float v1 = (sc[nt][2 * half + 1] + b1) * LOG2E;
-        if (col >= len) v0 = MASKED;
-        if (col + 1 >= len) v1 = MASKED;
-        sc[nt][2 * half] = v0;
-        sc[nt][2 * half + 1] = v1;
+        float v0 = sc[4 * nt + 2 * half] + b0;
+        float v1 = sc[4 * nt + 2 * half + 1] + b1;
+        if (ragged) {
+          if (col >= len) v0 = MASKED;
+          if (col + 1 >= len) v1 = MASKED;
+        }
+        sc[4 * nt + 2 * half] = v0;
+        sc[4 * nt + 2 * half + 1] = v1;
         mx[half] = fmaxf(mx[half], fmaxf(v0, v1));
       }
     }
-    float m_new[2], alpha[2];
+    // e = 2^((s + bias - max) log2 e), one FFMA and one ex2 each
+    float ml[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      m_new[r] = fmaxf(m_run[r], mx[r]);
-      alpha[r] = exp2f(m_run[r] - m_new[r]);
-      m_run[r] = m_new[r];
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = exp2_fast((m_run[r] - m_new) * LOG2E);
+      m_run[r] = m_new;
+      ml[r] = m_new * LOG2E;
     }
-
-    uint32_t pa[BK / 16][4];
-    float rs[2] = {0.f, 0.f}, rx[2] = {0.f, 0.f};
+    float rx[2] = {0.f, 0.f};
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
-      const float e0 = exp2f(sc[nt][0] - m_new[0]);
-      const float e1 = exp2f(sc[nt][1] - m_new[0]);
-      const float e2 = exp2f(sc[nt][2] - m_new[1]);
-      const float e3 = exp2f(sc[nt][3] - m_new[1]);
-      const uint32_t lo = pack_bf16(e0, e1);
-      const uint32_t hi = pack_bf16(e2, e3);
-      rs[0] += pair_sum(lo);
-      rs[1] += pair_sum(hi);
+      const float e0 = exp2_fast(fmaf(sc[4 * nt + 0], LOG2E, -ml[0]));
+      const float e1 = exp2_fast(fmaf(sc[4 * nt + 1], LOG2E, -ml[0]));
+      const float e2 = exp2_fast(fmaf(sc[4 * nt + 2], LOG2E, -ml[1]));
+      const float e3 = exp2_fast(fmaf(sc[4 * nt + 3], LOG2E, -ml[1]));
       rx[0] += e0 + e1;
       rx[1] += e2 + e3;
-      pa[nt >> 1][(nt & 1) * 2 + 0] = lo;
-      pa[nt >> 1][(nt & 1) * 2 + 1] = hi;
+      dst[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(e0, e1);
+      dst[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(e2, e3);
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_run[r] = l_run[r] * alpha[r] + rs[r];
-      l_ex[r] = l_ex[r] * alpha[r] + rx[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt) {
-      o[nt][0] *= alpha[0];
-      o[nt][1] *= alpha[0];
-      o[nt][2] *= alpha[1];
-      o[nt][3] *= alpha[1];
-    }
-    // P . V: lanes 8q..8q+7 address keys kk*16 + (q&1)*8 + (lane&7) at head
-    // columns (nt + (q>>1))*8, giving b0/b1 of n-tiles nt and nt+1
-    const int q4 = lane >> 3;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < DH / 8; nt += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(
-            bv, tV + (kk * 16 + (q4 & 1) * 8 + (lane & 7)) * LDS +
-                    (nt + (q4 >> 1)) * 8);
-        mma_bf16(o[nt], pa[kk], bv[0], bv[1]);
-        mma_bf16(o[nt + 1], pa[kk], bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // stage s is consumed before it is refilled
+    for (int r = 0; r < 2; ++r) l_ex[r] = l_ex[r] * alpha[r] + rx[r];
+  };
+
+  if (n_kt > 0) {
+    mbar_wait(&full[stage], phase);
+    issue_s(stage);
+    wgmma_wait<0>();
+    fence_operand(sc);
+    softmax(0, stage, pa);  // O is 0: its rescale is moot
   }
+  // [O | l] += P [V | 1] for the tile in stage st: V's [key][d] tile is
+  // the MN-major B operand, 16 keys (2 KB) per k step, and the ones block
+  // its second 64-column block, LBO bytes on; issued with a fence of its
+  // own, so that an S issued before it is a pipeline stage of its own
+  auto issue_pv = [&](int st) {
+    fence_operand(o);
+    wgmma_fence();
+    const uint32_t lbo = static_cast<uint32_t>(sOnes - sV(st));
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n72k16_rs<1>(o, pa[kk], desc_sw128(sV(st) + kk * 2048, lbo));
+    wgmma_commit();
+  };
+  auto next_stage = [&]() {
+    const int cur = stage;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+    return cur;
+  };
+  // every tile but the last: the next tile's S, then this tile's P V, and
+  // the next softmax while P V computes; no branch between issue and wait
+  for (int kt = 0; kt + 1 < n_kt; ++kt) {
+    const int cur = next_stage();
+    mbar_wait(&full[stage], phase);
+    issue_s(stage);
+    issue_pv(cur);
+    wgmma_wait<1>();
+    fence_operand(sc);
+    softmax(kt + 1, stage, pa_next);
+    wgmma_wait<0>();
+    fence_operand(o);
+    fence_operand(pa);
+    mbar_arrive(&empty[cur]);
+#pragma unroll
+    for (int nt = 0; nt < 9; ++nt) {
+      o[4 * nt + 0] *= alpha[0];
+      o[4 * nt + 1] *= alpha[0];
+      o[4 * nt + 2] *= alpha[1];
+      o[4 * nt + 3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[kk][r] = pa_next[kk][r];
+  }
+  if (n_kt > 0) {  // the last tile's P V
+    const int cur = next_stage();
+    issue_pv(cur);
+    wgmma_wait<0>();
+    fence_operand(o);
+    fence_operand(pa);
+    mbar_arrive(&empty[cur]);
+  }
+
+  mbar_arrive(&qempty[it & 1]);  // every wgmma reading Q is done
 
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    inv[r] = 1.f / fmaxf(l_run[r], 1e-30f);
+    inv[r] = 1.f / fmaxf(o[32 + 2 * r], 1e-30f);  // the bf16 e's row sum
     l_ex[r] += __shfl_xor_sync(0xffffffffu, l_ex[r], 1);
     l_ex[r] += __shfl_xor_sync(0xffffffffu, l_ex[r], 2);
   }
+  const size_t row0 = (size_t)b * T;
   if (lse != nullptr && t == 0) {
     // log2-domain log-sum-exp of the float32 scores (JAX's backward
     // recomputes p = e / sum(e) from unrounded e); +inf for a row with no
     // key (len 0), so the backward's p is 0 there as this output is
     float* lrow = lse + ((size_t)b * H + h) * T;
-    if (i0 < T) lrow[i0] = len > 0 ? m_run[0] + log2f(l_ex[0]) : INFINITY;
-    if (i1 < T) lrow[i1] = len > 0 ? m_run[1] + log2f(l_ex[1]) : INFINITY;
+    if (i0 < T)
+      lrow[i0] = len > 0 ? m_run[0] * LOG2E + log2f(l_ex[0]) : INFINITY;
+    if (i1 < T)
+      lrow[i1] = len > 0 ? m_run[1] * LOG2E + log2f(l_ex[1]) : INFINITY;
   }
 #pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) {
-    const int col = h * DH + nt * 8 + 2 * t;
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = h * 64 + nt * 8 + 2 * t;
     if (i0 < T)
       *reinterpret_cast<__nv_bfloat162*>(out + (row0 + i0) * D + col) =
-          __floats2bfloat162_rn(o[nt][0] * inv[0], o[nt][1] * inv[0]);
+          __floats2bfloat162_rn(o[4 * nt] * inv[0], o[4 * nt + 1] * inv[0]);
     if (i1 < T)
       *reinterpret_cast<__nv_bfloat162*>(out + (row0 + i1) * D + col) =
-          __floats2bfloat162_rn(o[nt][2] * inv[1], o[nt][3] * inv[1]);
+          __floats2bfloat162_rn(o[4 * nt + 2] * inv[1],
+                                o[4 * nt + 3] * inv[1]);
   }
+  }  // work items
+  }  // consumers
 }
+
+// q, k or v (B, T, H*64) bf16: boxes of `rows` x 64 (one head's columns)
+inline cudaError_t qkv_map(CUtensorMap* m, const void* p, int B, int T,
+                           int H, int rows) {
+  const uint64_t dims[3] = {(uint64_t)H * 64, (uint64_t)T, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)H * 64 * 2, (uint64_t)T * H * 64 * 2};
+  const uint32_t box[3] = {64, (uint32_t)rows, 1};
+  return encode_bf16_sw128(m, p, 3, dims, strides, box);
+}
+
+}  // namespace hop
 
 // ---------------------------------------------------------------- backward
 //
@@ -420,9 +572,12 @@ attention_kernel(const __nv_bfloat16* __restrict__ q,
 // - attn_bwd_dq: one block per (64-query tile, head, batch row). Pass 1
 //   walks the key tiles (up to lens[b]) and accumulates delta =
 //   rowsum(dp * p), written out for the second kernel; pass 2 walks them
-//   again for ds, accumulates dq in registers and adds ds into the float32
-//   dbias with 8-byte float2 atomics (one per element pair, across the
-//   batch rows: the order of that sum varies from run to run).
+//   again for ds and accumulates dq in registers. With the diagonals it
+//   also sums ds along them into a partial row of its own, and a second
+//   launch adds the rows in a fixed order.
+// - attn_bwd_dbias (dense bias): one block per (key tile, query tile,
+//   head) recomputes ds on its tile for each batch row in order and sums
+//   it in registers. No atomics anywhere: the same bits on every run.
 // - attn_bwd_dkdv: one block per (64-key tile, head, batch row); each warp
 //   owns 16 keys and computes the transposed scores s^T = k q^T directly,
 //   so dk and dv accumulate in registers with no atomics. Key tiles past
@@ -437,9 +592,16 @@ attention_kernel(const __nv_bfloat16* __restrict__ q,
 // adds 4 more products of the same size, the price of keeping every score
 // tile on chip.
 
-// kDiag: dbias is ddiag (H, 2T-1), and the dynamic shared memory holds,
-// after the two stages, the block's per-diagonal ds sums: sAcc[u] for the
-// diagonal (T-1) - q0 - (BQ-1) + u, u < roundup(T, BK) + BQ.
+// kDiag: the dynamic shared memory holds, after the two stages, the
+// four warps' windows of one key tile's diagonals and the block's
+// per-diagonal ds sums sAcc[u] for the diagonal (T-1) - q0 - (BQ-1) + u, u
+// < roundup(T, BK) + BQ; the block writes sAcc to its own row of the
+// (B n_qt H, roundup(T, BK) + BQ) float32 partial buffer, which
+// attn_bwd_ddiag_sum_kernel adds per diagonal in (batch row, query tile)
+// order. kDense: dbias comes from attn_bwd_dbias_kernel. Every sum has one
+// fixed order: the same bits on every run.
+constexpr int DIAG_WIN = 80;  // a warp's 16 x 64 tile spans 79 diagonals
+
 template <int DH, int BM>
 __global__ void __launch_bounds__(128)
 attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
@@ -449,7 +611,7 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                    const typename BiasOf<BM>::T* __restrict__ bias,
                    int bias_ld, const int* __restrict__ lens,
                    const float* __restrict__ lse, float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, float* __restrict__ dbias,
+                   __nv_bfloat16* __restrict__ dq, float* __restrict__ part,
                    int T, int H, float sm_scale) {
   constexpr int LDS = DH + 8;
   constexpr int CH = DH / 8;
@@ -457,19 +619,25 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   auto sK = [&](int s) { return smem + s * stage_elems<DH>(); };
   auto sV = [&](int s) { return sK(s) + BK * LDS; };
   auto sBias = [&](int s) { return sV(s) + BK * LDS; };
-  float* sAcc = reinterpret_cast<float*>(smem + 2 * stage_elems<DH>());
+  // kDiag: the warps' windows [4 warps][4 lanes t][DIAG_WIN], then sAcc
+  float* sWin = reinterpret_cast<float*>(smem + 2 * stage_elems<DH>());
+  float* sAcc = sWin + 16 * DIAG_WIN;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int D = H * DH;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3;
+  const auto* bias_h = head_bias<BM>(bias, h, bias_ld, T);
+  const int wr = warp * 16;
+  const int i0 = qt * BQ + wr + gq;  // this thread's two query rows
+  const int i1 = i0 + 8;
+  const int q4 = lane >> 3;
+  const int KW = (T + BK - 1) / BK * BK + BQ;  // diagonals a block can touch
   const int len = min(max(lens[b], 0), T);
   const size_t row0 = (size_t)b * T;
-  const auto* bias_h = head_bias<BM>(bias, h, bias_ld, T);
   const int n_kt = (len + BK - 1) / BK;
-  const int n_acc = n_kt * BK + BQ;  // diagonals this block can touch
   if constexpr (BM == kDiag) {
-    for (int u = tid; u < n_acc; u += blockDim.x) sAcc[u] = 0.f;
+    for (int u = tid; u < KW; u += blockDim.x) sAcc[u] = 0.f;
   }
 
   // Q (scaled in f32, rounded to bf16) and G tiles -> A fragments
@@ -494,7 +662,6 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  const int wr = warp * 16;
   uint32_t qa[DH / 16][4], ga[DH / 16][4];
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
@@ -537,16 +704,14 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   };
 
-  const int i0 = qt * BQ + wr + gq;  // this thread's two query rows
-  const int i1 = i0 + 8;
   const float* lse_bh = lse + ((size_t)b * H + h) * T;
   const float l2[2] = {i0 < T ? lse_bh[i0] : INFINITY,
                        i1 < T ? lse_bh[i1] : INFINITY};
   float dsum[2] = {0.f, 0.f};  // delta = rowsum(dp * p), after pass 0
   float o[DH / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  const int q4 = lane >> 3;
+  for (int nt = 0; nt < DH / 8; ++nt)
+    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 
   for (int pass = 0; pass < 2; ++pass) {
     if (n_kt > 0) load_tile(0, 0);
@@ -608,27 +773,26 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
           dsum[1] += p[nt][2] * dp[nt][2] + p[nt][3] * dp[nt][3];
         }
       } else {
-        // ds = p * (dp - delta), kept in p
+        // ds = p * (dp - delta), kept in p; 0 on masked keys and on rows
+        // past T (p = 0 there)
 #pragma unroll
         for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             p[nt][2 * half] *= dp[nt][2 * half] - dsum[half];
             p[nt][2 * half + 1] *= dp[nt][2 * half + 1] - dsum[half];
-            const int i = half ? i1 : i0;
-            const int col = kt * BK + nt * 8 + 2 * t;
-            if (BM == kDense && i < T && col < len)
-              atomicAdd(reinterpret_cast<float2*>(
-                            dbias + ((size_t)h * bias_ld + i) * bias_ld + col),
-                        make_float2(p[nt][2 * half], p[nt][2 * half + 1]));
           }
         }
         if constexpr (BM == kDiag) {
-          // ds onto its diagonals: element (row wr+gq+8*half, key kt*BK +
-          // nt*8 + 2t + e) lies on u = kt*BK + nt*8 + 2t + e - wr - gq -
-          // 8*half + BQ-1, so (nt = m, half 0) and (nt = m+1, half 1) share
-          // one; ds is 0 on masked keys and rows past T (p = 0 there)
-          float* acc = sAcc + kt * BK + 2 * t - wr - gq + (BQ - 1);
+          // ds onto this warp's window of the tile's diagonals: element
+          // (row wr+gq+8*half, key kt*BK + nt*8 + 2t + e) lies on window
+          // slot 8*(nt-half) + e + 2t - gq + 15, so (nt = m, half 0) and
+          // (nt = m+1, half 1) share one; each lane t has its own row of
+          // the window, so the lanes of one step hit distinct slots
+          float* win = sWin + (warp * 4 + t) * DIAG_WIN + 2 * t - gq + 15;
+          for (int u = lane; u < 4 * DIAG_WIN; u += 32)
+            sWin[warp * 4 * DIAG_WIN + u] = 0.f;
+          __syncwarp();
 #pragma unroll
           for (int m = -1; m < BK / 8; ++m) {
 #pragma unroll
@@ -636,7 +800,8 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
               float val = 0.f;
               if (m >= 0) val += p[m][e];
               if (m + 1 < BK / 8) val += p[m + 1][2 + e];
-              atomicAdd(acc + m * 8 + e, val);
+              win[m * 8 + e] += val;
+              __syncwarp();
             }
           }
         }
@@ -658,6 +823,25 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
             mma_bf16(o[nt + 1], a, bk[2], bk[3]);
           }
         }
+        if constexpr (BM == kDiag) {
+          // the four warps' windows into the block's sums, in warp and
+          // lane order: block slot kt*BK + u is warp w's window slot u -
+          // 48 + 16 w
+          __syncthreads();
+          if (tid < BQ + BK - 1) {
+            float acc = 0.f;
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+              const int ul = tid - 48 + 16 * w;
+              if (ul >= 0 && ul < DIAG_WIN) {
+#pragma unroll
+                for (int tt = 0; tt < 4; ++tt)
+                  acc += sWin[(w * 4 + tt) * DIAG_WIN + ul];
+              }
+            }
+            sAcc[kt * BK + tid] += acc;
+          }
+        }
       }
       __syncthreads();  // stage s is consumed before it is refilled
     }
@@ -674,15 +858,13 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  if constexpr (BM == kDiag) {  // one atomic per diagonal the block touched
+  if constexpr (BM == kDiag) {  // this block's row of the partial buffer
     __syncthreads();
-    const int d0 = (T - 1) - qt * BQ - (BQ - 1);
-    float* dd = dbias + (size_t)h * (2 * T - 1);
-    for (int u = tid; u < n_acc; u += blockDim.x) {
-      const int d = d0 + u;
-      const float val = sAcc[u];
-      if (d >= 0 && d < 2 * T - 1 && val != 0.f) atomicAdd(dd + d, val);
-    }
+    const int n_qt = gridDim.x;
+    float* row = part + (((size_t)b * n_qt + qt) * H + h) * KW;
+    const int n_acc = n_kt * BK + BQ;
+    for (int u = tid; u < KW; u += blockDim.x)
+      row[u] = u < n_acc ? sAcc[u] : 0.f;
   }
 
 #pragma unroll
@@ -695,6 +877,190 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(dq + (row0 + i1) * D + col) =
           __floats2bfloat162_rn(o[nt][2] * sm_scale, o[nt][3] * sm_scale);
   }
+}
+
+// Dense dbias[h, i, j] = sum_b ds_b[i, j] for i, j < T (0 in the pad band),
+// in batch order: one block per (64-key tile, 64-query tile, head) walks
+// the batch rows whose keys reach its tile, recomputes that row's p and dp
+// on its tile from q, k, v, g and the forward's lse and the dq kernel's
+// delta (two 64 x 64 x 64 products, mma.sync), and adds ds into float32
+// registers; the sum is rounded to bf16 once and stored. No atomics and no
+// partial buffer: one fixed order, the same bits on every run. The tiles
+// of the next batch row arrive by cp.async while this one computes; the
+// bias tile, the same for every row, is held in registers.
+template <int DH>
+__global__ void __launch_bounds__(128, 3)
+attn_bwd_dbias_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ g,
+                      const __nv_bfloat16* __restrict__ bias, int bias_ld,
+                      const int* __restrict__ lens,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dbias, int B, int T, int H,
+                      float sm_scale) {
+  constexpr int LDS = DH + 8;
+  constexpr int CH = DH / 8;
+  constexpr int TILE = BK * LDS;  // one staged (64, DH) tile
+  extern __shared__ __align__(16) __nv_bfloat16 smem[];
+  // stage s: Q, G, K, V tiles (72 KB in all: three blocks an SM)
+  auto sT = [&](int s, int i) { return smem + (s * 4 + i) * TILE; };
+
+  const int kt = blockIdx.x, qt = blockIdx.y, h = blockIdx.z;
+  const int q0 = qt * BQ, k0 = kt * BK;
+  const int D = H * DH;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const int i0 = q0 + wr + gq, i1 = i0 + 8;  // this thread's two query rows
+  auto len_of = [&](int b) { return min(max(lens[b], 0), T); };
+  auto next_b = [&](int b) {  // the next batch row whose keys reach k0
+    while (b < B && len_of(b) <= k0) ++b;
+    return b;
+  };
+
+  float acc[BK / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+  if (q0 < T && k0 < T) {
+    // the tile's bias is the same for every batch row: this thread's 32
+    // values stay in registers (0 past T, where p is 0 anyway)
+    const __nv_bfloat16* bias_h = bias + (size_t)h * bias_ld * bias_ld;
+    float bv[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = half ? i1 : i0, col = k0 + nt * 8 + 2 * t;
+        float2 f = make_float2(0.f, 0.f);
+        if (row < T && col < T)
+          f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              bias_h + (size_t)row * bias_ld + col));
+        bv[nt][2 * half] = f.x;
+        bv[nt][2 * half + 1] = f.y;
+      }
+    }
+    auto load_tiles = [&](int b, int s) {
+      const size_t row0 = (size_t)b * T;
+      for (int c = tid; c < BQ * CH; c += blockDim.x) {
+        const int r = c / CH, cc = (c % CH) * 8;
+        const int qrow = q0 + r, krow = k0 + r;
+        const size_t qoff = (row0 + min(qrow, T - 1)) * D + h * DH + cc;
+        const size_t koff = (row0 + min(krow, T - 1)) * D + h * DH + cc;
+        cp_async16(sT(s, 0) + r * LDS + cc, q + qoff, qrow < T);
+        cp_async16(sT(s, 1) + r * LDS + cc, g + qoff, qrow < T);
+        cp_async16(sT(s, 2) + r * LDS + cc, k + koff, krow < T);
+        cp_async16(sT(s, 3) + r * LDS + cc, v + koff, krow < T);
+      }
+      cp_async_commit();
+    };
+    int b = next_b(0), s = 0;
+    if (b < B) load_tiles(b, 0);
+    while (b < B) {
+      const int bn = next_b(b + 1);
+      if (bn < B) {
+        load_tiles(bn, s ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int len = len_of(b);
+      const __nv_bfloat16 *tQ = sT(s, 0), *tG = sT(s, 1), *tK = sT(s, 2),
+                          *tV = sT(s, 3);
+      // q * sm_scale rounded to bf16 and g: A fragments of this warp's rows
+      uint32_t qa[DH / 16][4], ga[DH / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int o0 = (wr + gq) * LDS + kk * 16 + 2 * t, o1 = o0 + 8 * LDS;
+        const int offs[4] = {o0, o1, o0 + 8, o1 + 8};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(tQ + offs[r]));
+          qa[kk][r] = pack_bf16(f.x * sm_scale, f.y * sm_scale);
+          ga[kk][r] = ld32(tG + offs[r]);
+        }
+      }
+      float p[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
+        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          const int off = (nt * 8 + gq) * LDS + kk * 16 + 2 * t;
+          mma_bf16(p[nt], qa[kk], ld32(tK + off), ld32(tK + off + 8));
+          mma_bf16(dp[nt], ga[kk], ld32(tV + off), ld32(tV + off + 8));
+        }
+      }
+      const float* lse_bh = lse + ((size_t)b * H + h) * T;
+      const float* del_bh = delta + ((size_t)b * H + h) * T;
+      const float l2[2] = {i0 < T ? lse_bh[i0] : INFINITY,
+                           i1 < T ? lse_bh[i1] : INFINITY};
+      const float dl[2] = {i0 < T ? del_bh[i0] : 0.f,
+                           i1 < T ? del_bh[i1] : 0.f};
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int col = k0 + nt * 8 + 2 * t;
+          const float s0 = (p[nt][2 * half] + bv[nt][2 * half]) * LOG2E;
+          const float s1 =
+              (p[nt][2 * half + 1] + bv[nt][2 * half + 1]) * LOG2E;
+          const float p0 = col < len ? exp2f(s0 - l2[half]) : 0.f;
+          const float p1 = col + 1 < len ? exp2f(s1 - l2[half]) : 0.f;
+          acc[nt][2 * half] += p0 * (dp[nt][2 * half] - dl[half]);
+          acc[nt][2 * half + 1] += p1 * (dp[nt][2 * half + 1] - dl[half]);
+        }
+      }
+      __syncthreads();  // stage s is consumed before it is refilled
+      b = bn;
+      s ^= 1;
+    }
+  }
+
+  // the whole (bias_ld, bias_ld) plane: the T x T core, zeros around it
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+    const int col = k0 + nt * 8 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = half ? i1 : i0;
+      if (i >= bias_ld || col >= bias_ld) continue;
+      const bool in = i < T;
+      const float v0 = in && col < T ? acc[nt][2 * half] : 0.f;
+      const float v1 = in && col + 1 < T ? acc[nt][2 * half + 1] : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(
+          dbias + ((size_t)h * bias_ld + i) * bias_ld + col) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// ddiag[h, d] = the sum over (batch row, query tile), in that order, of the
+// dq blocks' partial rows: block (b, qt) holds diagonal d at slot d - (T-1)
+// + qt*BQ + BQ-1. One thread per (h, d).
+__global__ void attn_bwd_ddiag_sum_kernel(const float* __restrict__ part,
+                                          float* __restrict__ ddiag, int B,
+                                          int T, int H) {
+  const int W = 2 * T - 1;
+  const int d = blockIdx.x * blockDim.x + threadIdx.x, h = blockIdx.y;
+  if (d >= W) return;
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int KW = (T + BK - 1) / BK * BK + BQ;
+  float acc = 0.f;
+  for (int b = 0; b < B; ++b) {
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int u = d - (T - 1) + qt * BQ + (BQ - 1);
+      if (u >= 0 && u < KW)
+        acc += part[(((size_t)b * n_qt + qt) * H + h) * KW + u];
+    }
+  }
+  ddiag[(size_t)h * W + d] = acc;
 }
 
 template <int DH, int BM>
@@ -924,9 +1290,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 constexpr size_t kStageBytes = 2 * stage_elems<64>() * sizeof(__nv_bfloat16);
-// The dq kernel's per-diagonal sums in kDiag mode (see attn_bwd_dq_kernel).
+// The dq kernel's per-diagonal sums and warp windows in kDiag mode.
 size_t diag_acc_bytes(int T) {
-  return ((size_t)(T + BK - 1) / BK * BK + BQ) * sizeof(float);
+  return ((size_t)(T + BK - 1) / BK * BK + BQ + 16 * DIAG_WIN) * sizeof(float);
 }
 
 template <int BM>
@@ -934,15 +1300,28 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* bias, int bias_ld, const void* lens,
                        void* out, void* lse, int B, int T, int H,
                        float sm_scale, cudaStream_t s) {
-  using Bias = typename BiasOf<BM>::T;
-  cudaError_t e = allow_smem(attention_kernel<64, BM>, kStageBytes);
+  CUtensorMap mq, mk, mv, mb{};
+  cudaError_t e = hop::qkv_map(&mq, q, B, T, H, hop::QROWS);
+  if (e == cudaSuccess) e = hop::qkv_map(&mk, k, B, T, H, BK);
+  if (e == cudaSuccess) e = hop::qkv_map(&mv, v, B, T, H, BK);
+  if (e == cudaSuccess && BM == kDense) {
+    const uint64_t dims[3] = {(uint64_t)bias_ld, (uint64_t)bias_ld,
+                              (uint64_t)H};
+    const uint64_t strides[2] = {(uint64_t)bias_ld * 2,
+                                 (uint64_t)bias_ld * bias_ld * 2};
+    const uint32_t box[3] = {BK, hop::QROWS, 1};
+    e = hopper::encode_bf16_sw128(&mb, bias, 3, dims, strides, box);
+  }
+  constexpr size_t bytes = hop::smem_bytes<BM>();
+  if (e == cudaSuccess) e = allow_smem(hop::attention_fwd_kernel<BM>, bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid((T + BQ - 1) / BQ, H, B);
-  attention_kernel<64, BM><<<grid, 128, kStageBytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const Bias*>(bias),
-      bias_ld, static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), T, H, sm_scale);
+  const int n_work = (T + hop::QROWS - 1) / hop::QROWS * H * B;
+  const int grid = n_work < hopper::sm_count() ? n_work : hopper::sm_count();
+  hop::attention_fwd_kernel<BM><<<grid, hop::THREADS, bytes, s>>>(
+      mq, mk, mv, mb,
+      BM == kDiag ? static_cast<const float*>(bias) : nullptr,
+      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), B, T, H, sm_scale);
   return cudaGetLastError();
 }
 
@@ -950,8 +1329,8 @@ template <int BM>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* g, const void* bias, int bias_ld,
                        const void* lens, const void* lse, void* delta,
-                       void* dq, void* dk, void* dv, void* dbias, int B, int T,
-                       int H, float sm_scale, cudaStream_t s) {
+                       void* dq, void* dk, void* dv, void* part, void* dbias,
+                       int B, int T, int H, float sm_scale, cudaStream_t s) {
   using bf = __nv_bfloat16;
   using Bias = typename BiasOf<BM>::T;
   const size_t dq_bytes =
@@ -960,22 +1339,43 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   if (e == cudaSuccess)
     e = allow_smem(attn_bwd_dkdv_kernel<64, BM>, kStageBytes);
   if (e != cudaSuccess) return e;
-  dim3 grid((T + BQ - 1) / BQ, H, B);
-  attn_bwd_dq_kernel<64, BM><<<grid, 128, dq_bytes, s>>>(
+  const int n_qt = (T + BQ - 1) / BQ;
+  attn_bwd_dq_kernel<64, BM><<<dim3(n_qt, H, B), 128, dq_bytes, s>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(g),
       static_cast<const Bias*>(bias), bias_ld, static_cast<const int*>(lens),
       static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<bf*>(dq), static_cast<float*>(dbias), T, H, sm_scale);
+      static_cast<bf*>(dq), static_cast<float*>(part), T, H, sm_scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dkdv_kernel<64, BM><<<grid, 128, kStageBytes, s>>>(
+  attn_bwd_dkdv_kernel<64, BM><<<dim3(n_qt, H, B), 128, kStageBytes, s>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(g),
       static_cast<const Bias*>(bias), bias_ld, static_cast<const int*>(lens),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf*>(dk), static_cast<bf*>(dv), T, H, sm_scale);
-  return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if constexpr (BM == kDense) {
+    constexpr size_t bytes = 8 * BK * (64 + 8) * sizeof(bf);
+    e = allow_smem(attn_bwd_dbias_kernel<64>, bytes);
+    if (e != cudaSuccess) return e;
+    const int n_p = (bias_ld + BK - 1) / BK;
+    attn_bwd_dbias_kernel<64><<<dim3(n_p, n_p, H), 128, bytes, s>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(k),
+        static_cast<const bf*>(v), static_cast<const bf*>(g),
+        static_cast<const bf*>(bias), bias_ld, static_cast<const int*>(lens),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf*>(dbias), B, T, H, sm_scale);
+    e = cudaGetLastError();
+  }
+  if constexpr (BM == kDiag) {
+    attn_bwd_ddiag_sum_kernel<<<dim3((2 * T - 1 + 127) / 128, H), 128, 0,
+                                s>>>(static_cast<const float*>(part),
+                                     static_cast<float*>(dbias), B, T, H);
+    e = cudaGetLastError();
+  }
+  return e;
 }
 
 }  // namespace
@@ -1001,8 +1401,8 @@ extern "C" int attention_launch(const void* q, const void* k, const void* v,
 
 // The backward. q, k, v, g (the output cotangent), dq, dk, dv: (B, T, H*Dh)
 // bf16; bias as above or null; lse: the forward's (B, H, T) float32; delta:
-// (B, H, T) float32 scratch; dbias: (H, bias_ld, bias_ld) float32, zeroed
-// by the caller, or null (then bias must be null too). Dh must be 64.
+// (B, H, T) float32 scratch; dbias: (H, bias_ld, bias_ld) bf16, all of it
+// written, or null (then bias must be null too). Dh must be 64.
 extern "C" int attention_bwd_launch(const void* q, const void* k,
                                     const void* v, const void* g,
                                     const void* bias, int bias_ld,
@@ -1012,15 +1412,24 @@ extern "C" int attention_bwd_launch(const void* q, const void* k,
                                     float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bias != nullptr && bias_ld % 8) return (int)cudaErrorInvalidValue;
-  if ((bias == nullptr) != (dbias == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((bias == nullptr) != (dbias == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (Dh != 64) return (int)cudaErrorInvalidValue;
   return (int)(bias != nullptr
                    ? launch_bwd<kDense>(q, k, v, g, bias, bias_ld, lens, lse,
-                                        delta, dq, dk, dv, dbias, B, T, H,
-                                        sm_scale, s)
+                                        delta, dq, dk, dv, nullptr, dbias, B,
+                                        T, H, sm_scale, s)
                    : launch_bwd<kNoBias>(q, k, v, g, nullptr, 0, lens, lse,
-                                         delta, dq, dk, dv, nullptr, B, T, H,
-                                         sm_scale, s));
+                                         delta, dq, dk, dv, nullptr, nullptr,
+                                         B, T, H, sm_scale, s));
+}
+
+// The dynamic shared memory the forward kernel takes for bias mode
+// `bias_mode` (0 none, 1 dense, 2 diagonals), for reports.
+extern "C" int attention_fwd_smem_bytes(int bias_mode) {
+  return bias_mode == kDense  ? (int)hop::smem_bytes<kDense>()
+         : bias_mode == kDiag ? (int)hop::smem_bytes<kDiag>()
+                              : (int)hop::smem_bytes<kNoBias>();
 }
 
 // Long-audio flash attention (TPU kernel 7): as attention_launch, with the
@@ -1037,18 +1446,19 @@ extern "C" int flash_launch(const void* q, const void* k, const void* v,
 }
 
 // Its backward (TPU kernel 8): as attention_bwd_launch, with diag (H, 2T-1)
-// float32 and ddiag (H, 2T-1) float32 zeroed by the caller.
+// float32, part (B * ceil(T / 64) * H, roundup(T, 64) + 64) float32
+// scratch and ddiag (H, 2T-1) float32, all written.
 // The dq kernel's shared memory grows with T (4 bytes per diagonal): T up to
-// ~44,000 frames (else cudaErrorInvalidValue from the launch).
+// ~42,000 frames (else cudaErrorInvalidValue from the launch).
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* g, const void* diag,
                                 const void* lens, const void* lse, void* delta,
-                                void* dq, void* dk, void* dv, void* ddiag,
-                                int B, int T, int H, int Dh, float sm_scale,
-                                void* stream) {
+                                void* dq, void* dk, void* dv, void* part,
+                                void* ddiag, int B, int T, int H, int Dh,
+                                float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (diag == nullptr || ddiag == nullptr || Dh != 64)
+  if (diag == nullptr || ddiag == nullptr || part == nullptr || Dh != 64)
     return (int)cudaErrorInvalidValue;
   return (int)launch_bwd<kDiag>(q, k, v, g, diag, 0, lens, lse, delta, dq, dk,
-                                dv, ddiag, B, T, H, sm_scale, s);
+                                dv, part, ddiag, B, T, H, sm_scale, s);
 }

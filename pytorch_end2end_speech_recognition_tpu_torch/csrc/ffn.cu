@@ -38,14 +38,16 @@
 // (6 MB) in VMEM and walks row tiles in order. One SM holds 227 KB, so
 // here the weights stream through shared memory and the weight gradients
 // come from a second pass:
-// - forward: one block (D threads: 4 row warps x D/128 column warps) owns
-//   64 rows, keeps bf16 LN(x) in shared memory, and walks F in chunks
-//   (64, or 32 at D 512); each chunk's W1 rows and W2 columns arrive by
+// - forward at D 256 (the flagship's and rung 3's width): wgmma and TMA,
+//   see `hop::ffn_fwd_wgmma_kernel` below.
+// - forward at D 512: one block (D threads: 4 row warps x D/128 column warps)
+//   owns 64 rows, keeps bf16 LN(x) in shared memory, and walks F in chunks
+//   of 32; each chunk's W1 rows and W2 columns arrive by
 //   cp.async into a double buffer. Per chunk: h1 = y W1c^T on the tensor
-//   cores (mma.sync m16n8k16, bf16 in, float32 out), SiLU, bf16 a into
-//   shared memory, then out_acc += a W2c^T into a (64, D) float32
-//   accumulator held in registers (64 per thread). The epilogue adds b2,
-//   applies the mask and the residual, and stores.
+//   cores (mma.sync m16n8k16, bf16 in, float32 out), SiLU, bf16 a into shared
+//   memory, then out_acc += a W2c^T into a (64, D) float32 accumulator held
+//   in registers (64 per thread). The epilogue adds b2, applies the mask and
+//   the residual, and stores.
 // - backward, launch A (row-tile-major): the same tile walk recomputes
 //   h1 and also ga = bf16(g2) W2c, forms gh1, and accumulates gy += gh1
 //   W1c in registers; then dx, and this tile's column sums of gy xn, gy
@@ -60,12 +62,14 @@
 // - launch C sums launch B's S partials and launch A's per-tile partials
 //   in a fixed order: the weight gradients are deterministic.
 // Operands not in the product's layout come through ldmatrix.trans. No
-// library product is called. wgmma/TMA and a persistent schedule are later
+// library product is called. The backward's wgmma/TMA redesign is later
 // work; launch B re-reads y and g2 once per F chunk (from L2).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -217,6 +221,13 @@ __device__ __forceinline__ void store2(T* p, float a, float b) {
 }
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+
+// v sigmoid(v) with the fast exponential and division (a few ulp of
+// float32, far below the bf16 rounding of a that follows); 0 where
+// exp(-v) overflows
+__device__ __forceinline__ float silu_fast(float v) {
+  return __fdividef(v, 1.f + __expf(-v));
+}
 
 // LayerNorm of the tile's 64 rows, a warp per row: bf16 y into sY (and
 // into y_out when given), the rows' mean and rstd into s_mean / s_rstd.
@@ -402,6 +413,273 @@ ffn_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ gamma,
     }
   }
 }
+
+// ------------------------------------------------- forward for Hopper (D 256)
+// The forward has the shape of flash attention's: y plays Q, W1's chunk K,
+// W2's chunk V, and b1 + SiLU takes the softmax's place. So it is built as
+// FlashAttention-3 builds that loop:
+// - a block of two consumer warpgroups (64 rows each, a 128-row tile) and
+//   one producer warp; blocks are persistent, each walking the row tiles
+//   blockIdx.x, blockIdx.x + gridDim.x, ...;
+// - the producer's one thread streams each F chunk of 64 (W1's rows as four
+//   64 x 64 boxes, W2's columns as one 256 x 64 box, 64 KB) by TMA into a
+//   two-stage ring guarded by mbarriers; the two warpgroups share every
+//   stage, so the weights cross L2 once per 128 rows;
+// - each warpgroup writes the LayerNorm of its rows once per tile, as bf16
+//   y in the swizzled layout wgmma reads; h1 = y W1c^T is 16 wgmma
+//   m64n64k16 with both operands in shared memory;
+// - b1 and SiLU in registers, a rounded to bf16 there and fed as the
+//   register A operand of out_acc += a W2c^T (4 wgmma m64n256k16): a never
+//   touches shared memory, and the two products are separated only by the
+//   wgmma wait;
+// - the (64, 256) float32 accumulator (128 registers a thread) stays in
+//   registers across the chunks; the epilogue is the mma.sync kernel's.
+// The producer is a whole warpgroup (one thread of it issues the loads):
+// setmaxnreg hands its registers to the consumers, 232 a thread against the
+// 168 that 384 threads would each get, enough for the accumulator, h1 and
+// a without spills.
+// At the flagship's R = 24,000: 188 tiles on 132 SMs, 1.42 waves (56 SMs
+// take two tiles).
+namespace hop {
+
+using namespace hopper;
+constexpr int D = 256, FC = 64, ROWS = 128, STAGES = 2;
+constexpr int THREADS = 384;                    // 2 consumer + 1 producer WG
+constexpr uint32_t Y_BYTES = 64 * D * 2;        // a warpgroup's y: 32 KB
+constexpr uint32_t W1_BYTES = FC * D * 2;       // W1's chunk: 32 KB
+constexpr uint32_t W2_BYTES = D * FC * 2;       // W2's chunk: 32 KB
+constexpr uint32_t STAGE_BYTES = W1_BYTES + W2_BYTES;
+constexpr size_t SMEM = 1024 /* alignment */ + 2 * Y_BYTES +
+                        STAGES * STAGE_BYTES + 64 /* barriers */;
+
+template <typename XT>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w1,
+                     const __grid_constant__ CUtensorMap tm_w2,
+                     const XT* __restrict__ x, const float* __restrict__ gamma,
+                     const float* __restrict__ beta,
+                     const bf16* __restrict__ b1, const bf16* __restrict__ b2,
+                     const int* __restrict__ seed, XT* __restrict__ out, int R,
+                     int F, float scale, float rate, float keep_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sY = base;                                  // [2][Y_BYTES]
+  unsigned char* sW = base + 2 * Y_BYTES;                    // [STAGES][W1|W2]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sW + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int n_tiles = (R + ROWS - 1) / ROWS;
+  const int nC = F / FC;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // ------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        for (int c = 0; c < nC; ++c) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* w1s = sW + stage * STAGE_BYTES;
+          mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
+#pragma unroll
+          for (int kb = 0; kb < D / 64; ++kb)
+            tma_load_2d(w1s + kb * (FC * 128), &tm_w1, &full[stage], kb * 64,
+                        c * FC);
+          tma_load_2d(w1s + W1_BYTES, &tm_w2, &full[stage], c * FC, 0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+  setmaxnreg_inc<232>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* myY = sY + wg * Y_BYTES;
+  const uint32_t sd = rate > 0.f ? static_cast<uint32_t>(seed[0]) : 0u;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int r0 = tile * ROWS + wg * 64;  // this warpgroup's first row
+    // LayerNorm, a warp per row, 8 columns a lane: bf16 y into the
+    // swizzled column blocks (lane's 16-byte chunk: block lane / 8, chunk
+    // lane % 8). Rows past R read as zeros (y = beta, never stored).
+    for (int r = warp; r < 64; r += 4) {
+      const int row = r0 + r;
+      float v[8];
+      if (row < R) {
+        const XT* px = x + (size_t)row * D + lane * 8;
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) load2(px + j, v[j], v[j + 1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = 0.f;
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum += v[j];
+      const float mean = warp_sum(sum) * (1.f / D);
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sq += (v[j] - mean) * (v[j] - mean);
+      const float rstd = 1.f / sqrtf(warp_sum(sq) * (1.f / D) + LN_EPS);
+      __align__(16) bf16 y[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = lane * 8 + j;
+        y[j] = __float2bfloat16((v[j] - mean) * rstd * gamma[c] + beta[c]);
+      }
+      *reinterpret_cast<uint4*>(myY + (lane >> 3) * (64 * 128) +
+                                sw128_offset(r, (lane & 7) * 8)) =
+          *reinterpret_cast<uint4*>(y);
+    }
+    fence_proxy_async();
+    warpgroup_sync(1 + wg);
+
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    float h[32];
+    uint32_t a[FC / 16][4], a_next[FC / 16][4];
+    // h1 = y W1c^T for the chunk in `st`: K = D in 16 steps (4 column
+    // blocks of 4 steps); issued, not awaited
+    auto issue_h1 = [&](int st) {
+      const unsigned char* w1s = sW + st * STAGE_BYTES;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) h[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+        wgmma_m64n64k16_ss<0>(h, desc_sw128(myY + off),
+                              desc_sw128(w1s + off), kk > 0 ? 1 : 0);
+      }
+      wgmma_commit();
+    };
+    // a = silu(h1 + b1) of chunk c, bf16: the A fragments of the second
+    // product, k step kk from h1's 8-column blocks 2kk and 2kk + 1
+    auto silu_a = [&](int c, uint32_t (&dst)[FC / 16][4]) {
+#pragma unroll
+      for (int j = 0; j < FC / 8; ++j) {
+        const int col = c * FC + j * 8 + 2 * t;
+        const float c0 = __bfloat162float(b1[col]);
+        const float c1 = __bfloat162float(b1[col + 1]);
+        const float v0 = h[4 * j] + c0, v1 = h[4 * j + 1] + c1;
+        const float v2 = h[4 * j + 2] + c0, v3 = h[4 * j + 3] + c1;
+        dst[j >> 1][(j & 1) * 2 + 0] =
+            pack_bf16(silu_fast(v0), silu_fast(v1));
+        dst[j >> 1][(j & 1) * 2 + 1] =
+            pack_bf16(silu_fast(v2), silu_fast(v3));
+      }
+    };
+    mbar_wait(&full[stage], phase);
+    issue_h1(stage);
+    wgmma_wait<0>();
+    fence_operand(h);
+    silu_a(0, a);
+    // out_acc += a W2c^T for the chunk in stage st (K = FC in 4 steps of
+    // 32 bytes along W2's rows), with a fence of its own, so that an h1
+    // issued before it is a pipeline stage of its own
+    auto issue_out = [&](int st) {
+      fence_operand(acc);
+      wgmma_fence();
+      const unsigned char* w2s = sW + st * STAGE_BYTES + W1_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < FC / 16; ++kk)
+        wgmma_m64n256k16_rs<0>(acc, a[kk], desc_sw128(w2s + kk * 32));
+      wgmma_commit();
+    };
+    auto next_stage = [&]() {
+      const int cur = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      return cur;
+    };
+    // every chunk but the last: the next chunk's h1 goes to the tensor
+    // cores first, then this chunk's second product, and the next SiLU
+    // runs while the latter computes; no branch between issue and wait
+    for (int c = 0; c + 1 < nC; ++c) {
+      const int cur = next_stage();
+      mbar_wait(&full[stage], phase);
+      issue_h1(stage);
+      issue_out(cur);
+      wgmma_wait<1>();
+      fence_operand(h);
+      silu_a(c + 1, a_next);
+      wgmma_wait<0>();
+      fence_operand(acc);
+      fence_operand(a);
+      mbar_arrive(&empty[cur]);
+#pragma unroll
+      for (int kk = 0; kk < FC / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[kk][r] = a_next[kk][r];
+    }
+    {  // the last chunk's second product
+      const int cur = next_stage();
+      issue_out(cur);
+      wgmma_wait<0>();
+      fence_operand(acc);
+      fence_operand(a);
+      mbar_arrive(&empty[cur]);
+    }
+
+    // + b2, rounded to x's dtype, the mask, the residual
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + warp * 16 + g + 8 * half;
+      if (row >= R) continue;
+      const uint32_t rk = row_key(sd, row);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = j * 8 + 2 * t;
+        float v0 = round_to<XT>(acc[4 * j + 2 * half] +
+                                __bfloat162float(b2[col]));
+        float v1 = round_to<XT>(acc[4 * j + 2 * half + 1] +
+                                __bfloat162float(b2[col + 1]));
+        if (rate > 0.f) {
+          v0 *= keep_mult(rk, col, rate, keep_scale);
+          v1 *= keep_mult(rk, col + 1, rate, keep_scale);
+        }
+        float x0, x1;
+        load2(x + (size_t)row * D + col, x0, x1);
+        store2(out + (size_t)row * D + col, x0 + scale * v0, x1 + scale * v1);
+      }
+    }
+    // the next tile's LayerNorm rewrites y: every warp of this warpgroup
+    // is past its products (their waits) before any warp writes
+    warpgroup_sync(1 + wg);
+  }
+  }  // consumers
+}
+
+// the tensor maps of W1 (F, D) and W2 (D, F), bf16 row-major
+inline cudaError_t weight_maps(CUtensorMap* m1, CUtensorMap* m2,
+                               const void* w1, const void* w2, int F) {
+  const uint64_t d1[2] = {(uint64_t)D, (uint64_t)F}, s1[1] = {D * 2ull};
+  const uint32_t b1[2] = {64, FC};
+  cudaError_t e = encode_bf16_sw128(m1, w1, 2, d1, s1, b1);
+  if (e != cudaSuccess) return e;
+  const uint64_t d2[2] = {(uint64_t)F, (uint64_t)D}, s2[1] = {F * 2ull};
+  const uint32_t b2[2] = {FC, D};
+  return encode_bf16_sw128(m2, w2, 2, d2, s2, b2);
+}
+
+}  // namespace hop
 
 // ------------------------------------------------- backward A: row tiles
 template <int D, int FC, int STAGES>
@@ -896,25 +1174,37 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta,
                        const void* b2, const void* seed, void* out, int R,
                        int F, float scale, float rate, float keep_scale,
                        cudaStream_t s) {
-  constexpr int FC = chunk_of(D);
-  constexpr size_t bytes = fwd_smem_bytes<D, FC, 2>();
-  cudaError_t e = allow_smem(ffn_fwd_kernel<D, FC, XT>, bytes);
-  if (e != cudaSuccess) return e;
-  ffn_fwd_kernel<D, FC, XT><<<(R + BR - 1) / BR, D, bytes, s>>>(
-      static_cast<const XT*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<const int*>(seed),
-      static_cast<XT*>(out), R, F, scale, rate, keep_scale);
-  return cudaGetLastError();
+  if constexpr (D == hop::D) {  // the wgmma/TMA kernel
+    CUtensorMap m1, m2;
+    cudaError_t e = hop::weight_maps(&m1, &m2, w1, w2, F);
+    if (e == cudaSuccess)
+      e = allow_smem(hop::ffn_fwd_wgmma_kernel<XT>, hop::SMEM);
+    if (e != cudaSuccess) return e;
+    const int tiles = (R + hop::ROWS - 1) / hop::ROWS;
+    const int grid = tiles < hopper::sm_count() ? tiles : hopper::sm_count();
+    hop::ffn_fwd_wgmma_kernel<XT><<<grid, hop::THREADS, hop::SMEM, s>>>(
+        m1, m2, static_cast<const XT*>(x), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), static_cast<const bf16*>(b1),
+        static_cast<const bf16*>(b2), static_cast<const int*>(seed),
+        static_cast<XT*>(out), R, F, scale, rate, keep_scale);
+    return cudaGetLastError();
+  } else {  // D 512: the mma.sync kernel
+    constexpr int FC = chunk_of(D);
+    constexpr size_t bytes = fwd_smem_bytes<D, FC, 2>();
+    cudaError_t e = allow_smem(ffn_fwd_kernel<D, FC, XT>, bytes);
+    if (e != cudaSuccess) return e;
+    ffn_fwd_kernel<D, FC, XT><<<(R + BR - 1) / BR, D, bytes, s>>>(
+        static_cast<const XT*>(x), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+        static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+        static_cast<const bf16*>(b2), static_cast<const int*>(seed),
+        static_cast<XT*>(out), R, F, scale, rate, keep_scale);
+    return cudaGetLastError();
+  }
 }
 
 int splits_of(int R, int D, int F) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    sms = 132;
+  const int sms = hopper::sm_count();
   const int chunks = F / chunk_of(D), tiles = (R + BR - 1) / BR;
   int S = sms / chunks;
   if (S < 1) S = 1;
@@ -997,6 +1287,9 @@ int ffn_fwd_launch(const void* x, const void* gamma, const void* beta,
   FFN_FWD(512, float);
 #undef FFN_FWD
 }
+
+// The dynamic shared memory the D-256 forward kernel takes, for reports.
+int ffn_fwd_smem_bytes() { return (int)hop::SMEM; }
 
 // The number S of row splits of the backward's weight-gradient pass (its
 // partial sums are S x the weights' size, float32).

@@ -77,10 +77,11 @@ __global__ void toeplitz_kernel(const float* __restrict__ diag,
 // N(2T-1) floats. Design: one thread per diagonal, so the 32 threads of a
 // warp walk 32 neighbouring diagonals down the rows together and every load
 // instruction reads 32 neighbouring elements of one row (coalesced). The
-// rows are cut into chunks of ROWS (blockIdx.y) to put enough loads in
-// flight; each thread keeps four partial sums and adds its chunk's total to
-// the output with one float atomic, so the order of the T/ROWS chunk sums
-// varies between runs (float32 summation order only).
+// rows are cut into chunks of REDUCE_ROWS (blockIdx.y) to put enough loads
+// in flight; each thread keeps four partial sums in a fixed order and
+// writes its chunk's total to its own slot of a (chunks, N, 2T-1) float32
+// partial buffer. A second launch adds the chunks' partials per diagonal in
+// chunk order. No atomics: the result is the same bits on every run.
 constexpr int REDUCE_ROWS = 64;
 constexpr int REDUCE_THREADS = 256;
 
@@ -95,50 +96,69 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
 
 template <typename InT>
 __global__ void toeplitz_reduce_kernel(const InT* __restrict__ g,
-                                       float* __restrict__ out, int T, int P) {
+                                       float* __restrict__ part, int T,
+                                       int P) {
   const int W = 2 * T - 1;
   const int d = blockIdx.x * blockDim.x + threadIdx.x;  // output diagonal
-  const int n = blockIdx.z;
+  const int n = blockIdx.z, N = gridDim.z;
   if (d >= W) return;
   const int r = d - (T - 1);                            // j - i
   const int i0 = blockIdx.y * REDUCE_ROWS;
   const int lo = max(i0, max(0, -r));
   const int hi = min(min(i0 + REDUCE_ROWS, T), T - r);
-  if (lo >= hi) return;
-  const InT* p = g + (size_t)n * P * P + (size_t)lo * (P + 1) + r;
-  const size_t step = (size_t)P + 1;                    // one row down, one right
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  int i = lo;
-  for (; i + 4 <= hi; i += 4, p += 4 * step) {
-    a0 += to_f32<InT>(p[0]);
-    a1 += to_f32<InT>(p[step]);
-    a2 += to_f32<InT>(p[2 * step]);
-    a3 += to_f32<InT>(p[3 * step]);
+  if (lo < hi) {
+    const InT* p = g + (size_t)n * P * P + (size_t)lo * (P + 1) + r;
+    const size_t step = (size_t)P + 1;                  // one row down, one right
+    int i = lo;
+    for (; i + 4 <= hi; i += 4, p += 4 * step) {
+      a0 += to_f32<InT>(p[0]);
+      a1 += to_f32<InT>(p[step]);
+      a2 += to_f32<InT>(p[2 * step]);
+      a3 += to_f32<InT>(p[3 * step]);
+    }
+    for (; i < hi; ++i, p += step) a0 += to_f32<InT>(p[0]);
   }
-  for (; i < hi; ++i, p += step) a0 += to_f32<InT>(p[0]);
-  atomicAdd(out + (size_t)n * W + d, (a0 + a1) + (a2 + a3));
+  part[((size_t)blockIdx.y * N + n) * W + d] = (a0 + a1) + (a2 + a3);
+}
+
+// out[n, d] = the sum of the chunks' partials in chunk order.
+__global__ void toeplitz_reduce_chunks_kernel(const float* __restrict__ part,
+                                              float* __restrict__ out,
+                                              int n_chunks, int NW) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;  // n * W + d
+  if (e >= NW) return;
+  float acc = 0.f;
+  for (int c = 0; c < n_chunks; ++c) acc += part[(size_t)c * NW + e];
+  out[e] = acc;
 }
 
 }  // namespace
 
 extern "C" {
 
-// g: (N, P, P) bf16 (in_is_bf16) or float32; out: (N, 2T-1) float32, zeroed
-// by the caller. Sums the T x T core of each block.
-int toeplitz_reduce_launch(const void* g, void* out, int in_is_bf16, int N,
-                           int T, int P, void* stream) {
+// g: (N, P, P) bf16 (in_is_bf16) or float32; part: (ceil(T / 64), N,
+// 2T-1) float32 scratch; out: (N, 2T-1) float32. Sums the T x T core of
+// each block in a fixed order (two launches).
+int toeplitz_reduce_launch(const void* g, void* part, void* out,
+                           int in_is_bf16, int N, int T, int P, void* stream) {
   if (T < 1 || P < T) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int W = 2 * T - 1;
-  dim3 grid((W + REDUCE_THREADS - 1) / REDUCE_THREADS,
-            (T + REDUCE_ROWS - 1) / REDUCE_ROWS, N);
+  const int n_chunks = (T + REDUCE_ROWS - 1) / REDUCE_ROWS;
+  dim3 grid((W + REDUCE_THREADS - 1) / REDUCE_THREADS, n_chunks, N);
   if (in_is_bf16) {
     toeplitz_reduce_kernel<__nv_bfloat16><<<grid, REDUCE_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(g), static_cast<float*>(out), T, P);
+        static_cast<const __nv_bfloat16*>(g), static_cast<float*>(part), T, P);
   } else {
     toeplitz_reduce_kernel<float><<<grid, REDUCE_THREADS, 0, s>>>(
-        static_cast<const float*>(g), static_cast<float*>(out), T, P);
+        static_cast<const float*>(g), static_cast<float*>(part), T, P);
   }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int NW = N * W;
+  toeplitz_reduce_chunks_kernel<<<(NW + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), n_chunks, NW);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,7 +14,9 @@ subsampling, and after every LSTM layer); the generator's numbers are not JAX's 
 training with dropout 0. With `model.ffn_impl='cuda'` every `FfnBlock` that
 the JAX package's gate would send to its fused Pallas FFN runs the fused FFN
 kernels (`ops/ffn_kernel.py`), whose dropout draws its seed from the same
-generator.
+generator. With `model.remat` each block of the Transformer and Conformer
+stacks runs under `torch.utils.checkpoint` in training (the JAX package's
+`jax.checkpoint`), its recompute replaying the generator's draws.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
     attention_plain,
@@ -485,9 +488,38 @@ class _BlockEncoder(nn.Module):
         none = [None] * len(self.blocks)
         biases = biases.unbind(0) if biases is not None else none
         diags = diags.unbind(0) if diags is not None else none
+        remat = self.cfg.remat and train
         for blk, bias, diag in zip(self.blocks, biases, diags):
-            x = blk(x, mask, bias, diag, train, generator)
+            if remat:
+                x = _remat_block(blk, x, mask, bias, diag, generator)
+            else:
+                x = blk(x, mask, bias, diag, train, generator)
         return x
+
+
+def _remat_block(blk, x, mask, bias, diag, generator):
+    """One training block under `torch.utils.checkpoint` (the JAX package's
+    `jax.checkpoint` of `_apply_blocks`): its activations are recomputed in
+    the backward. Checkpoint restores only the default generators, and the
+    block's dropout masks and FFN kernel seed come from `generator`; so the
+    recompute starts from the generator's state at the block's forward and
+    draws the same numbers, and the generator is then put back where the
+    recompute found it."""
+    state = generator.get_state() if generator is not None else None
+    calls = [0]
+
+    def run(x, bias, diag):
+        calls[0] += 1
+        if calls[0] == 1 or generator is None:
+            return blk(x, mask, bias, diag, True, generator)
+        after = generator.get_state()
+        generator.set_state(state)
+        try:
+            return blk(x, mask, bias, diag, True, generator)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, x, bias, diag, use_reentrant=False)
 
 
 class TransformerEncoder(_BlockEncoder):

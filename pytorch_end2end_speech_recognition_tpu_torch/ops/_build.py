@@ -37,8 +37,8 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _P],
     # diag, out, out_is_bf16, N, T, P, stream
     "toeplitz_launch": [_P, _P, _I, _I, _I, _I, _P],
-    # g, out, in_is_bf16, N, T, P, stream
-    "toeplitz_reduce_launch": [_P, _P, _I, _I, _I, _I, _P],
+    # g, part, out, in_is_bf16, N, T, P, stream
+    "toeplitz_reduce_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, bias, bias_ld, lens, out, lse, B, T, H, Dh, sm_scale, stream
     "attention_launch": [_P, _P, _P, _P, _I, _P, _P, _P,
                          _I, _I, _I, _I, _F, _P],
@@ -48,10 +48,10 @@ SIGNATURES = {
                              _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, diag, lens, out, lse, B, T, H, Dh, sm_scale, stream
     "flash_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # q, k, v, g, diag, lens, lse, delta, dq, dk, dv, ddiag,
+    # q, k, v, g, diag, lens, lse, delta, dq, dk, dv, part, ddiag,
     # B, T, H, Dh, sm_scale, stream
     "flash_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _F, _P],
+                         _P, _I, _I, _I, _I, _F, _P],
     # lp, skip, sok, tlen, last, alpha, ll, B, T, S, stream
     "ctc_alpha_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # lp, skip, sok, tlen, last, alpha, ll, g, grad, B, T, S, stream
@@ -67,6 +67,10 @@ SIGNATURES = {
     "ffn_fwd_launch": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _P],
     # R, D, F -> the backward's row splits S
     "ffn_bwd_splits": [_I, _I, _I],
+    # the wgmma forwards' dynamic shared memory in bytes (for reports):
+    # attention by bias mode (0 none, 1 dense, 2 diagonals), FFN at D 256
+    "attention_fwd_smem_bytes": [_I],
+    "ffn_fwd_smem_bytes": [],
     # x, g, gamma, beta, w1, b1, w2, seed, dx, yw, g2w, part, dw1p, dw2p,
     # db1p, dgamma, dbeta, dw1, db1, dw2, db2, x_is_bf16, R, D, F, S,
     # scale, rate, keep_scale, stream
@@ -88,8 +92,10 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
+    """Hash of every source and header in csrc/ and the flags: a change to
+    any of them rebuilds."""
     h = hashlib.sha256()
-    for p in _sources():
+    for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH + FLAGS).encode())

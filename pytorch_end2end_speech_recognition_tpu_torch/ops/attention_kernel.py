@@ -93,11 +93,21 @@ def toeplitz_reduce_plain(g: torch.Tensor, T: int) -> torch.Tensor:
     return flat[:, :T * (2 * T - 1)].reshape(N, T, 2 * T - 1).sum(dim=1)
 
 
+REDUCE_ROWS = 64  # rows per partial sum of the reduce kernel
+
+
+def toeplitz_reduce_scratch(N: int, T: int) -> tuple[int, int, int]:
+    """Shape of the reduce kernel's float32 partial buffer: one (N, 2T-1)
+    plane per chunk of REDUCE_ROWS rows, summed in chunk order."""
+    return (-(-T // REDUCE_ROWS), N, 2 * T - 1)
+
+
 def toeplitz_reduce(g: torch.Tensor, T: int) -> torch.Tensor:
     """The transpose of the expansion: (N, P, P) cotangent -> (N, 2T-1)
     float32 per-diagonal sums of its T x T core (the pad band, zero on the
-    training path, is not read). The reduce kernel on CUDA tensors,
-    `toeplitz_reduce_plain` on CPU tensors."""
+    training path, is not read). The reduce kernel on CUDA tensors (row
+    chunks' partials, then their sum in a fixed order: the same bits on
+    every run), `toeplitz_reduce_plain` on CPU tensors."""
     if g.device.type == "cpu":
         return toeplitz_reduce_plain(g, T)
     from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
@@ -109,13 +119,15 @@ def toeplitz_reduce(g: torch.Tensor, T: int) -> torch.Tensor:
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"toeplitz_reduce: g dtype {g.dtype} not supported")
     N, P = g.shape[0], g.shape[1]
-    out = torch.zeros((N, 2 * T - 1), dtype=torch.float32, device=g.device)
+    out = torch.empty((N, 2 * T - 1), dtype=torch.float32, device=g.device)
     if N == 0:
         return out
     g = g.contiguous()
+    part = torch.empty(toeplitz_reduce_scratch(N, T), dtype=torch.float32,
+                       device=g.device)
     err = _build.load().toeplitz_reduce_launch(
-        g.data_ptr(), out.data_ptr(), int(g.dtype == torch.bfloat16), N, T, P,
-        _stream(g))
+        g.data_ptr(), part.data_ptr(), out.data_ptr(),
+        int(g.dtype == torch.bfloat16), N, T, P, _stream(g))
     _build.check(err, "toeplitz_reduce")
     toeplitz_reduce.launches += 1
     return out
@@ -276,13 +288,26 @@ def _fwd_launch(launch, name, q, k, v, bias_args, lens32, heads,
     return out, lse, True
 
 
-def _bwd_launch(launch, name, q, k, v, g, bias_args, dbias, lens32, lse,
+TILE = 64  # the attention kernels' query and key tiles
+
+
+def ddiag_scratch(B: int, T: int, H: int) -> tuple[int, int]:
+    """Shape of the flash backward's float32 partial ddiag: a row per dq
+    block (batch row, 64-query tile, head) holding the diagonals the block
+    can touch (T rounded up to the tile, plus a tile), summed per diagonal
+    in (batch row, query tile) order."""
+    n = -(-T // TILE)
+    return (B * n * H, n * TILE + TILE)
+
+
+def _bwd_launch(launch, name, q, k, v, g, bias_args, grad_args, lens32, lse,
                 heads):
     """Allocate dq, dk, dv and run a backward launcher
     (`attention_bwd_launch` or `flash_bwd_launch`, bias_args as in
-    `_fwd_launch`) on checked operands; the bias gradient is summed into
-    `dbias` (float32, zeroed) when it is given. Returns (dq, dk, dv,
-    whether it launched)."""
+    `_fwd_launch`) on checked operands; grad_args are the bias gradient's
+    pointers: (dbias,) or (None,) for `attention_bwd_launch`, (partial
+    scratch, ddiag) for `flash_bwd_launch`.
+    Returns (dq, dk, dv, whether it launched)."""
     from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
 
     B, T, D = q.shape
@@ -297,8 +322,7 @@ def _bwd_launch(launch, name, q, k, v, g, bias_args, dbias, lens32, lse,
     err = getattr(_build.load(), launch)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *bias_args,
         lens32.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
-        dbias.data_ptr() if dbias is not None else None,
+        dk.data_ptr(), dv.data_ptr(), *grad_args,
         B, T, heads, D // heads, 1.0 / ((D // heads) ** 0.5), _stream(q))
     _build.check(err, name)
     return dq, dk, dv, True
@@ -328,25 +352,26 @@ attention_fwd.launches = 0
 
 
 def attention_bwd(q, k, v, bias, lens, g, lse, heads: int):
-    """The backward kernels (dq with delta and dbias, then dk/dv): returns
+    """The backward kernels (dq with delta, dk/dv, then dbias): returns
     (dq, dk, dv, dbias) as `attention_bwd_plain` does, from the forward's
-    `lse`. dbias is summed over the batch in float32 with atomics and cast
-    to the bias' dtype. On CPU tensors: `attention_bwd_plain` (lse unused).
-    """
+    `lse`. dbias is summed over the batch in float32 in batch order and
+    rounded to the bias' dtype. On CPU tensors: `attention_bwd_plain` (lse
+    unused)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, bias, lens, g, heads)
     (q, k, v, bias, g), lens32 = _kernel_args("attention_bwd", q, k, v, bias,
                                               lens, heads, extra=(g,))
-    bias_args, dbias32 = (None, 0), None
+    bias_args, grad_args, dbias = (None, 0), (None,), None
     if bias is not None:
         bias_args = (bias.data_ptr(), bias.shape[1])
-        dbias32 = torch.zeros(bias.shape, dtype=torch.float32,
-                              device=q.device)
+        dbias = torch.empty_like(bias)
+        grad_args = (dbias.data_ptr(),)
     dq, dk, dv, launched = _bwd_launch(
         "attention_bwd_launch", "attention_bwd", q, k, v, g, bias_args,
-        dbias32, lens32, lse, heads)
+        grad_args, lens32, lse, heads)
     attention_bwd.launches += launched
-    dbias = dbias32.to(bias.dtype) if bias is not None else None
+    if dbias is not None and not launched:
+        dbias.zero_()
     return dq, dk, dv, dbias
 
 
@@ -514,18 +539,23 @@ flash_fwd.launches = 0
 def flash_bwd(q, k, v, diag, lens, g, lse, heads: int):
     """The long-audio backward kernels (dq with delta and ddiag, then
     dk/dv): returns (dq, dk, dv, ddiag) as `flash_bwd_plain` does, from the
-    forward's `lse`. ddiag (H, 2T-1) float32 is summed over the batch with
-    atomics (per diagonal and block). On CPU tensors: `flash_bwd_plain`."""
+    forward's `lse`. ddiag (H, 2T-1) float32 is summed over the batch in a
+    fixed order (`ddiag_scratch`). On CPU tensors: `flash_bwd_plain`."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, diag, lens, g, heads)
     (q, k, v, diag, g), lens32 = _flash_args("flash_bwd", q, k, v, diag,
                                              lens, heads, extra=(g,))
-    ddiag = torch.zeros((heads, 2 * q.shape[1] - 1), dtype=torch.float32,
+    B, T = q.shape[:2]
+    ddiag = torch.empty((heads, 2 * T - 1), dtype=torch.float32,
                         device=q.device)
+    part = torch.empty(ddiag_scratch(B, T, heads), dtype=torch.float32,
+                       device=q.device)
     dq, dk, dv, launched = _bwd_launch(
         "flash_bwd_launch", "flash_bwd", q, k, v, g, (diag.data_ptr(),),
-        ddiag, lens32, lse, heads)
+        (part.data_ptr(), ddiag.data_ptr()), lens32, lse, heads)
     flash_bwd.launches += launched
+    if not launched:
+        ddiag.zero_()
     return dq, dk, dv, ddiag
 
 

@@ -114,7 +114,7 @@ class ModelConfig:
     # ops/ffn_kernel.py): opt-in, 'auto' resolves to 'torch' on every
     # device, as the JAX package's resolves to 'xla'
     ffn_impl: str = "auto"
-    remat: bool = False              # jax.checkpoint encoder blocks (memory)
+    remat: bool = False              # checkpoint encoder blocks in training
     # context parallelism for encoder self-attention over the 'model' axis:
     # '' (off) | 'ring' | 'ulysses'; composes with either pos_encoding
     # (relative bias travels as Toeplitz diagonals, expanded per time shard)

@@ -330,6 +330,8 @@ def _ffn_inputs(dev, R, D, F, x_dtype, seed):
 
 @pytest.mark.parametrize("R,D,F,x_dtype,rate", [
     (1000, 256, 1024, torch.bfloat16, 0.0),
+    (65, 256, 1024, torch.bfloat16, 0.0),
+    (23977, 256, 1024, torch.bfloat16, 0.1),
     (777, 256, 1024, torch.float32, 0.1),
     (200, 256, 256, torch.bfloat16, 0.1),
     (300, 512, 2048, torch.bfloat16, 0.1)])
@@ -410,3 +412,92 @@ def test_ffn_kernels_raise_on_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="multiple of 64"):
         ffn_fwd(x, gamma, beta, w1[:200], b1[:200], w2[:, :200], b2, seed,
                 0.0, 1.0)
+
+
+def _attn_excess(out, ref, ref_absv, lens):
+    """Share of valid elements beyond 2^-7 |plain| + 2^-6 p.|v| (one bf16
+    rounding of the output and of e or p on each side)."""
+    T = out.shape[1]
+    valid = (torch.arange(T, device=out.device)[None, :] < lens[:, None])[..., None]
+    over = ((out.float() - ref.float()).abs()
+            > 2.0 ** -7 * ref.float().abs() + 2.0 ** -6 * ref_absv.float())
+    return float((over & valid).sum()) / float(valid.expand_as(over).sum())
+
+
+@pytest.mark.parametrize("T", [750, 1638])
+@pytest.mark.parametrize("path", ["dense", "flash"])
+def test_attention_forward_ragged(dev, T, path):
+    """The wgmma forward (dense bias and diagonals) against its plain
+    version at T 750 and 1,638 (not multiples of the 128-query tile), with
+    ragged lengths and a row of length 0 (output 0, lse +inf): every valid
+    element within the bf16 bound. A tile that read or stored past T would
+    reach the next batch row, whose outputs are checked too."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
+        attention_fwd,
+        attention_plain,
+        flash_fwd,
+        flash_fwd_plain,
+        toeplitz_expand,
+    )
+
+    H = 4
+    lens_l = [T, T - 13, 0, 129, 1]
+    q, k, v, diag, lens = _flash_inputs(dev, len(lens_l), T, H, lens_l, T)
+    if path == "dense":
+        P = -(-T // 8) * 8
+        bias = toeplitz_expand(diag, P, P, T=T).to(torch.bfloat16)
+        out, lse = attention_fwd(q, k, v, bias, lens, H, with_lse=True)
+        ref = attention_plain(q, k, v, bias, lens, H)
+        ref_v = attention_plain(q, k, v.abs(), bias, lens, H)
+    else:
+        out, lse = flash_fwd(q, k, v, diag, lens, H, with_lse=True)
+        ref = flash_fwd_plain(q, k, v, diag, lens, H)
+        ref_v = flash_fwd_plain(q, k, v.abs(), diag, lens, H)
+    torch.cuda.synchronize()
+    assert _attn_excess(out, ref, ref_v, lens) == 0.0
+    assert torch.all(out[2] == 0) and torch.all(torch.isinf(lse[2]))
+    assert bool(torch.isfinite(lse[[0, 1, 3, 4]]).all())
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("kind", ["attention", "flash", "toeplitz"])
+def test_gradient_sums_are_deterministic(dev, kind):
+    """Two launches of the dense attention backward (dbias summed over the
+    batch), the flash backward (ddiag) and the Toeplitz reduce on the same
+    inputs give the same bits in every output: the sums have one fixed
+    order, no atomics."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
+        attention_bwd,
+        attention_fwd,
+        flash_bwd,
+        flash_fwd,
+        toeplitz_expand,
+        toeplitz_reduce,
+    )
+
+    g_ = torch.Generator(device="cpu").manual_seed(5)
+    if kind == "toeplitz":
+        g = torch.randn(48, 768, 768, generator=g_).to(dev, torch.bfloat16)
+        runs = [(toeplitz_reduce(g, 750),) for _ in range(2)]
+    else:
+        T = 750 if kind == "attention" else 1638
+        lens_l = [T, T - 50, 3, 0, 700, 64, 65, T]
+        q, k, v, diag, lens = _flash_inputs(dev, len(lens_l), T, 4, lens_l, 9)
+        g = (torch.randn(*q.shape, generator=g_) * 0.5).to(dev, torch.bfloat16)
+        g = g * (torch.arange(T, device=dev)[None, :, None]
+                 < lens[:, None, None])
+        if kind == "attention":
+            bias = toeplitz_expand(diag, 768, 768, T=T).to(torch.bfloat16)
+            _, lse = attention_fwd(q, k, v, bias, lens, 4, with_lse=True)
+            runs = [attention_bwd(q, k, v, bias, lens, g, lse, 4)
+                    for _ in range(2)]
+        else:
+            _, lse = flash_fwd(q, k, v, diag, lens, 4, with_lse=True)
+            runs = [flash_bwd(q, k, v, diag, lens, g, lse, 4)
+                    for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert int((_bits(a) != _bits(b)).sum()) == 0

@@ -252,3 +252,62 @@ def test_long_audio_train_step_matches_jax(long_case):
     assert names == set(tg)
     assert "encoder.rel.table" in names
     assert float(tg["encoder.rel.table"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("B,T", [(2, 70), (3, 129), (1, 1638)])
+def test_ddiag_partials_layout_sums_to_plain(B, T):
+    """The flash backward's ddiag partial buffer (`ddiag_scratch`), as its
+    kernels fill and sum it: the dq block of (batch row b, 64-query tile
+    qt, head h) owns row (b n_qt + qt) H + h, whose slot u holds its ds
+    summed along diagonal (T-1) - 64 qt - 63 + u; the second launch adds,
+    per diagonal, the rows in (b, qt) order. Filled from random ds at
+    ragged T (the last query tile runs past T), the rows sum to the plain
+    per-diagonal sums."""
+    H = 2
+    rng = np.random.default_rng(T)
+    ds = rng.standard_normal((B, H, T, T))
+    rows, KW = ak.ddiag_scratch(B, T, H)
+    n_qt = -(-T // ak.TILE)
+    assert rows == B * n_qt * H and KW >= T + ak.TILE - 1
+    part = np.zeros((rows, KW))
+    i = np.arange(T)[:, None]
+    u_all = np.arange(T)[None, :] - i + ak.TILE - 1  # j - i + 63
+    for b in range(B):
+        for qt in range(n_qt):
+            r0, r1 = qt * ak.TILE, min(qt * ak.TILE + ak.TILE, T)
+            for h in range(H):
+                row = (b * n_qt + qt) * H + h
+                u = u_all[r0:r1] + qt * ak.TILE
+                np.add.at(part[row], u.ravel(), ds[b, h, r0:r1].ravel())
+    got = np.zeros((H, 2 * T - 1))
+    for h in range(H):
+        for d in range(2 * T - 1):
+            for b in range(B):
+                for qt in range(n_qt):
+                    u = d - (T - 1) + qt * ak.TILE + ak.TILE - 1
+                    if 0 <= u < KW:
+                        got[h, d] += part[(b * n_qt + qt) * H + h, u]
+    # the plain version sums in float32
+    want = ak.toeplitz_reduce_plain(torch.from_numpy(ds.sum(0)), T).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("N,T,P", [(3, 70, 72), (2, 129, 256), (1, 750, 768)])
+def test_toeplitz_reduce_partials_layout_sums_to_plain(N, T, P):
+    """The Toeplitz reduce's partial buffer (`toeplitz_reduce_scratch`), as
+    its kernels fill and sum it: plane c holds, per diagonal, the sum over
+    the rows of chunk c (REDUCE_ROWS rows; the last chunk ragged), and the
+    second launch adds the planes in chunk order: the plain per-diagonal
+    sums of the T x T core."""
+    rng = np.random.default_rng(N + T)
+    g = rng.standard_normal((N, P, P))
+    n_chunks, n, W = ak.toeplitz_reduce_scratch(N, T)
+    assert (n, W) == (N, 2 * T - 1) and n_chunks * ak.REDUCE_ROWS >= T
+    part = np.zeros((n_chunks, N, W))
+    for c in range(n_chunks):
+        for i in range(c * ak.REDUCE_ROWS, min(c * ak.REDUCE_ROWS
+                                               + ak.REDUCE_ROWS, T)):
+            # row i's core elements j lie on diagonals (T-1) + j - i
+            part[c, :, T - 1 - i:2 * T - 1 - i] += g[:, i, :T]
+    want = ak.toeplitz_reduce_plain(torch.from_numpy(g), T).numpy()
+    np.testing.assert_allclose(part.sum(0), want, rtol=1e-5, atol=1e-3)
