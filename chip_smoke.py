@@ -62,22 +62,25 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    counts per Solver.train_step (flash 12 + 12, Toeplitz 0 + 0, CTC 1 + 1);
    train throughput, peak memory and a profile;
 3i. (run after [3g]) the LSTM recurrence kernels, forward and backward,
-   against their plain versions at layer 0 of an4_ctc (B=32 x T 800, D 80,
-   H 256) and wsj_las (B=32 x T 400, D 2,560, H 320), ragged lengths with a
-   zero-length row, both directions, every element of h, c, dxg and dW_hh
-   held to a float32 bound; controls that must fail it (lengths ignored,
-   W_hh read transposed, input and forget gates swapped); kernel, plain,
-   cuDNN (`torch.nn.LSTM` on packed sequences, the yardstick) and bound
-   times, and the time per dependent step;
+   both directions of a layer in one launch (thread-block clusters), against
+   their plain versions at layer 0 of an4_ctc (B=32 x T 800, D 80, H 256)
+   and wsj_las (B=32 x T 400, D 2,560, H 320), ragged lengths with a
+   zero-length row, every element of h, c, dxg and dW_hh held to a float32
+   bound; controls that must fail it (lengths ignored, W_hh read
+   transposed, input and forget gates swapped, the directions' W_hh
+   swapped); two backward launches compared bit for bit; the cluster plans;
+   kernel and cuDNN (`torch.nn.LSTM(bidirectional=True)` on packed
+   sequences, the yardstick) in turns, plain and bound times, and the time
+   per dependent step;
 11. an4_ctc (rung 1: 2-layer BiLSTM, H 256) serving at full width on a
    ragged B=32 batch of 2-8 s speech-like rows: launch counts (logmel 1,
-   LSTM forward 4), kernels vs plain torch with a control (layer 0's W_hh
-   zeroed), throughput, peak memory and a profile;
+   LSTM forward 2: one per layer), kernels vs plain torch with a control
+   (layer 0's W_hh zeroed), throughput, peak memory and a profile;
 12. the wsj_las hybrid step at full width (VGG + 4-layer pBLSTM, H 320,
    location-aware speller, lambda 0.3, SpecAugment, scheduled sampling
    0.1) on a ragged B=32 batch of 8-16 s rows, U <= 200: one step against
    plain torch on the card (loss, every gradient) with a control, launch
-   counts (logmel 1, LSTM 8 + 8, CTC 1 + 1), five Solver steps, train
+   counts (logmel 1, LSTM 4 + 4, CTC 1 + 1), five Solver steps, train
    throughput, peak memory and a profile; one an4_ctc CTC-only step;
 3j. (run after [3i]) the fused FFN kernels (LayerNorm, fc1, SiLU, fc2,
    dropout, residual), forward and backward, against their plain versions
@@ -538,158 +541,198 @@ def lstm_excess(got, want, mag) -> tuple[float, float, float]:
 
 
 def lstm_kernel_phase(dev, gen, peaks, card, kernels) -> None:
-    """[3i] the LSTM recurrence kernels (TPU kernels 11 and 12) against
-    their plain versions at layer 0 of both rungs, ragged lengths with a
-    zero-length row, both directions; three controls that must fail; times
-    beside the bound, the latency of T dependent steps, and cuDNN's LSTM
-    as the library yardstick."""
+    """[3i] the LSTM recurrence kernels (TPU kernels 11 and 12), both
+    directions of a layer in one launch, against their plain versions at
+    layer 0 of both rungs, ragged lengths with a zero-length row; four
+    controls that must fail; two backward launches compared bit for bit;
+    the cluster plan; times in turns against cuDNN's bidirectional LSTM
+    beside the bound, and the time per dependent step. The forward
+    direction's draws come from `gen` as they did when each direction had
+    its own launch (the later phases draw what they drew before); the
+    reverse direction's from a generator of its own."""
     import torch.nn.functional as F
 
     from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn import (
         flip_sequences,
     )
     from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
-        lstm_seq_bwd,
-        lstm_seq_bwd_plain,
-        lstm_seq_fwd,
-        lstm_seq_fwd_plain,
+        lstm_bwd,
+        lstm_bwd_plain,
+        lstm_fwd,
+        lstm_fwd_plain,
+        lstm_plan,
     )
 
     def bwd_ref(xg, whh, lens, h, c, g):
         """(dxg, dW_hh) of the plain version and dW_hh's magnitude term."""
-        dxg, dw = lstm_seq_bwd_plain(xg, whh, lens, h, c, g)
+        dxg, dw = lstm_bwd_plain(xg, whh, lens, h, c, g)
         H = h.shape[-1]
-        hprev = F.pad(h, (0, 0, 1, 0))[:, :h.shape[1]]
-        m_dw = hprev.abs().reshape(-1, H).T @ dxg.abs().reshape(-1, 4 * H)
+        hprev = F.pad(h, (0, 0, 1, 0))[..., :h.shape[-2], :]
+        m_dw = (hprev.abs().reshape(2, -1, H).transpose(1, 2)
+                @ dxg.abs().reshape(2, -1, 4 * H))
         return dxg, dw, m_dw
 
+    own = torch.Generator(device=dev).manual_seed(11)
     err_f = err_b = 0.0
     for si, (tag, BB, TT, DD, HH) in enumerate(LSTM_SHAPES):
-        u = lambda *sh, a: (torch.rand(*sh, device=dev, generator=gen)  # noqa: E731
-                            * 2 - 1) * a
+        def u(*sh, a, g_=gen):
+            return (torch.rand(*sh, device=dev, generator=g_) * 2 - 1) * a
         x = torch.randn(BB, TT, DD, device=dev, generator=gen)
-        wih, whh = u(DD, 4 * HH, a=DD ** -0.5), u(HH, 4 * HH, a=HH ** -0.5)
+        wih0, whh0 = u(DD, 4 * HH, a=DD ** -0.5), u(HH, 4 * HH, a=HH ** -0.5)
         b = torch.zeros(4 * HH, device=dev)
         b[HH:2 * HH] = 1.0
         lens = torch.randint(1, TT + 1, (BB,), device=dev, generator=gen)
         lens[0], lens[1] = TT, 0
-        g = torch.randn(BB, TT, HH, device=dev, generator=gen)
-        for rev in (False, True):
-            xg = (flip_sequences(x, lens) if rev else x) @ wih + b
-            h, c = lstm_seq_fwd(xg, whh, lens)
-            hp, cp = lstm_seq_fwd_plain(xg, whh, lens)
-            dx, dw = lstm_seq_bwd(xg, whh, lens, hp, cp, g)
-            dxp, dwp, m_dw = bwd_ref(xg, whh, lens, hp, cp, g)
-            torch.cuda.synchronize()
-            res = {"h": lstm_excess(h, hp, hp.abs().max()),
-                   "c": lstm_excess(c, cp, cp.abs().max()),
-                   "dxg": lstm_excess(dx, dxp, dxp.abs().max()),
-                   "dW_hh": lstm_excess(dw, dwp, m_dw)}
-            err_f = max(err_f, res["h"][0], res["c"][0])
-            err_b = max(err_b, res["dxg"][0], res["dW_hh"][0])
-            print(f"[3i] lstm {tag} (B={BB}, T={TT}, D {DD}, H {HH}), "
-                  f"{'reverse' if rev else 'forward'}: " + "; ".join(
-                      f"{k} max |kernel - plain| {e:.3e}, share beyond "
-                      f"2^-16 (|plain| + m) {sh:.3e}, ratio {r:.3e}"
-                      for k, (e, sh, r) in res.items()), flush=True)
-            check(all(r[1] == 0.0 for r in res.values()) and bool(
-                torch.all(h[1] == 0)) and bool(torch.all(dx[1] == 0)),
-                f"lstm kernels disagree ({tag}, reverse={rev}): {res}")
-            if rev:
-                continue
-            # controls, each a kernel that misreads its inputs: the
-            # lengths ignored, W_hh read transposed, the input and forget
-            # gates swapped
-            full = torch.full_like(lens, TT)
-            wt = whh.t().contiguous().view(HH, 4 * HH)
-            perm = torch.cat([torch.arange(HH, 2 * HH), torch.arange(HH),
-                              torch.arange(2 * HH, 4 * HH)]).to(dev)
-            xs, ws = xg[..., perm].contiguous(), whh[:, perm].contiguous()
-            for ctag, args in (("lengths ignored", (xg, whh, full)),
-                               ("W_hh transposed", (xg, wt, lens)),
-                               ("input and forget gates swapped",
-                                (xs, ws, lens))):
-                ch, cc = lstm_seq_fwd(*args)
-                cdx, cdw = lstm_seq_bwd(*args, hp, cp, g)
-                sh_f = max(lstm_excess(ch, hp, hp.abs().max())[1],
-                           lstm_excess(cc, cp, cp.abs().max())[1])
-                sh_b = max(lstm_excess(cdx, dxp, dxp.abs().max())[1],
-                           lstm_excess(cdw, dwp, m_dw)[1])
-                print(f"[3i] lstm control ({tag}), {ctag}: share beyond the "
-                      f"bound h/c {sh_f:.3e}, dxg/dW_hh {sh_b:.3e} (both "
-                      "must be > 0)", flush=True)
-                check(sh_f > 0.0 and sh_b > 0.0,
-                      f"lstm control '{ctag}' passed ({tag})")
-            # times on the forward direction's inputs: kernel, plain, the
-            # bound for this run's valid steps, cuDNN's LSTM on packed
-            # sequences with the same weights (it also does x @ W_ih; the
-            # zero-length row packed at length 1)
-            steps = float(lens.sum())
-            ops = 2.0 * steps * HH * 4 * HH
-            fb = bound(nbytes(xg, whh, lens, hp, cp),
-                       ops / peaks["fp32_flops"], peaks)
-            bb = bound(nbytes(xg, whh, lens, hp, cp, g, dxp, dwp),
-                       3 * ops / peaks["fp32_flops"], peaks)
-            lstm = torch.nn.LSTM(DD, HH, batch_first=True).to(dev)
+        g0 = torch.randn(BB, TT, HH, device=dev, generator=gen)
+        wih1 = u(DD, 4 * HH, a=DD ** -0.5, g_=own)
+        whh1 = u(HH, 4 * HH, a=HH ** -0.5, g_=own)
+        g = torch.stack([g0, torch.randn(BB, TT, HH, device=dev,
+                                         generator=own)])
+        wih, whh = torch.stack([wih0, wih1]), torch.stack([whh0, whh1])
+        xg = torch.stack([x @ wih0 + b, flip_sequences(x, lens) @ wih1 + b])
+        plans = {k: lstm_plan(k == "backward", 2, BB, HH)
+                 for k in ("forward", "backward")}
+        print(f"[3i] lstm {tag}: cluster plans (two directions, B={BB}, H "
+              f"{HH}): " + "; ".join(
+                  f"{k} {p['clusters']} clusters of {p['cluster']} blocks x "
+                  f"{p['threads']} threads, {p['rows']} rows each, "
+                  f"{p['smem_bytes']} B shared, the card holds "
+                  f"{p['clusters_at_once']} at once"
+                  for k, p in plans.items()), flush=True)
+        h, c = lstm_fwd(xg, whh, lens)
+        hp, cp = lstm_fwd_plain(xg, whh, lens)
+        dx, dw = lstm_bwd(xg, whh, lens, hp, cp, g)
+        dx2, dw2 = lstm_bwd(xg, whh, lens, hp, cp, g)
+        dxp, dwp, m_dw = bwd_ref(xg, whh, lens, hp, cp, g)
+        torch.cuda.synchronize()
+        res = {"h": lstm_excess(h, hp, hp.abs().max()),
+               "c": lstm_excess(c, cp, cp.abs().max()),
+               "dxg": lstm_excess(dx, dxp, dxp.abs().max()),
+               "dW_hh": lstm_excess(dw, dwp, m_dw)}
+        err_f = max(err_f, res["h"][0], res["c"][0])
+        err_b = max(err_b, res["dxg"][0], res["dW_hh"][0])
+        differ = bits_differ((dx, dw), (dx2, dw2))
+        print(f"[3i] lstm {tag} (B={BB}, T={TT}, D {DD}, H {HH}), both "
+              "directions in one launch: " + "; ".join(
+                  f"{k} max |kernel - plain| {e:.3e}, share beyond 2^-16 "
+                  f"(|plain| + m) {sh:.3e}, ratio {r:.3e}"
+                  for k, (e, sh, r) in res.items())
+              + f"; two backward launches differ in {differ} elements",
+              flush=True)
+        check(all(r[1] == 0.0 for r in res.values())
+              and bool(torch.all(h[:, 1] == 0))
+              and bool(torch.all(dx[:, 1] == 0)),
+              f"lstm kernels disagree ({tag}): {res}")
+        check(differ == 0, f"lstm backward not repeatable ({tag})")
+        # controls, each a kernel that misreads its inputs: the lengths
+        # ignored, W_hh read transposed, the input and forget gates
+        # swapped, the two directions' W_hh swapped
+        full = torch.full_like(lens, TT)
+        wt = whh.transpose(1, 2).contiguous().view(2, HH, 4 * HH)
+        perm = torch.cat([torch.arange(HH, 2 * HH), torch.arange(HH),
+                          torch.arange(2 * HH, 4 * HH)]).to(dev)
+        xs, ws = xg[..., perm].contiguous(), whh[..., perm].contiguous()
+        for ctag, args in (("lengths ignored", (xg, whh, full)),
+                           ("W_hh transposed", (xg, wt, lens)),
+                           ("input and forget gates swapped", (xs, ws, lens)),
+                           ("the directions' W_hh swapped",
+                            (xg, whh.flip(0).contiguous(), lens))):
+            ch, cc = lstm_fwd(*args)
+            cdx, cdw = lstm_bwd(*args, hp, cp, g)
+            sh_f = max(lstm_excess(ch, hp, hp.abs().max())[1],
+                       lstm_excess(cc, cp, cp.abs().max())[1])
+            sh_b = max(lstm_excess(cdx, dxp, dxp.abs().max())[1],
+                       lstm_excess(cdw, dwp, m_dw)[1])
+            print(f"[3i] lstm control ({tag}), {ctag}: share beyond the "
+                  f"bound h/c {sh_f:.3e}, dxg/dW_hh {sh_b:.3e} (both must "
+                  "be > 0)", flush=True)
+            check(sh_f > 0.0 and sh_b > 0.0,
+                  f"lstm control '{ctag}' passed ({tag})")
+        # times: the two-direction launches in turns with cuDNN's
+        # bidirectional LSTM on packed sequences with the same weights (it
+        # also does x @ W_ih; the zero-length row packed at length 1), the
+        # plain versions, and the bound for this run's valid steps
+        steps = float(lens.sum())
+        ops = 2 * 2.0 * steps * HH * 4 * HH
+        fb = bound(nbytes(xg, whh, lens, hp, cp),
+                   ops / peaks["fp32_flops"], peaks)
+        bb = bound(nbytes(xg, whh, lens, hp, cp, g, dxp, dwp),
+                   3 * ops / peaks["fp32_flops"], peaks)
+        lstm = torch.nn.LSTM(DD, HH, batch_first=True,
+                             bidirectional=True).to(dev)
+        with torch.no_grad():
+            for sfx, d in (("l0", 0), ("l0_reverse", 1)):
+                getattr(lstm, f"weight_ih_{sfx}").copy_(wih[d].T)
+                getattr(lstm, f"weight_hh_{sfx}").copy_(whh[d].T)
+                getattr(lstm, f"bias_ih_{sfx}").copy_(b)
+                getattr(lstm, f"bias_hh_{sfx}").zero_()
+        xq = x.clone().requires_grad_()
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            xq, lens.clamp(min=1).cpu(), batch_first=True,
+            enforce_sorted=False)
+        out = torch.nn.utils.rnn.pad_packed_sequence(
+            lstm(packed)[0], batch_first=True, total_length=TT)[0]
+        valid = (torch.arange(TT, device=dev)[None, :]
+                 < lens[:, None])[..., None]
+        lib_err = max(((out[..., :HH] - h[0]) * valid).abs().max().item(),
+                      ((out[..., HH:] - flip_sequences(h[1], lens))
+                       * valid).abs().max().item())
+        n_pk = lstm(packed)[0].data.shape[0]
+        g_pk = torch.cat([torch.randn(n_pk, HH, device=dev, generator=gen),
+                          torch.randn(n_pk, HH, device=dev, generator=own)],
+                         -1)
+        params = (packed.data, *lstm.parameters())
+
+        def lib_fwd():
             with torch.no_grad():
-                lstm.weight_ih_l0.copy_(wih.T)
-                lstm.weight_hh_l0.copy_(whh.T)
-                lstm.bias_ih_l0.copy_(b)
-                lstm.bias_hh_l0.zero_()
-            xq = x.clone().requires_grad_()
-            packed = torch.nn.utils.rnn.pack_padded_sequence(
-                xq, lens.clamp(min=1).cpu(), batch_first=True,
-                enforce_sorted=False)
-            out = torch.nn.utils.rnn.pad_packed_sequence(
-                lstm(packed)[0], batch_first=True, total_length=TT)[0]
-            valid = (torch.arange(TT, device=dev)[None, :]
-                     < lens[:, None])[..., None]
-            lib_err = ((out - h) * valid).abs().max().item()
-            g_pk = torch.randn(lstm(packed)[0].data.shape, device=dev,
-                               generator=gen)
-            params = (packed.data, *lstm.parameters())
+                return lstm(packed)
 
-            def lib_fwd():
-                with torch.no_grad():
-                    return lstm(packed)
-
-            row_f = dict(
-                ms=cuda_ms(lambda: lstm_seq_fwd(xg, whh, lens), iters=10),
-                plain_ms=cuda_ms(lambda: lstm_seq_fwd_plain(xg, whh, lens),
-                                 iters=2, warmup=1),
-                bound_ms=fb[0], bound_by=fb[1],
-                library_ms=cuda_ms(lib_fwd, iters=10))
-            row_b = dict(
-                ms=cuda_ms(lambda: lstm_seq_bwd(xg, whh, lens, hp, cp, g),
-                           iters=10),
-                plain_ms=cuda_ms(lambda: lstm_seq_bwd_plain(
-                    xg, whh, lens, hp, cp, g), iters=2, warmup=1),
-                bound_ms=bb[0], bound_by=bb[1],
-                library_ms=cuda_ms(lambda: torch.autograd.grad(
-                    lstm(packed)[0].data, params, g_pk), iters=10))
-            for kname, row in (("forward", row_f), ("backward", row_b)):
-                print(f"[3i] lstm {kname} {tag}: kernel {row['ms']:.4f} ms "
-                      f"({1e3 * row['ms'] / TT:.2f} us per dependent step, "
-                      f"{TT} steps), plain {row['plain_ms']:.3f} ms, cuDNN "
-                      f"{'fwd' if row is row_f else 'fwd + bwd'} "
-                      f"{row['library_ms']:.4f} ms, bound "
-                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}); {card}",
-                      flush=True)
-            print(f"[3i] cuDNN LSTM vs the kernel's h on valid steps: max "
-                  f"|diff| {lib_err:.3e} (cuDNN also computes x @ W_ih, "
-                  "which the kernel takes as xg)", flush=True)
-            if si == 0:
-                kernels["lstm_fwd"] = dict(
-                    name="lstm_fwd", route="cuda",
-                    source=f"{PKG}/csrc/lstm.cu",
-                    replaces="pytorch_end2end_speech_recognition_tpu/ops/"
-                             "rnn_pallas.py:136", **row_f)
-                kernels["lstm_bwd"] = dict(
-                    name="lstm_bwd", route="cuda",
-                    source=f"{PKG}/csrc/lstm.cu",
-                    replaces="pytorch_end2end_speech_recognition_tpu/ops/"
-                             "rnn_pallas.py:193", **row_b)
-            del lstm, packed, xq, out, g_pk, params
+        fwd_t = turns_ms({"kernel": lambda: lstm_fwd(xg, whh, lens),
+                          "library": lib_fwd}, windows=3, iters=5)
+        bwd_t = turns_ms({"kernel": lambda: lstm_bwd(xg, whh, lens, hp, cp,
+                                                     g),
+                          "library": lambda: torch.autograd.grad(
+                              lstm(packed)[0].data, params, g_pk)},
+                         windows=3, iters=5)
+        row_f = dict(ms=fwd_t["kernel"], plain_ms=cuda_ms(
+            lambda: lstm_fwd_plain(xg, whh, lens), iters=1, warmup=1),
+            bound_ms=fb[0], bound_by=fb[1], library_ms=fwd_t["library"])
+        row_b = dict(ms=bwd_t["kernel"], plain_ms=cuda_ms(
+            lambda: lstm_bwd_plain(xg, whh, lens, hp, cp, g), iters=1,
+            warmup=1), bound_ms=bb[0], bound_by=bb[1],
+            library_ms=bwd_t["library"])
+        for kname, row in (("forward", row_f), ("backward", row_b)):
+            print(f"[3i] lstm {kname} {tag}, both directions: kernel "
+                  f"{row['ms']:.4f} ms ({1e3 * row['ms'] / TT:.2f} us per "
+                  f"dependent step, {TT} steps), cuDNN bidirectional "
+                  f"{'fwd' if row is row_f else 'fwd + bwd'} "
+                  f"{row['library_ms']:.4f} ms (medians of 3 windows x 5 "
+                  f"launches in turns), plain {row['plain_ms']:.3f} ms, "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                  f"{card}", flush=True)
+        print(f"[3i] cuDNN LSTM vs the kernel's h on valid steps, both "
+              f"directions: max |diff| {lib_err:.3e} (cuDNN also computes x "
+              "@ W_ih, which the kernel takes as xg)", flush=True)
+        # the backward's launches: (a) the gate pre-pass, (b) the
+        # recurrence, (c) dW_hh and its ordered sum
+        _, kms, _ = profile_step(lambda: lstm_bwd(xg, whh, lens, hp, cp, g),
+                                 3)
+        parts = sorted(((re.search(r"lstm_\w+(<\w+>)?", k)[0], t)
+                        for k, t in kms.items() if "lstm_" in k),
+                       key=lambda kv: -kv[1])
+        print(f"[3i] lstm backward {tag}, device ms per call by kernel: "
+              + ", ".join(f"{k} {t:.4f}" for k, t in parts) + f"; {card}",
+              flush=True)
+        if si == 0:
+            kernels["lstm_fwd"] = dict(
+                name="lstm_fwd", route="cuda", source=f"{PKG}/csrc/lstm.cu",
+                replaces="pytorch_end2end_speech_recognition_tpu/ops/"
+                         "rnn_pallas.py:136", **row_f)
+            kernels["lstm_bwd"] = dict(
+                name="lstm_bwd", route="cuda", source=f"{PKG}/csrc/lstm.cu",
+                replaces="pytorch_end2end_speech_recognition_tpu/ops/"
+                         "rnn_pallas.py:193", **row_b)
+        del lstm, packed, xq, out, g_pk, params
     kernels["lstm_fwd"]["max_abs_err"] = err_f
     kernels["lstm_bwd"]["max_abs_err"] = err_b
 
@@ -1036,11 +1079,11 @@ def an4_serve_phase(dev, gen, card, kernels, counted, t_start) -> None:
         enc, elens, logits, tokens, tlens = serve(model, audio, lens)
     torch.cuda.synchronize()
     counts = {f.__name__: f.launches for f in counted if f.launches}
-    L2 = 2 * mc.encoder_layers
+    L = mc.encoder_layers  # one launch for both directions of a layer
     print(f"[11] an4_ctc serving launches: {counts}", flush=True)
-    check(counts == {"logmel": 1, "lstm_seq_fwd": L2},
+    check(counts == {"logmel": 1, "lstm_fwd": L},
           f"an4_ctc serving launch counts {counts}")
-    kernels["lstm_fwd"]["launches"] = counts["lstm_seq_fwd"]
+    kernels["lstm_fwd"]["launches"] = counts["lstm_fwd"]
     n_frames = (Ts - WIN) // HOP + 1
     check(tuple(enc.shape) == (B, n_frames, 2 * mc.encoder_dim)
           and bool(torch.isfinite(logits).all())
@@ -1157,12 +1200,12 @@ def las_train_phase(dev, gen, card, kernels, counted, t_start) -> None:
     km, kg = ks.grads(batch, spec_mask=spec_mask, coins=coins)
     torch.cuda.synchronize()
     counts = {f.__name__: f.launches for f in counted if f.launches}
-    L2 = 2 * mc.encoder_layers
+    L = mc.encoder_layers
     print(f"[12] wsj_las hybrid step launches: {counts}", flush=True)
-    check(counts == {"logmel": 1, "lstm_seq_fwd": L2, "lstm_seq_bwd": L2,
+    check(counts == {"logmel": 1, "lstm_fwd": L, "lstm_bwd": L,
                      "ctc_alpha": 1, "ctc_beta": 1},
           f"wsj_las step launch counts {counts}")
-    kernels["lstm_bwd"]["launches"] = counts["lstm_seq_bwd"]
+    kernels["lstm_bwd"]["launches"] = counts["lstm_bwd"]
     kg = {n: g.detach() for n, g in zip(ks.names, kg)}
     check(all(bool(torch.isfinite(g).all()) for g in kg.values())
           and all(bool(torch.isfinite(v)) for v in km.values()),
@@ -1253,11 +1296,11 @@ def las_train_phase(dev, gen, card, kernels, counted, t_start) -> None:
     m = an4.train_step(a_batch)
     torch.cuda.synchronize()
     counts = {f.__name__: f.launches for f in counted if f.launches}
-    L2 = 2 * an4.cfg.model.encoder_layers
+    L = an4.cfg.model.encoder_layers
     print(f"[12] an4_ctc Solver.train_step launches: {counts}; loss "
           f"{float(m['loss']):.4f}, grad_norm {float(m['grad_norm']):.3f}",
           flush=True)
-    check(counts == {"logmel": 1, "lstm_seq_fwd": L2, "lstm_seq_bwd": L2,
+    check(counts == {"logmel": 1, "lstm_fwd": L, "lstm_bwd": L,
                      "ctc_alpha": 1, "ctc_beta": 1},
           f"an4_ctc step launch counts {counts}")
     check(math.isfinite(float(m["loss"])) and "att_loss" not in m,
@@ -1852,13 +1895,13 @@ def main() -> int:
         ffn_fwd,
     )
     from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
-        lstm_seq_bwd,
-        lstm_seq_fwd,
+        lstm_bwd,
+        lstm_fwd,
     )
 
     COUNTED = (logmel, toeplitz_fwd, attention_fwd, attention_bwd,
                toeplitz_reduce, ctc_alpha, ctc_beta, flash_fwd, flash_bwd,
-               lstm_seq_fwd, lstm_seq_bwd, ffn_fwd, ffn_bwd)
+               lstm_fwd, lstm_bwd, ffn_fwd, ffn_bwd)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     dv.set_tf32(False)
@@ -1890,7 +1933,33 @@ def main() -> int:
                   f"{regs.group(1) if regs else '?'} registers, "
                   f"{spill.group(1) if spill else '?'} bytes spilled",
                   flush=True)
+    # the LSTM cluster kernels, one instantiation per rows-per-cluster R
+    lstm_regs = []
+    for i, line in enumerate(lines):
+        m = re.search(r"lstm_(fwd|bwd)_kernelILi(\d+)E", line)
+        if "Compiling entry" in line and m:
+            info = " ".join(lines[i + 1:i + 5])
+            regs = re.search(r"Used (\d+) registers", info)
+            spill = re.search(r"(\d+) bytes spill stores", info)
+            lstm_regs.append(f"{m.group(1)} R={m.group(2)} "
+                             f"{regs.group(1) if regs else '?'}/"
+                             f"{spill.group(1) if spill else '?'}")
+    print("[2] LSTM cluster kernels, registers/bytes spilled: "
+          + ", ".join(sorted(lstm_regs)), flush=True)
     lib = _build.load()
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
+        lstm_plan,
+    )
+    for tag, HH in (("an4_ctc", 256), ("wsj_las", 320)):
+        for which in (False, True):
+            p = lstm_plan(which, 2, B, HH)
+            print(f"[2] LSTM {'backward' if which else 'forward'} plan, "
+                  f"{tag} (two directions, B={B}, H {HH}): cluster size "
+                  f"{p['cluster']}, {p['rows']} rows a cluster, "
+                  f"{p['clusters']} clusters, "
+                  f"cudaOccupancyMaxActiveClusters {p['clusters_at_once']}, "
+                  f"{p['threads']} threads, {p['smem_bytes']} B shared",
+                  flush=True)
     print("[2] wgmma kernels' dynamic shared memory: attention_fwd_kernel "
           + ", ".join(f"{m} {lib.attention_fwd_smem_bytes(i)} B" for i, m in
                       enumerate(("no bias", "dense", "diagonals")))
@@ -2945,7 +3014,7 @@ def main() -> int:
                           "attention_bwd": 0, "toeplitz_reduce": 0,
                           "ctc_alpha": 0, "ctc_beta": 0,
                           "flash_fwd": mcfg.encoder_layers, "flash_bwd": 0,
-                          "lstm_seq_fwd": 0, "lstm_seq_bwd": 0,
+                          "lstm_fwd": 0, "lstm_bwd": 0,
                           "ffn_fwd": 0, "ffn_bwd": 0},
           f"long-audio forward launch counts {long_counts}")
     kernels["flash_attention"]["launches"] = long_counts["flash_fwd"]
@@ -3099,7 +3168,7 @@ def main() -> int:
     check(step_l == {"logmel": 1, "toeplitz_fwd": 0, "attention_fwd": 0,
                      "attention_bwd": 0, "toeplitz_reduce": 0,
                      "ctc_alpha": 1, "ctc_beta": 1, "flash_fwd": L,
-                     "flash_bwd": L, "lstm_seq_fwd": 0, "lstm_seq_bwd": 0,
+                     "flash_bwd": L, "lstm_fwd": 0, "lstm_bwd": 0,
                      "ffn_fwd": 0, "ffn_bwd": 0},
           f"long train step launch counts {step_l}")
     check(math.isfinite(float(metrics["loss"])), "long train step not finite")

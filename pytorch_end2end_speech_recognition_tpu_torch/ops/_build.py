@@ -57,11 +57,15 @@ SIGNATURES = {
     # lp, skip, sok, tlen, last, alpha, ll, g, grad, B, T, S, stream
     "ctc_beta_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _P],
-    # xg, whh, lens, h_all, c_all, hbuf, B, T, H, stream
-    "lstm_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # xg, whh, lens, h_all, c_all, g, dxg, dwhh, dgbuf, B, T, H, stream
+    # bwd, D, B, H, out (int[7]): the LSTM kernels' cluster plan
+    "lstm_plan": [_I, _I, _I, _I, _P],
+    # xg, whh, lens, h_all, c_all, D, B, T, H, stream
+    "lstm_fwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # D, B, T, H -> the dW_hh product's row splits S
+    "lstm_bwd_splits": [_I, _I, _I, _I],
+    # xg, whh, lens, h_all, c_all, g, dxg, dwhh, part, D, B, T, H, stream
     "lstm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _P],
+                        _I, _I, _I, _I, _P],
     # x, gamma, beta, w1, b1, w2, b2, seed, out, x_is_bf16, R, D, F,
     # scale, rate, keep_scale, stream
     "ffn_fwd_launch": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _P],

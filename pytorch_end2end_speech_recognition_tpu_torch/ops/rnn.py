@@ -5,7 +5,8 @@ the sequential part carries only the (B, 4H) recurrent product per step.
 Variable lengths: outputs past a row's length are zero and the carry
 freezes at the last valid step, so the final states are exact; the reverse
 direction flips each row's valid prefix. `bilstm_layer(impl='cuda')` takes
-the hand-written recurrence kernels of `ops/rnn_kernel.py`.
+the hand-written recurrence kernels of `ops/rnn_kernel.py`, both directions
+in one launch.
 """
 
 from __future__ import annotations
@@ -64,14 +65,13 @@ def bilstm_layer(x, lens, params_fwd, params_bwd, dtype=torch.float32,
                  impl: str = "torch") -> torch.Tensor:
     """Bidirectional layer: forward and backward outputs concatenated,
     (B, T, 2H). `impl` 'torch' runs `lstm_scan`, 'cuda' the recurrence
-    kernels (`ops/rnn_kernel.py`)."""
+    kernels (`ops/rnn_kernel.py`), one launch for both directions."""
     if impl == "cuda":
         from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (  # noqa: E501
-            lstm_scan_kernel,
+            bilstm_kernel,
         )
 
-        yf = lstm_scan_kernel(x, lens, *params_fwd, reverse=False, dtype=dtype)
-        yb = lstm_scan_kernel(x, lens, *params_bwd, reverse=True, dtype=dtype)
+        yf, yb = bilstm_kernel(x, lens, params_fwd, params_bwd, dtype=dtype)
     elif impl == "torch":
         yf, _ = lstm_scan(x, lens, *params_fwd, reverse=False, dtype=dtype)
         yb, _ = lstm_scan(x, lens, *params_bwd, reverse=True, dtype=dtype)

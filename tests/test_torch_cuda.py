@@ -264,19 +264,33 @@ def test_flash_kernel_rejects_a_dense_or_bf16_bias(dev):
             flash_fwd(q, k, v, bad, lens, 2)
 
 
-def _lstm_inputs(dev, B, T, D, H, seed):
+def _lstm_inputs(dev, B, T, D, H, seed, dirs=None):
+    """xg, whh, lens and a cotangent g; with `dirs`, D stacked directions
+    ((dirs, B, T, 4H) ...)."""
     g_ = torch.Generator(device="cpu").manual_seed(seed)
     u = lambda *s, a: ((torch.rand(*s, generator=g_) * 2 - 1) * a).to(dev)  # noqa: E731
-    xg = torch.randn(B, T, D, generator=g_).to(dev) @ u(D, 4 * H, a=D ** -0.5)
+    lead = () if dirs is None else (dirs,)
+    wih = u(*lead, D, 4 * H, a=D ** -0.5)
+    xg = torch.randn(*lead, B, T, D, generator=g_).to(dev) @ (
+        wih if dirs is None else wih[:, None])
     xg[..., H:2 * H] += 1.0  # the forget-gate bias of the init
-    whh = u(H, 4 * H, a=H ** -0.5)
+    whh = u(*lead, H, 4 * H, a=H ** -0.5)
     lens = torch.randint(1, T + 1, (B,), generator=g_).to(dev)
     lens[0], lens[1] = T, 0
-    return xg, whh, lens, torch.randn(B, T, H, generator=g_).to(dev)
+    return xg, whh, lens, torch.randn(*lead, B, T, H, generator=g_).to(dev)
+
+
+def _lstm_close(name, a, b, mag=None):
+    """float32 on both sides, sums in another order (chip_smoke.py
+    LSTM_TOL): |a - b| <= 2^-16 (|b| + m), m the largest |b| or `mag`."""
+    m = b.abs().max() if mag is None else mag
+    assert torch.all((a - b).abs() <= 2.0 ** -16 * (b.abs() + m)), name
 
 
 @pytest.mark.parametrize("B,T,D,H", [(4, 37, 12, 16), (3, 200, 64, 320)])
 def test_lstm_kernels_match_plain(dev, B, T, D, H):
+    """One direction (`lstm_seq_fwd`/`lstm_seq_bwd`, the counterparts of
+    `lstm_seq_pallas`) against the single-direction plain versions."""
     from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
         lstm_seq_bwd,
         lstm_seq_bwd_plain,
@@ -290,7 +304,6 @@ def test_lstm_kernels_match_plain(dev, B, T, D, H):
     dx, dw = lstm_seq_bwd(xg, whh, lens, hp, cp, g)
     dxp, dwp = lstm_seq_bwd_plain(xg, whh, lens, hp, cp, g)
     torch.cuda.synchronize()
-    # float32 on both sides, sums in another order (chip_smoke.py LSTM_TOL)
     for name, a, b in (("h", h, hp), ("c", c, cp), ("dxg", dx, dxp)):
         assert (a - b).abs().max() <= 2.0 ** -16 * (1 + b.abs().max()), name
     assert _rel_err(dw, dwp) < 1e-5
@@ -298,10 +311,50 @@ def test_lstm_kernels_match_plain(dev, B, T, D, H):
     assert torch.all(h[2, int(lens[2]):] == 0)
 
 
-def test_lstm_kernels_raise_on_what_they_do_not_take(dev):
-    """No fallback: a width that is not a multiple of 4, a bf16 input, and
-    a batch whose staged h does not fit shared memory all raise."""
+# both rungs' layer 0 (an4_ctc 8 s, wsj_las 16 s after the VGG front), a deep
+# pyramid layer (wsj_las layer 3 at 16 s: T 50) and a narrow width
+@pytest.mark.parametrize("B,T,D,H", [(32, 800, 80, 256), (32, 400, 2560, 320),
+                                     (32, 50, 640, 320), (5, 23, 12, 16)])
+def test_lstm_two_direction_kernels_match_plain(dev, B, T, D, H):
+    """Both directions in one launch against the plain versions (the
+    backward's: its three parts composed), every element to 2^-16 (|plain|
+    + m); the zero-length row and the steps past each length are zero;
+    two backward launches give the same bits."""
     from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
+        lstm_bwd,
+        lstm_bwd_plain,
+        lstm_fwd,
+        lstm_fwd_plain,
+    )
+
+    xg, whh, lens, g = _lstm_inputs(dev, B, T, D, H, T + H, dirs=2)
+    h, c = lstm_fwd(xg, whh, lens)
+    hp, cp = lstm_fwd_plain(xg, whh, lens)
+    dx, dw = lstm_bwd(xg, whh, lens, hp, cp, g)
+    dx2, dw2 = lstm_bwd(xg, whh, lens, hp, cp, g)
+    dxp, dwp = lstm_bwd_plain(xg, whh, lens, hp, cp, g)
+    torch.cuda.synchronize()
+    hprev = torch.nn.functional.pad(hp, (0, 0, 1, 0))[..., :T, :]
+    m_dw = (hprev.abs().reshape(2, -1, H).transpose(1, 2)
+            @ dxp.abs().reshape(2, -1, 4 * H))
+    for name, a, b, m in (("h", h, hp, None), ("c", c, cp, None),
+                          ("dxg", dx, dxp, None), ("dW_hh", dw, dwp, m_dw)):
+        _lstm_close(name, a, b, m)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert torch.all(h[:, 1] == 0) and torch.all(dx[:, 1] == 0)
+    for d in range(2):
+        assert torch.all(h[d, 2, int(lens[2]):] == 0)
+        assert torch.all(dx[d, 2, int(lens[2]):] == 0)
+
+
+def test_lstm_kernels_raise_on_what_they_do_not_take(dev):
+    """No fallback: a width that is not a multiple of 4, a bf16 input, a
+    W_hh of the wrong direction count, and a width whose W_hh slice fits no
+    cluster's shared memory all raise. A batch of 512 rows at H 320 runs:
+    its clusters take more than one wave."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
+        lstm_fwd,
+        lstm_fwd_plain,
         lstm_seq_fwd,
     )
 
@@ -311,9 +364,18 @@ def test_lstm_kernels_raise_on_what_they_do_not_take(dev):
                      torch.zeros(18, 72, device=dev), lens)
     with pytest.raises(TypeError, match="float32"):
         lstm_seq_fwd(xg.to(torch.bfloat16), whh, lens)
-    xg, whh, lens, _ = _lstm_inputs(dev, 512, 3, 8, 320, 1)
-    with pytest.raises(RuntimeError, match="lstm_seq_fwd"):
+    with pytest.raises(ValueError, match="whh"):
+        lstm_fwd(xg[None], torch.stack([whh, whh]), lens)
+    # H 1,032: no cluster size leaves a multiple of 8 units a block whose
+    # W_hh columns fit 227 KB
+    xg, whh, lens, _ = _lstm_inputs(dev, 2, 3, 8, 1032, 1)
+    with pytest.raises(RuntimeError, match="lstm_fwd"):
         lstm_seq_fwd(xg, whh, lens)
+    xg, whh, lens, _ = _lstm_inputs(dev, 512, 3, 8, 320, 1, dirs=2)
+    h, c = lstm_fwd(xg, whh, lens)
+    hp, cp = lstm_fwd_plain(xg, whh, lens)
+    _lstm_close("h", h, hp)
+    _lstm_close("c", c, cp)
 
 
 def _ffn_inputs(dev, R, D, F, x_dtype, seed):
