@@ -274,7 +274,9 @@ PROFILE_GROUPS = (
     ("ffn", ("ffn_",)),
     ("lstm", ("lstm_",)),
     # the attention kernels in kDiag mode
-    ("flash", ("kernel<64, 2>", "fwd_kernel<2,", "ddiag_sum")),
+    ("flash", ("attention_fwd_kernel<2>", "attn_bwd_delta_kernel<2>",
+               "attn_bwd_main_kernel<2>", "attn_bwd_dq_sum_kernel<2>",
+               "ddiag_sum")),
     ("logmel", ("logmel_",)),
     ("toeplitz", ("toeplitz_",)),
     ("attention_bwd", ("attn_bwd_",)),
@@ -346,14 +348,35 @@ def bits_differ(a, b) -> int:
     return n
 
 
+def kernel_split(fn, iters: int = 10) -> dict:
+    """{kernel name: device ms per call of fn} for the kernels fn launches
+    (`profile_step` over `iters` calls), names cut to the kernel's own."""
+    _, kernel_ms, _ = profile_step(fn, iters)
+    out = {}
+    for key, t in kernel_ms.items():
+        m = re.search(r"(\w+_kernel)(<\d+>)?", key)
+        name = (m.group(1) + (m.group(2) or "")) if m else key[:40]
+        out[name] = out.get(name, 0.0) + t
+    return out
+
+
+def print_split(tag: str, split: dict, card: str) -> None:
+    print(f"{tag}, device ms per launch by kernel: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+              split.items(), key=lambda kv: -kv[1]))
+          + f" (sum {sum(split.values()):.4f}); {card}", flush=True)
+
+
 def print_turns(tag: str, turns: dict, flops: float, bound_ms: float,
-                card: str) -> None:
-    """One line for a kernel timed in turns against its library yardstick:
-    both medians, the kernel's TFLOP/s and bound / kernel, and whether the
-    kernel is at or below the yardstick."""
+                card: str, windows: int = 5, iters: int = 50) -> None:
+    """One line for a kernel timed in turns (`turns_ms` with `windows` and
+    `iters`) against its library yardstick: both medians, the kernel's
+    TFLOP/s and bound / kernel, and whether the kernel is at or below the
+    yardstick."""
     k, lib = turns["kernel"], turns["library"]
     print(f"{tag}: kernel {k:.4f} ms, library {lib:.4f} ms (medians of "
-          f"5 windows x 50 launches in turns), {flops / k / 1e9:.1f} "
+          f"{windows} windows x {iters} launches in turns), "
+          f"{flops / k / 1e9:.1f} "
           f"TFLOP/s, bound / kernel {bound_ms / k:.3f}, kernel "
           f"{'at or below' if k <= lib else 'ABOVE'} the library; {card}",
           flush=True)
@@ -1920,19 +1943,33 @@ def main() -> int:
                                    "error")):
             print("    " + line.strip())
     # the wgmma/TMA kernels (namespace hop): registers and spills, from the
-    # ptxas -v lines that follow each entry
+    # ptxas -v lines that follow each entry. The warp-specialised ones move
+    # registers with setmaxnreg, which hangs unless ptxas compiled them at
+    # exactly 65,536 / threads: checked here, before any of them launches.
+    ws_threads = {"attention_fwd_kernel": 512, "ffn_fwd_wgmma_kernel": 384,
+                  "attn_bwd_delta_kernel": 384, "attn_bwd_main_kernel": 384,
+                  "attn_bwd_dbias_kernel": 384}
     for i, line in enumerate(lines):
-        m = re.search(r"hop\d+([a-z_]+)I(Li(\d+)E|f|13__nv_bfloat16)", line)
+        m = re.search(r"hop\d+([a-z_]+)(?:I(Li(\d+)E|f|13__nv_bfloat16)|E)",
+                      line)
         if "Compiling entry" in line and m:
             info = " ".join(lines[i + 1:i + 5])
             regs = re.search(r"Used (\d+) registers", info)
             spill = re.search(r"(\d+) bytes spill stores", info)
             targ = (f"bias mode {m.group(3)}" if m.group(3) else
-                    {"f": "float32 x", "13__nv_bfloat16": "bf16 x"}[m.group(2)])
+                    {"f": "float32 x", "13__nv_bfloat16": "bf16 x",
+                     None: "dense bias"}[m.group(2)])
+            need = (65536 // ws_threads[m.group(1)] // 8 * 8
+                    if m.group(1) in ws_threads else None)
             print(f"[2] wgmma kernel {m.group(1)} ({targ}): "
-                  f"{regs.group(1) if regs else '?'} registers, "
-                  f"{spill.group(1) if spill else '?'} bytes spilled",
+                  f"{regs.group(1) if regs else '?'} registers"
+                  + (f" (65,536 / {ws_threads[m.group(1)]} threads: {need})"
+                     if need else "")
+                  + f", {spill.group(1) if spill else '?'} bytes spilled",
                   flush=True)
+            check(need is None or (regs and int(regs.group(1)) == need),
+                  f"{m.group(1)} ({targ}) not compiled at {need} registers: "
+                  "its setmaxnreg would hang")
     # the LSTM cluster kernels, one instantiation per rows-per-cluster R
     lstm_regs = []
     for i, line in enumerate(lines):
@@ -1960,9 +1997,14 @@ def main() -> int:
                   f"cudaOccupancyMaxActiveClusters {p['clusters_at_once']}, "
                   f"{p['threads']} threads, {p['smem_bytes']} B shared",
                   flush=True)
-    print("[2] wgmma kernels' dynamic shared memory: attention_fwd_kernel "
-          + ", ".join(f"{m} {lib.attention_fwd_smem_bytes(i)} B" for i, m in
-                      enumerate(("no bias", "dense", "diagonals")))
+    print("[2] wgmma kernels' dynamic shared memory (no bias, dense, "
+          "diagonals): " + "; ".join(
+              f"{kn} " + ", ".join(f"{lib.attention_smem_bytes(w, i)}"
+                                   for i in range(3)) + " B"
+              for w, kn in enumerate(("attention_fwd_kernel",
+                                      "attn_bwd_delta_kernel",
+                                      "attn_bwd_main_kernel")))
+          + f"; attn_bwd_dbias_kernel {lib.attention_smem_bytes(3, 1)} B"
           + f"; ffn_fwd_wgmma_kernel {lib.ffn_fwd_smem_bytes()} B (one "
           "block an SM; a block may take 232,448)", flush=True)
 
@@ -2242,16 +2284,21 @@ def main() -> int:
         # read, dbias (H, P, P) written, lse read
         7 * nbytes(q) + H * T_enc * T_enc * 2 + nbytes(bias) + nbytes(lse),
         flops / peaks["bf16_flops"], peaks)
+    turns = turns_ms({
+        "kernel": lambda: attention_bwd(q, k, v, bias, full, gg, lse, H),
+        "library": sdpa_fwd_bwd}, iters=20)
+    print_turns(f"[3] attention backward (wgmma) B={B} x T' {T_enc}", turns,
+                flops, b_ms, card, iters=20)
+    print_split("[3] attention backward", kernel_split(
+        lambda: attention_bwd(q, k, v, bias, full, gg, lse, H)), card)
     kernels["attention_bwd"] = dict(
         name="attention_bwd", route="cuda", source=f"{PKG}/csrc/attention.cu",
         replaces="pytorch_end2end_speech_recognition_tpu/ops/"
                  "attention_pallas.py:281",
-        max_abs_err=bwd_err,
-        ms=cuda_ms(lambda: attention_bwd(q, k, v, bias, full, gg, lse, H)),
+        max_abs_err=bwd_err, ms=turns["kernel"],
         plain_ms=cuda_ms(
             lambda: attention_bwd_plain(q, k, v, bias, full, gg, H), iters=5),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(sdpa_fwd_bwd, iters=10))
+        bound_ms=b_ms, bound_by=b_by, library_ms=turns["library"])
     print("[3] attention backward library yardstick: SDPA forward + backward"
           " with the float bias as attn_mask requiring grad", flush=True)
     del q, k, v, qh, kh, vh, gh, lib_mask, g_out, gg, lse
@@ -2279,8 +2326,6 @@ def main() -> int:
     b_ms, b_by = bound(7 * nbytes(q4) + H4 * T_enc * T_enc * 2
                        + nbytes(bias4) + nbytes(lse4),
                        flops4 / peaks["bf16_flops"], peaks)
-    ms4 = cuda_ms(lambda: attention_bwd(q4, k4, v4, bias4, lens4, g4, lse4,
-                                        H4))
     plain4 = cuda_ms(lambda: attention_bwd_plain(q4, k4, v4, bias4, lens4,
                                                  g4, H4), iters=5)
     # library yardstick: SDPA forward + backward with the float bias (and
@@ -2294,12 +2339,20 @@ def main() -> int:
     mask4 = (bias4[None, :, :T_enc, :T_enc].float()
              + torch.where(key_ok4, 0.0, float("-inf"))[:, None, None, :]
              ).to(torch.bfloat16).contiguous().requires_grad_()
-    lib4 = cuda_ms(lambda: torch.autograd.grad(
-        sdpa(qh4, kh4, vh4, attn_mask=mask4), (qh4, kh4, vh4, mask4), gh4),
-        iters=10)
-    print(f"[3] attention backward at rung 4's shape: kernel {ms4:.4f} ms, "
-          f"plain {plain4:.4f} ms, SDPA fwd + bwd {lib4:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}); {card}", flush=True)
+    turns4 = turns_ms({
+        "kernel": lambda: attention_bwd(q4, k4, v4, bias4, lens4, g4, lse4,
+                                        H4),
+        "library": lambda: torch.autograd.grad(
+            sdpa(qh4, kh4, vh4, attn_mask=mask4), (qh4, kh4, vh4, mask4),
+            gh4)}, iters=20)
+    print_turns("[3] attention backward (wgmma) at rung 4's shape", turns4,
+                flops4, b_ms, card, iters=20)
+    print_split("[3] attention backward at rung 4's shape", kernel_split(
+        lambda: attention_bwd(q4, k4, v4, bias4, lens4, g4, lse4, H4)), card)
+    print(f"[3] attention backward at rung 4's shape: kernel "
+          f"{turns4['kernel']:.4f} ms, plain {plain4:.4f} ms, SDPA fwd + bwd "
+          f"{turns4['library']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {card}",
+          flush=True)
     del q4, k4, v4, bias4, g4, lse4, got4, qh4, kh4, vh4, gh4, mask4
 
     # ---- [3h] long-audio flash attention, forward (TPU kernel 7) and
@@ -2473,23 +2526,28 @@ def main() -> int:
         print_turns(f"[3] flash forward (wgmma) {tag}", turns, flops, fb_ms,
                     card)
         lib_mask.requires_grad_()
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-            sdpa(qh, kh, vh, attn_mask=lib_mask), (qh, kh, vh, lib_mask), gh),
-            iters=5)
-        del qh, kh, vh, gh, lib_mask
         bb_ms, bb_by = bound(7 * nbytes(fq) + 2 * nbytes(fd) + nbytes(flse),
                              2.5 * flops / peaks["bf16_flops"], peaks)
+        turns_b = turns_ms({
+            "kernel": lambda: flash_bwd(fq, fk, fv, fd, ffull, gg, flse, HH),
+            "library": lambda: torch.autograd.grad(
+                sdpa(qh, kh, vh, attn_mask=lib_mask),
+                (qh, kh, vh, lib_mask), gh)}, windows=3, iters=10)
+        del qh, kh, vh, gh, lib_mask
+        print_turns(f"[3] flash backward (wgmma) {tag}", turns_b,
+                    2.5 * flops, bb_ms, card, windows=3, iters=10)
+        print_split(f"[3] flash backward {tag}", kernel_split(
+            lambda: flash_bwd(fq, fk, fv, fd, ffull, gg, flse, HH)), card)
         row_f = dict(
             ms=turns["kernel"],
             plain_ms=cuda_ms(lambda: flash_fwd_plain(fq, fk, fv, fd, ffull,
                                                      HH), iters=5),
             bound_ms=fb_ms, bound_by=fb_by, library_ms=turns["library"])
         row_b = dict(
-            ms=cuda_ms(lambda: flash_bwd(fq, fk, fv, fd, ffull, gg, flse,
-                                         HH)),
+            ms=turns_b["kernel"],
             plain_ms=cuda_ms(lambda: flash_bwd_plain(fq, fk, fv, fd, ffull, gg,
                                                      HH), iters=3, warmup=1),
-            bound_ms=bb_ms, bound_by=bb_by, library_ms=lib_bwd)
+            bound_ms=bb_ms, bound_by=bb_by, library_ms=turns_b["library"])
         for kname, row in (("flash forward", row_f),
                            ("flash backward", row_b)):
             print(f"[3] {kname} {tag}: kernel {row['ms']:.4f} ms, plain "

@@ -41,19 +41,10 @@
 //
 // The TPU kernels keep whole K/V rows in VMEM, take a single-pass softmax
 // over all keys, and expand the bias with a strided roll. Here the tiles
-// above run unchanged; only the bias source differs. A forward tile (q0, k0)
-// of 192 queries reads the 255 consecutive diagonals diag[h, (T-1) + k0 - q0
-// - 191 ...], a backward tile of 64 the 127 from (T-1) + k0 - q0 - 63, staged
-// as float32 and indexed w[j - i + rows - 1], so the bias is not rounded to
-// bf16 (the one numerical difference from the dense path). In the backward's
-// dq kernel each block sums its ds along diagonals in shared memory over its
-// whole key sweep (one float per diagonal it touches, T + 63 of them; each
-// warp first gathers a tile's diagonals in a window of its own, one row per
-// lane column, and the windows are added in warp order), writes them to its
-// own row of a partial buffer, and a second launch adds the rows per diagonal
-// in a fixed order.
-// Any T, no padding. Bound (H100 SXM, 989 TFLOP/s bf16): the products, as
-// for the dense kernels; the diagonals add 16 KB per head.
+// above run unchanged; only the bias source differs: a tile reads the
+// consecutive diagonals it spans, staged as float32, so the bias is not
+// rounded to bf16 (the one numerical difference from the dense path). Any
+// T, no padding.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -63,102 +54,17 @@
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block (16 per warp)
-constexpr int BK = 64;  // keys per tile
-constexpr int LDB = BK + 8;  // padded row of the bias tile (bank spread)
+constexpr int BK = 64;  // keys per tile (forward, pre-pass and dbias)
 constexpr float MASKED = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Where the additive bias comes from: none; a dense (H, ld, ld) bf16 block
 // (T <= 768, the Toeplitz expansion); or the diagonals (H, 2T-1) float32.
 enum BiasMode { kNoBias = 0, kDense = 1, kDiag = 2 };
-template <int BM> struct BiasOf { using T = __nv_bfloat16; };
-template <> struct BiasOf<kDiag> { using T = float; };
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed on the way: lanes 8q..8q+7 give the
-// row addresses of matrix q; register q receives matrix q's fragment.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16-byte async copy global -> shared; zero-fills when `valid` is false.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-
-// 4-byte async copy global -> shared (one float); zero-fills when invalid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-
-// Stage the 127 diagonals that the tile (q0, k0) reads, float32, into w:
-// w[c] = diag_h[(T-1) + k0 - q0 - (BQ-1) + c], so bias(i, j) of the tile is
-// w[j - i + BQ - 1]. Diagonals outside [0, 2T-1) belong to rows past T or
-// keys past T, which are masked; they are zero-filled.
-__device__ __forceinline__ void load_diag_window(float* w,
-                                                 const float* diag_h, int T,
-                                                 int q0, int k0, int tid,
-                                                 int nthreads) {
-  const int ws = (T - 1) + k0 - q0 - (BQ - 1);
-  for (int c = tid; c < BQ + BK; c += nthreads) {
-    const int d = ws + c;
-    const bool ok = d >= 0 && d < 2 * T - 1;
-    cp_async4(w + c, diag_h + (ok ? d : 0), ok);
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int DH>
-__host__ __device__ constexpr int stage_elems() {  // bf16 elements per stage
-  return 2 * BK * (DH + 8) + BQ * LDB;
-}
-
-// This head's bias: (ld, ld) bf16 (kDense) or (2T-1) float32 (kDiag).
-template <int BM>
-__device__ __forceinline__ const typename BiasOf<BM>::T* head_bias(
-    const typename BiasOf<BM>::T* bias, int h, int bias_ld, int T) {
-  if constexpr (BM == kDense) return bias + (size_t)h * bias_ld * bias_ld;
-  if constexpr (BM == kDiag) return bias + (size_t)h * (2 * T - 1);
-  return nullptr;
 }
 
 // ------------------------------------------------- forward for Hopper
@@ -556,729 +462,879 @@ inline cudaError_t qkv_map(CUtensorMap* m, const void* p, int B, int T,
 // Replaces: pytorch_end2end_speech_recognition_tpu/ops/attention_pallas.py
 //   _attention_bwd_pallas (pallas_call at :311, kernel body _bwd_kernel
 //   :122) and _attention_bwd_headsplit (pallas_call at :250), which compute
-//   the same function in two layouts. With p recomputed from the forward's
-//   row lse and g the output cotangent:
+//   the same function in two layouts, and _flash_bwd_pallas (:696) with the
+//   bias as diagonals. With p recomputed from the forward's row lse and g
+//   the output cotangent:
 //   dv = p^T g,  dp = g v^T,  ds = p * (dp - rowsum(dp * p)),
-//   dq = (ds k) * sm_scale,  dk = ds^T (q * sm_scale),  dbias_h = sum_b ds.
+//   dq = (ds k) * sm_scale,  dk = ds^T (q * sm_scale),  dbias_h = sum_b ds,
+//   ddiag_h[d] = sum over b and the (i, j) with (T-1) + j - i = d of ds.
 // Rounding as in the TPU kernel: q * sm_scale rounded to bf16 (also the dk
-// operand), p rounded to bf16 for dv, ds rounded to bf16 for dq and dk,
-// float32 accumulation everywhere, dbias summed in float32. rowsum(dp * p)
-// is computed as the TPU kernel computes it, from float32 p, not through
-// the FlashAttention-2 identity rowsum(g * o), which the bf16 rounding of o
-// would break.
+// operand), p float32 from the forward's lse and rounded to bf16 only for
+// dv, ds rounded to bf16 for dq and dk, float32 accumulation everywhere,
+// dbias summed over the batch in float32 and stored as bf16, ddiag float32.
+// delta = rowsum(dp * p) is taken as the TPU kernel takes it, from float32
+// p, not through FlashAttention's identity rowsum(g * o), which the bf16
+// rounding of o would break. sm_scale is 1/8 (Dh 64), a power of two: the
+// kernels multiply float32 sums by it, which gives the same bits as
+// products of the rounded q * sm_scale.
 //
-// Design. The TPU kernel holds a whole (Tp, Tp) score block per head; here
-// the work is tiled 64 x 64 as in the forward, in two kernels:
-// - attn_bwd_dq: one block per (64-query tile, head, batch row). Pass 1
-//   walks the key tiles (up to lens[b]) and accumulates delta =
-//   rowsum(dp * p), written out for the second kernel; pass 2 walks them
-//   again for ds and accumulates dq in registers. With the diagonals it
-//   also sums ds along them into a partial row of its own, and a second
-//   launch adds the rows in a fixed order.
-// - attn_bwd_dbias (dense bias): one block per (key tile, query tile,
-//   head) recomputes ds on its tile for each batch row in order and sums
-//   it in registers. No atomics anywhere: the same bits on every run.
-// - attn_bwd_dkdv: one block per (64-key tile, head, batch row); each warp
-//   owns 16 keys and computes the transposed scores s^T = k q^T directly,
-//   so dk and dv accumulate in registers with no atomics. Key tiles past
-//   lens[b] are written as zeros without loading anything.
-// Tiles arrive by cp.async into a double buffer. The products are
-// mma.sync.m16n8k16 (bf16 in, float32 out); operands that are not
-// row-major for the product come through ldmatrix.trans.
+// Bound on the H100 at the flagship shape (B=32, T=750, H=4, Dh=64): five
+// 64-wide products per (query, key) pair, S, dP, dV, dK and dQ, ~46 GFLOP
+// per launch in bf16 (~47 us at 989 TFLOP/s).
 //
-// Bound on the H100 at the flagship shape (B=32, T=750, H=4, Dh=64):
-// 2.5x the forward's operations, ~46 GFLOP per launch in bf16 (~47 us at
-// 989 TFLOP/s); the recomputation (pass 1 and the dk/dv kernel's s and dp)
-// adds 4 more products of the same size, the price of keeping every score
-// tile on chip.
+// Design, on FlashAttention-3's backward; every kernel is warp-specialised
+// (one producer warpgroup, two consumer warpgroups of 64 rows; the producer
+// keeps 24 registers a thread, the consumers 240), its operands arrive by
+// TMA into mbarrier rings, and every product is wgmma:
+// - attn_bwd_delta_kernel: delta = rowsum(dp * p) per query row. A block
+//   takes 128 queries of one (b, h) and walks 64-key tiles up to lens[b]:
+//   S = Q K^T and dP = G V^T, p from the lse, the sum in registers (2
+//   products).
+// - attn_bwd_main_kernel: a block owns 128 keys of one (b, h) (64 per
+//   consumer) and walks all 64-query tiles: S^T = K Q^T and dP^T = V G^T,
+//   P^T and dS^T in registers, dV += P^T G and dK += dS^T Q with the
+//   register A operand, dS^T through 128-byte-swizzled shared memory into
+//   dQ = dS K, each consumer 32 of dQ's 64 columns (5 products). The next
+//   diagonal sums run while dQ computes. Each block stores its float32 dQ
+//   partial per query tile, with no fence and no wait on another block;
+//   attn_bwd_dq_sum_kernel adds the partials of a (b, h) in key-block
+//   order, scales and stores bf16 dq. (An ordered hand-over per tile
+//   between the key blocks, FlashAttention-3's deterministic mode, put a
+//   release fence and a wait on the previous block into every tile and
+//   chained the blocks' pace; summing in the last block to finish left one
+//   SM per (b, h) walking every partial.) Key blocks past lens[b] load
+//   nothing and store zeros.
+// - Dense bias: attn_bwd_dbias_kernel, one block per (64-key tile,
+//   128-query tile, head), walks the batch rows in order, recomputes S and
+//   dP (2 products) and sums ds in float32 registers, the bias tile held in
+//   registers across the rows.
+// - Diagonals: the main kernel stores each tile's float32 dS skewed (row i,
+//   column j - i + 63) and sums the columns in row order: one partial per
+//   (block, query tile, diagonal); attn_bwd_ddiag_sum_kernel adds them per
+//   diagonal in a fixed order.
+// No float atomics anywhere: every sum has one order, the same bits on
+// every run.
+// Cycles per phase of the main backward kernel's query tiles (consumer
+// thread 0 of the first and of the last key block of (b, h) = (0, 0)), for
+// csrc/probe/attn_bwd_phases.py, which builds this file with -DATTN_PHASES;
+// the kernel library compiles the markers to nothing.
+#ifdef ATTN_PHASES
+__device__ long long attn_phase_cycles[32];
+#define PHASES_BEGIN long long ph_last_ = clock64(), ph_acc_[16] = {};
+#define PHASE(i)                    \
+  do {                              \
+    const long long c_ = clock64(); \
+    ph_acc_[i] += c_ - ph_last_;    \
+    ph_last_ = c_;                  \
+  } while (0)
+#define PHASES_END                                                        \
+  if (threadIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&           \
+      (blockIdx.x == 0 || blockIdx.x == gridDim.x - 1))                   \
+    for (int i_ = 0; i_ < 16; ++i_)                                       \
+      attn_phase_cycles[(blockIdx.x ? 16 : 0) + i_] = ph_acc_[i_];
+#else
+#define PHASES_BEGIN
+#define PHASE(i)
+#define PHASES_END
+#endif
 
-// kDiag: the dynamic shared memory holds, after the two stages, the
-// four warps' windows of one key tile's diagonals and the block's
-// per-diagonal ds sums sAcc[u] for the diagonal (T-1) - q0 - (BQ-1) + u, u
-// < roundup(T, BK) + BQ; the block writes sAcc to its own row of the
-// (B n_qt H, roundup(T, BK) + BQ) float32 partial buffer, which
-// attn_bwd_ddiag_sum_kernel adds per diagonal in (batch row, query tile)
-// order. kDense: dbias comes from attn_bwd_dbias_kernel. Every sum has one
-// fixed order: the same bits on every run.
-constexpr int DIAG_WIN = 80;  // a warp's 16 x 64 tile spans 79 diagonals
+namespace hop {
 
-template <int DH, int BM>
-__global__ void __launch_bounds__(128)
-attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ g,
-                   const typename BiasOf<BM>::T* __restrict__ bias,
-                   int bias_ld, const int* __restrict__ lens,
-                   const float* __restrict__ lse, float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, float* __restrict__ part,
-                   int T, int H, float sm_scale) {
-  constexpr int LDS = DH + 8;
-  constexpr int CH = DH / 8;
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  auto sK = [&](int s) { return smem + s * stage_elems<DH>(); };
-  auto sV = [&](int s) { return sK(s) + BK * LDS; };
-  auto sBias = [&](int s) { return sV(s) + BK * LDS; };
-  // kDiag: the warps' windows [4 warps][4 lanes t][DIAG_WIN], then sAcc
-  float* sWin = reinterpret_cast<float*>(smem + 2 * stage_elems<DH>());
-  float* sAcc = sWin + 16 * DIAG_WIN;
+constexpr int BWD_THREADS = 384;  // 2 consumer warpgroups + 1 producer
+constexpr int BWD_CONSUMERS = 256;
+constexpr int KEYS = 128;         // main kernel: keys a block
+constexpr int QT = 64;            // main kernel: queries a tile
+constexpr int ROWS2 = 128;        // pre-pass and dbias: queries an item
+constexpr int MAIN_STAGES = 3;
+constexpr int PRE_STAGES = 3;
+constexpr int SKEW_LD = 197;      // 197 - 1 = 4 mod 16: conflict-free stores
+constexpr int DIAG_COLS = 192;    // diagonals a main tile spans (191) + 1
+constexpr uint32_t TILE64 = 64 * 128;  // a (64, 64) bf16 tile: 8 KB
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, t = lane & 3;
-  const auto* bias_h = head_bias<BM>(bias, h, bias_ld, T);
-  const int wr = warp * 16;
-  const int i0 = qt * BQ + wr + gq;  // this thread's two query rows
-  const int i1 = i0 + 8;
-  const int q4 = lane >> 3;
-  const int KW = (T + BK - 1) / BK * BK + BQ;  // diagonals a block can touch
+// main kernel, one stage: Q, G (64, 64), the bias (kDense: two (64 queries,
+// 64 keys) blocks), lse and delta of the 64 queries, the 192 diagonals
+template <int BM>
+__host__ __device__ constexpr uint32_t main_stage_bytes() {
+  return 2 * TILE64 + (BM == kDense ? 2 * TILE64 : 0) + 2048;
+}
+
+template <int BM>
+__host__ __device__ constexpr size_t main_smem_bytes() {
+  return 1024 + 4 * TILE64 /* K, V */ + MAIN_STAGES * main_stage_bytes<BM>() +
+         4 * TILE64 /* dS^T, two buffers */ +
+         (BM == kDiag ? 2 * 64 * SKEW_LD * 4 : 0) + 64;
+}
+
+// pre-pass, one stage: K, V (64, 64), the bias (kDense: (128, 64); kDiag:
+// 192 diagonals)
+template <int BM>
+__host__ __device__ constexpr uint32_t pre_stage_bytes() {
+  return 2 * TILE64 + (BM == kDense ? 2 * TILE64 : 0) +
+         (BM == kDiag ? 1024 : 0);
+}
+
+template <int BM>
+__host__ __device__ constexpr size_t pre_smem_bytes() {
+  return 1024 + 4 * TILE64 /* Q, G (128, 64) */ +
+         PRE_STAGES * pre_stage_bytes<BM>() + 64;
+}
+
+// dbias, one stage: Q, G (128, 64), K, V (64, 64), lse and delta of 128 rows
+constexpr uint32_t DB_STAGE = 6 * TILE64 + 1024;
+constexpr size_t DB_SMEM = 1024 + PRE_STAGES * DB_STAGE + 64;
+
+// bias of (block-local query row r, key column c) from a stage: kDense, a
+// TMA tile (rows queries, 64 key columns, swizzled); kDiag, the window w[c
+// - r + off]
+template <int BM>
+__device__ __forceinline__ float bias_at(const unsigned char* tB, int r,
+                                         int c, int off) {
+  if constexpr (BM == kDense)
+    return __bfloat162float(
+        *reinterpret_cast<const __nv_bfloat16*>(tB + sw128_offset(r, c)));
+  if constexpr (BM == kDiag)
+    return reinterpret_cast<const float*>(tB)[c - r + off];
+  return 0.f;
+}
+
+// S = A B^T over Dh 64 (4 k steps) for two K-major (64, 64) tiles
+__device__ __forceinline__ void issue_qk(float (&acc)[32],
+                                         const unsigned char* a,
+                                         const unsigned char* b) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16_ss<0>(acc, desc_sw128(a + kk * 32),
+                          desc_sw128(b + kk * 32), kk > 0 ? 1 : 0);
+  wgmma_commit();
+}
+
+// ------------------------------------------------- delta pre-pass
+template <int BM>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+attn_bwd_delta_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_g,
+                      const __grid_constant__ CUtensorMap tm_bias,
+                      const float* __restrict__ diag,
+                      const int* __restrict__ lens,
+                      const float* __restrict__ lse,
+                      float* __restrict__ delta, int T, int H,
+                      float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sQ = base;
+  unsigned char* sG = base + 2 * TILE64;
+  auto sK = [&](int s) { return base + 4 * TILE64 + s * pre_stage_bytes<BM>(); };
+  auto sV = [&](int s) { return sK(s) + TILE64; };
+  auto sB = [&](int s) { return sK(s) + 2 * TILE64; };
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(sK(0) + PRE_STAGES * pre_stage_bytes<BM>());
+  uint64_t* qfull = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + PRE_STAGES;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * ROWS2;
   const int len = min(max(lens[b], 0), T);
-  const size_t row0 = (size_t)b * T;
   const int n_kt = (len + BK - 1) / BK;
-  if constexpr (BM == kDiag) {
-    for (int u = tid; u < KW; u += blockDim.x) sAcc[u] = 0.f;
-  }
-
-  // Q (scaled in f32, rounded to bf16) and G tiles -> A fragments
-  {
-    __nv_bfloat16* sQ = sK(1);
-    __nv_bfloat16* sG = sV(1);
-    for (int c = tid; c < BQ * CH; c += blockDim.x) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      const int row = qt * BQ + r;
-      __align__(16) uint4 rq = make_uint4(0, 0, 0, 0), rg = rq;
-      if (row < T) {
-        const size_t off = (row0 + row) * D + h * DH + cc;
-        rq = *reinterpret_cast<const uint4*>(q + off);
-        rg = *reinterpret_cast<const uint4*>(g + off);
-      }
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&rq);
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        e[u] = __float2bfloat16(__bfloat162float(e[u]) * sm_scale);
-      *reinterpret_cast<uint4*>(sQ + r * LDS + cc) = rq;
-      *reinterpret_cast<uint4*>(sG + r * LDS + cc) = rg;
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < PRE_STAGES; ++s) {
+      mbar_init(&full[s], BM == kDiag ? 33 : 1);
+      mbar_init(&empty[s], BWD_CONSUMERS);
     }
-  }
-  __syncthreads();
-  uint32_t qa[DH / 16][4], ga[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const int o0 = (wr + gq) * LDS + kk * 16 + 2 * t, o1 = o0 + 8 * LDS;
-    qa[kk][0] = ld32(sK(1) + o0);
-    qa[kk][1] = ld32(sK(1) + o1);
-    qa[kk][2] = ld32(sK(1) + o0 + 8);
-    qa[kk][3] = ld32(sK(1) + o1 + 8);
-    ga[kk][0] = ld32(sV(1) + o0);
-    ga[kk][1] = ld32(sV(1) + o1);
-    ga[kk][2] = ld32(sV(1) + o0 + 8);
-    ga[kk][3] = ld32(sV(1) + o1 + 8);
+    fence_barrier_init();
   }
   __syncthreads();
 
-  auto load_tile = [&](int kt, int s) {
-    __nv_bfloat16* dk_ = sK(s);
-    __nv_bfloat16* dv_ = sV(s);
-    for (int c = tid; c < BK * CH; c += blockDim.x) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      const int row = kt * BK + r;
-      const size_t off = (row0 + min(row, T - 1)) * D + h * DH + cc;
-      cp_async16(dk_ + r * LDS + cc, k + off, row < T);
-      cp_async16(dv_ + r * LDS + cc, v + off, row < T);
-    }
-    if constexpr (BM == kDense) {
-      __nv_bfloat16* db = sBias(s);
-      for (int c = tid; c < BQ * (BK / 8); c += blockDim.x) {
-        const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-        const int row = qt * BQ + r, col = kt * BK + cc;
-        const bool ok = row < T && col < T;
-        const __nv_bfloat16* src =
-            bias_h + (size_t)(ok ? row : 0) * bias_ld + (ok ? col : 0);
-        cp_async16(db + r * LDB + cc, src, ok);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // ------------------------------------------ producer
+    setmaxnreg_dec<24>();
+    const int lane = threadIdx.x - BWD_CONSUMERS;
+    if (lane < 32 && n_kt > 0) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(qfull, 4 * TILE64);
+        tma_load_3d(sQ, &tm_q, qfull, h * 64, q0, b);
+        tma_load_3d(sG, &tm_g, qfull, h * 64, q0, b);
       }
-    }
-    if constexpr (BM == kDiag)
-      load_diag_window(reinterpret_cast<float*>(sBias(s)), bias_h, T,
-                       qt * BQ, kt * BK, tid, blockDim.x);
-    cp_async_commit();
-  };
-
-  const float* lse_bh = lse + ((size_t)b * H + h) * T;
-  const float l2[2] = {i0 < T ? lse_bh[i0] : INFINITY,
-                       i1 < T ? lse_bh[i1] : INFINITY};
-  float dsum[2] = {0.f, 0.f};  // delta = rowsum(dp * p), after pass 0
-  float o[DH / 8][4];
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[stage],
+                                2 * TILE64 + (BM == kDense ? 2 * TILE64 : 0));
+          tma_load_3d(sK(stage), &tm_k, &full[stage], h * 64, kt * BK, b);
+          tma_load_3d(sV(stage), &tm_v, &full[stage], h * 64, kt * BK, b);
+          if constexpr (BM == kDense)
+            tma_load_3d(sB(stage), &tm_bias, &full[stage], kt * BK, q0, h);
+        }
+        if constexpr (BM == kDiag) {
+          // w[c] = diag_h[(T-1) + k0 - q0 - 127 + c], bias(r, c) = w[c - r
+          // + 127]; diagonals outside [0, 2T-1) read as 0 (masked)
+          float* w = reinterpret_cast<float*>(sB(stage));
+          const float* dh = diag + (size_t)h * (2 * T - 1);
+          const int ws = (T - 1) + kt * BK - q0 - (ROWS2 - 1);
+          float vals[6];
 #pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt)
-    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-
-  for (int pass = 0; pass < 2; ++pass) {
-    if (n_kt > 0) load_tile(0, 0);
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int s = kt & 1;
-      if (kt + 1 < n_kt) {
-        load_tile(kt + 1, s ^ 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const __nv_bfloat16* tK = sK(s);
-      const __nv_bfloat16* tV = sV(s);
-      const __nv_bfloat16* tB = sBias(s);
-
-      float p[BK / 8][4], dp[BK / 8][4];
+          for (int u = 0; u < 6; ++u) {
+            const int d = ws + lane + 32 * u;
+            vals[u] = d >= 0 && d < 2 * T - 1 ? __ldg(dh + d) : 0.f;
+          }
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          const int off = (nt * 8 + gq) * LDS + kk * 16 + 2 * t;
-          mma_bf16(p[nt], qa[kk], ld32(tK + off), ld32(tK + off + 8));
-          mma_bf16(dp[nt], ga[kk], ld32(tV + off), ld32(tV + off + 8));
+          for (int u = 0; u < 6; ++u) w[lane + 32 * u] = vals[u];
+          mbar_arrive(&full[stage]);
+        }
+        if (++stage == PRE_STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-      // p = exp2((s + bias) * log2e - lse); 0 on masked keys
+    }
+  } else {  // ----------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const float scale2 = sm_scale * LOG2E;  // exact: a power of two times LOG2E
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int rb = wg * 64 + warp * 16 + g;  // block-local row of half 0
+    const int i0 = q0 + rb, i1 = i0 + 8;
+    const float* lse_bh = lse + ((size_t)b * H + h) * T;
+    const float l2[2] = {i0 < T ? lse_bh[i0] : INFINITY,
+                         i1 < T ? lse_bh[i1] : INFINITY};
+    float dsum[2] = {0.f, 0.f};
+    const unsigned char* myQ = sQ + wg * TILE64;
+    const unsigned char* myG = sG + wg * TILE64;
+    if (n_kt > 0) mbar_wait(qfull, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      mbar_wait(&full[stage], phase);
+      float sc[32], dp[32];
+      issue_qk(sc, myQ, sK(stage));
+      issue_qk(dp, myG, sV(stage));
+      wgmma_wait<0>();
+      fence_operand(sc);
+      fence_operand(dp);
+      const unsigned char* tB = sB(stage);
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
+      for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int rl = wr + gq + half * 8;
-          const int col = kt * BK + nt * 8 + 2 * t;
-          float b0 = 0.f, b1 = 0.f;
-          if constexpr (BM == kDense) {
-            const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(
-                tB + rl * LDB + nt * 8 + 2 * t);
-            b0 = __low2float(bb);
-            b1 = __high2float(bb);
-          }
-          if constexpr (BM == kDiag) {
-            const float* w = reinterpret_cast<const float*>(tB) +
-                             (nt * 8 + 2 * t - rl + BQ - 1);
-            b0 = w[0];
-            b1 = w[1];
-          }
-          const float s0 = (p[nt][2 * half] + b0) * LOG2E;
-          const float s1 = (p[nt][2 * half + 1] + b1) * LOG2E;
-          p[nt][2 * half] = col < len ? exp2f(s0 - l2[half]) : 0.f;
-          p[nt][2 * half + 1] = col + 1 < len ? exp2f(s1 - l2[half]) : 0.f;
-        }
-      }
-      if (pass == 0) {
 #pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-          dsum[0] += p[nt][0] * dp[nt][0] + p[nt][1] * dp[nt][1];
-          dsum[1] += p[nt][2] * dp[nt][2] + p[nt][3] * dp[nt][3];
-        }
-      } else {
-        // ds = p * (dp - delta), kept in p; 0 on masked keys and on rows
-        // past T (p = 0 there)
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            p[nt][2 * half] *= dp[nt][2 * half] - dsum[half];
-            p[nt][2 * half + 1] *= dp[nt][2 * half + 1] - dsum[half];
-          }
-        }
-        if constexpr (BM == kDiag) {
-          // ds onto this warp's window of the tile's diagonals: element
-          // (row wr+gq+8*half, key kt*BK + nt*8 + 2t + e) lies on window
-          // slot 8*(nt-half) + e + 2t - gq + 15, so (nt = m, half 0) and
-          // (nt = m+1, half 1) share one; each lane t has its own row of
-          // the window, so the lanes of one step hit distinct slots
-          float* win = sWin + (warp * 4 + t) * DIAG_WIN + 2 * t - gq + 15;
-          for (int u = lane; u < 4 * DIAG_WIN; u += 32)
-            sWin[warp * 4 * DIAG_WIN + u] = 0.f;
-          __syncwarp();
-#pragma unroll
-          for (int m = -1; m < BK / 8; ++m) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float val = 0.f;
-              if (m >= 0) val += p[m][e];
-              if (m + 1 < BK / 8) val += p[m + 1][2 + e];
-              win[m * 8 + e] += val;
-              __syncwarp();
-            }
-          }
-        }
-        // dq += bf16(ds) . K  (K tile is [key][d]: B fragments transposed)
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          uint32_t a[4];
-          a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-          a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-          a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-          a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-          for (int nt = 0; nt < DH / 8; nt += 2) {
-            uint32_t bk[4];
-            ldmatrix_x4_trans(
-                bk, tK + (kk * 16 + (q4 & 1) * 8 + (lane & 7)) * LDS +
-                        (nt + (q4 >> 1)) * 8);
-            mma_bf16(o[nt], a, bk[0], bk[1]);
-            mma_bf16(o[nt + 1], a, bk[2], bk[3]);
-          }
-        }
-        if constexpr (BM == kDiag) {
-          // the four warps' windows into the block's sums, in warp and
-          // lane order: block slot kt*BK + u is warp w's window slot u -
-          // 48 + 16 w
-          __syncthreads();
-          if (tid < BQ + BK - 1) {
-            float acc = 0.f;
-#pragma unroll
-            for (int w = 0; w < 4; ++w) {
-              const int ul = tid - 48 + 16 * w;
-              if (ul >= 0 && ul < DIAG_WIN) {
-#pragma unroll
-                for (int tt = 0; tt < 4; ++tt)
-                  acc += sWin[(w * 4 + tt) * DIAG_WIN + ul];
-              }
-            }
-            sAcc[kt * BK + tid] += acc;
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * nt + 2 * half + e;
+            const int cl = nt * 8 + 2 * t + e;
+            const float bb = bias_at<BM>(tB, rb + 8 * half, cl, ROWS2 - 1);
+            const float s2 = fmaf(sc[idx], scale2, fmaf(bb, LOG2E, -l2[half]));
+            const float p = kt * BK + cl < len ? exp2_fast(s2) : 0.f;
+            dsum[half] += p * dp[idx];
           }
         }
       }
-      __syncthreads();  // stage s is consumed before it is refilled
-    }
-    if (pass == 0) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
-        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
-      }
-      if (t == 0) {
-        float* drow = delta + ((size_t)b * H + h) * T;
-        if (i0 < T) drow[i0] = dsum[0];
-        if (i1 < T) drow[i1] = dsum[1];
+      mbar_arrive(&empty[stage]);
+      if (++stage == PRE_STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-  }
-  if constexpr (BM == kDiag) {  // this block's row of the partial buffer
-    __syncthreads();
-    const int n_qt = gridDim.x;
-    float* row = part + (((size_t)b * n_qt + qt) * H + h) * KW;
-    const int n_acc = n_kt * BK + BQ;
-    for (int u = tid; u < KW; u += blockDim.x)
-      row[u] = u < n_acc ? sAcc[u] : 0.f;
-  }
-
 #pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) {
-    const int col = h * DH + nt * 8 + 2 * t;
-    if (i0 < T)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (row0 + i0) * D + col) =
-          __floats2bfloat162_rn(o[nt][0] * sm_scale, o[nt][1] * sm_scale);
-    if (i1 < T)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (row0 + i1) * D + col) =
-          __floats2bfloat162_rn(o[nt][2] * sm_scale, o[nt][3] * sm_scale);
+    for (int r = 0; r < 2; ++r) {
+      dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+      dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+    }
+    if (t == 0) {
+      float* drow = delta + ((size_t)b * H + h) * T;
+      if (i0 < T) drow[i0] = dsum[0];
+      if (i1 < T) drow[i1] = dsum[1];
+    }
   }
 }
 
-// Dense dbias[h, i, j] = sum_b ds_b[i, j] for i, j < T (0 in the pad band),
-// in batch order: one block per (64-key tile, 64-query tile, head) walks
-// the batch rows whose keys reach its tile, recomputes that row's p and dp
-// on its tile from q, k, v, g and the forward's lse and the dq kernel's
-// delta (two 64 x 64 x 64 products, mma.sync), and adds ds into float32
-// registers; the sum is rounded to bf16 once and stored. No atomics and no
-// partial buffer: one fixed order, the same bits on every run. The tiles
-// of the next batch row arrive by cp.async while this one computes; the
-// bias tile, the same for every row, is held in registers.
-template <int DH>
-__global__ void __launch_bounds__(128, 3)
-attn_bwd_dbias_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ g,
-                      const __nv_bfloat16* __restrict__ bias, int bias_ld,
+// ------------------------------------------------------- main kernel
+template <int BM>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+attn_bwd_main_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_g,
+                     const __grid_constant__ CUtensorMap tm_bias,
+                     const float* __restrict__ diag,
+                     const int* __restrict__ lens,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dq_part,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
+                     int T, int H, float sm_scale) {
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * KEYS;
+  const int len = min(max(lens[b], 0), T);
+  const int D = H * 64;
+  const size_t row0 = (size_t)b * T;
+  if (k0 >= len) {  // every key of the block is masked: dk = dv = 0
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    const int kend = min(k0 + KEYS, T);
+    for (int c = threadIdx.x; c < (kend - k0) * 8; c += blockDim.x) {
+      const size_t off = (row0 + k0 + c / 8) * D + h * 64 + (c % 8) * 8;
+      *reinterpret_cast<uint4*>(dk + off) = z;
+      *reinterpret_cast<uint4*>(dv + off) = z;
+    }
+    return;
+  }
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sK = base;               // (128 keys, 64) swizzled
+  unsigned char* sV = base + 2 * TILE64;
+  auto sQ = [&](int s) {
+    return base + 4 * TILE64 + s * main_stage_bytes<BM>();
+  };
+  auto sG = [&](int s) { return sQ(s) + TILE64; };
+  auto sB = [&](int s) { return sQ(s) + 2 * TILE64; };
+  // lse[64], delta[64], then (kDiag) the 192 diagonals
+  auto sL = [&](int s) {
+    return reinterpret_cast<float*>(sQ(s) + main_stage_bytes<BM>() - 2048);
+  };
+  unsigned char* sDS = sQ(MAIN_STAGES);  // [2][128 keys][64 queries] bf16
+  float* skew = reinterpret_cast<float*>(sDS + 4 * TILE64);  // kDiag
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      sDS + 4 * TILE64 + (BM == kDiag ? 2 * 64 * SKEW_LD * 4 : 0));
+  uint64_t* kvfull = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + MAIN_STAGES;
+
+  const int n_qt = (T + QT - 1) / QT;
+  if (threadIdx.x == 0) {
+    mbar_init(kvfull, 1);
+    for (int s = 0; s < MAIN_STAGES; ++s) {
+      mbar_init(&full[s], 33);
+      mbar_init(&empty[s], BWD_CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // ------------------------------------------ producer
+    setmaxnreg_dec<24>();
+    const int lane = threadIdx.x - BWD_CONSUMERS;
+    if (lane < 32) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kvfull, 4 * TILE64);
+        tma_load_3d(sK, &tm_k, kvfull, h * 64, k0, b);
+        tma_load_3d(sV, &tm_v, kvfull, h * 64, k0, b);
+      }
+      const float* lse_bh = lse + ((size_t)b * H + h) * T;
+      const float* del_bh = delta + ((size_t)b * H + h) * T;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int qt = 0; qt < n_qt; ++qt) {
+        const int q0 = qt * QT;
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[stage],
+                                2 * TILE64 + (BM == kDense ? 2 * TILE64 : 0));
+          tma_load_3d(sQ(stage), &tm_q, &full[stage], h * 64, q0, b);
+          tma_load_3d(sG(stage), &tm_g, &full[stage], h * 64, q0, b);
+          if constexpr (BM == kDense) {
+            tma_load_3d(sB(stage), &tm_bias, &full[stage], k0, q0, h);
+            tma_load_3d(sB(stage) + TILE64, &tm_bias, &full[stage], k0 + 64,
+                        q0, h);
+          }
+        }
+        float* L = sL(stage);
+        float vals[4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = q0 + lane + 32 * u;
+          vals[u] = i < T ? lse_bh[i] : INFINITY;  // p = 0 past T
+          vals[2 + u] = i < T ? del_bh[i] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          L[lane + 32 * u] = vals[u];
+          L[64 + lane + 32 * u] = vals[2 + u];
+        }
+        if constexpr (BM == kDiag) {
+          // w[c] = diag_h[(T-1) + k0 - q0 - 63 + c]: bias(query r, block
+          // key c) = w[c - r + 63]
+          float* w = L + 128;
+          const float* dh = diag + (size_t)h * (2 * T - 1);
+          const int ws = (T - 1) + k0 - q0 - (QT - 1);
+          float dv_[6];
+#pragma unroll
+          for (int u = 0; u < 6; ++u) {
+            const int d = ws + lane + 32 * u;
+            dv_[u] = d >= 0 && d < 2 * T - 1 ? __ldg(dh + d) : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < 6; ++u) w[lane + 32 * u] = dv_[u];
+        }
+        mbar_arrive(&full[stage]);
+        if (++stage == MAIN_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const float scale2 = sm_scale * LOG2E;  // exact: a power of two times LOG2E
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int kl0 = warp * 16 + g;  // warpgroup-local key row of half 0
+    const bool kok[2] = {k0 + wg * 64 + kl0 < len,
+                         k0 + wg * 64 + kl0 + 8 < len};
+    const unsigned char* myK = sK + wg * TILE64;
+    const unsigned char* myV = sV + wg * TILE64;
+    float dva[32], dka[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dva[i] = dka[i] = 0.f;
+    PHASES_BEGIN
+    float st[32], dpt[32], dqa[16];
+    uint32_t pa[4][4], da[4][4];
+    // S^T = K Q^T and dP^T = V G^T (rows keys, columns queries) of stage stg
+    auto issue_sdp = [&](int stg) {
+      issue_qk(st, myK, sQ(stg));
+      issue_qk(dpt, myV, sG(stg));
+    };
+    // tile qt in stage stg, its S^T and dP^T issued: P^T and dV, dS^T and
+    // dK, then (both consumers' dS^T stored) dQ; returns with dV, dK and dQ
+    // in flight, in that order
+    auto front = [&](int qt, int stg) {
+      const int par = qt & 1;
+      const unsigned char* tQ = sQ(stg);
+      const unsigned char* tG = sG(stg);
+      const unsigned char* tB = sB(stg) + wg * TILE64;
+      const float* L = sL(stg);
+      wgmma_wait<1>();
+      fence_operand(st);
+      PHASE(1);
+      // P^T, float32; its bf16 copy is the A operand of dV += P^T G
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * nt + 2 * half + e;
+            const int ql = nt * 8 + 2 * t + e;
+            const int kl = kl0 + 8 * half;
+            float bb;
+            if constexpr (BM == kDense) bb = bias_at<BM>(tB, ql, kl, 0);
+            else bb = bias_at<BM>(reinterpret_cast<const unsigned char*>(L + 128),
+                                  ql, wg * 64 + kl, QT - 1);
+            const float s2 = fmaf(st[idx], scale2, fmaf(bb, LOG2E, -L[ql]));
+            st[idx] = kok[half] ? exp2_fast(s2) : 0.f;
+          }
+        }
+        pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(st[4 * nt], st[4 * nt + 1]);
+        pa[nt >> 1][(nt & 1) * 2 + 1] =
+            pack_bf16(st[4 * nt + 2], st[4 * nt + 3]);
+      }
+      fence_operand(dva);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs<1>(dva, pa[kk], desc_sw128(tG + kk * 2048));
+      wgmma_commit();
+      PHASE(2);
+      wgmma_wait<1>();
+      fence_operand(dpt);
+      PHASE(3);
+      // dS^T = P^T (dP^T - delta), float32 in dpt
+      unsigned char* myDS = sDS + par * 2 * TILE64 + wg * TILE64;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * nt + 2 * half + e;
+            dpt[idx] = st[idx] * (dpt[idx] - L[64 + nt * 8 + 2 * t + e]);
+          }
+          const uint32_t pk =
+              pack_bf16(dpt[4 * nt + 2 * half], dpt[4 * nt + 2 * half + 1]);
+          da[nt >> 1][(nt & 1) * 2 + half] = pk;
+          // bf16 dS^T: rows keys, 64 queries a row, swizzled (dQ's A)
+          *reinterpret_cast<uint32_t*>(
+              myDS + sw128_offset(kl0 + 8 * half, nt * 8 + 2 * t)) = pk;
+        }
+      }
+      if constexpr (BM == kDiag) {
+        // float32 dS skewed: query row ql, column (block key) - ql + 63
+        float* sk = skew + par * 64 * SKEW_LD;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int ql = nt * 8 + 2 * t + e;
+              sk[ql * (SKEW_LD - 1) + wg * 64 + kl0 + 8 * half + QT - 1] =
+                  dpt[4 * nt + 2 * half + e];
+            }
+      }
+      PHASE(4);
+      fence_proxy_async();
+      fence_operand(dka);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs<1>(dka, da[kk], desc_sw128(tQ + kk * 2048));
+      wgmma_commit();
+      PHASE(5);
+      // named barrier 3: both consumers' dS^T (and skewed dS) are stored
+      asm volatile("bar.sync 3, %0;\n" ::"n"(BWD_CONSUMERS) : "memory");
+      PHASE(6);
+      // this consumer's 32 columns of dQ = dS K over the block's 128 keys:
+      // A is dS^T read MN-major, B the K tile read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n32k16_ss<1, 1>(
+            dqa, desc_sw128(sDS + par * 2 * TILE64 + kk * 2048),
+            desc_sw128(sK + kk * 2048 + wg * 64), kk > 0 ? 1 : 0);
+      wgmma_commit();
+    };
+    float* my_part =
+        dq_part + ((((size_t)b * H + h) * gridDim.x + kt) * n_qt * 2 + wg) *
+                      2048 + tid * 16;
+    mbar_wait(kvfull, 0);
+    PHASE(12);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int qt = 0; qt < n_qt; ++qt) {
+      const int stg = stage;
+      mbar_wait(&full[stg], phase);
+      PHASE(0);
+      if (++stage == MAIN_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      issue_sdp(stg);
+      front(qt, stg);
+      PHASE(7);
+      wgmma_wait<1>();  // dV and dK done: the stage is free
+      PHASE(8);
+      fence_operand(dva);
+      fence_operand(dka);
+      fence_operand(pa);
+      fence_operand(da);
+      mbar_arrive(&empty[stg]);
+      if constexpr (BM == kDiag) {
+        // while dQ runs: column c holds diagonal j - i = k0 - q0 + c - 63 in
+        // rows max(0, 63 - c) .. min(63, 190 - c); all 64 rows are read at
+        // once (the others masked), into eight sums added in a fixed order
+        const int c = threadIdx.x;
+        if (c < DIAG_COLS) {
+          const float* sk = skew + (qt & 1) * 64 * SKEW_LD + c;
+          const int lo = QT - 1 - c, hi = KEYS + QT - 2 - c;
+          float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int r = 0; r < QT; ++r) {
+            const float x = sk[r * SKEW_LD];
+            a[r & 7] += r >= lo && r <= hi ? x : 0.f;
+          }
+          part[((((size_t)b * gridDim.x + kt) * H + h) * n_qt + qt) *
+                   DIAG_COLS + c] =
+              ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
+        }
+      }
+      PHASE(9);
+      wgmma_wait<0>();
+      fence_operand(dqa);
+      PHASE(10);
+      // this key block's dQ partial of the tile, in the accumulator's order
+      float4* dst = reinterpret_cast<float4*>(my_part + (size_t)qt * 4096);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        __stcg(dst + u, make_float4(dqa[4 * u], dqa[4 * u + 1],
+                                    dqa[4 * u + 2], dqa[4 * u + 3]));
+      PHASE(11);
+    }
+    PHASES_END
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = h * 64 + nt * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = k0 + wg * 64 + kl0 + 8 * half;
+        if (j >= T) continue;
+        const int i = 4 * nt + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(dk + (row0 + j) * D + col) =
+            __floats2bfloat162_rn(dka[i] * sm_scale, dka[i + 1] * sm_scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + (row0 + j) * D + col) =
+            __floats2bfloat162_rn(dva[i], dva[i + 1]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------- dense bias gradient
+// dbias[h, i, j] = sum_b ds_b[i, j] for i, j < T (0 in the pad band), in
+// batch order: a block per (64-key tile, 128-query tile, head) walks the
+// batch rows whose keys reach its tile, recomputes S and dP on wgmma from
+// Q, G, K and V tiles that arrive by TMA (a three-stage ring, the next rows'
+// tiles in flight while this one computes), and adds ds into float32
+// registers; the bias tile, the same for every row, stays in registers.
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+attn_bwd_dbias_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_g,
+                      const __nv_bfloat16* __restrict__ bias, int ld,
                       const int* __restrict__ lens,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       __nv_bfloat16* __restrict__ dbias, int B, int T, int H,
                       float sm_scale) {
-  constexpr int LDS = DH + 8;
-  constexpr int CH = DH / 8;
-  constexpr int TILE = BK * LDS;  // one staged (64, DH) tile
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  // stage s: Q, G, K, V tiles (72 KB in all: three blocks an SM)
-  auto sT = [&](int s, int i) { return smem + (s * 4 + i) * TILE; };
-
-  const int kt = blockIdx.x, qt = blockIdx.y, h = blockIdx.z;
-  const int q0 = qt * BQ, k0 = kt * BK;
-  const int D = H * DH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, t = lane & 3;
-  const int wr = warp * 16;
-  const int i0 = q0 + wr + gq, i1 = i0 + 8;  // this thread's two query rows
-  auto len_of = [&](int b) { return min(max(lens[b], 0), T); };
-  auto next_b = [&](int b) {  // the next batch row whose keys reach k0
-    while (b < B && len_of(b) <= k0) ++b;
-    return b;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  auto sQ = [&](int s) { return base + s * DB_STAGE; };
+  auto sG = [&](int s) { return sQ(s) + 2 * TILE64; };
+  auto sK = [&](int s) { return sQ(s) + 4 * TILE64; };
+  auto sV = [&](int s) { return sQ(s) + 5 * TILE64; };
+  auto sL = [&](int s) {  // lse[128], delta[128]
+    return reinterpret_cast<float*>(sQ(s) + 6 * TILE64);
   };
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + PRE_STAGES * DB_STAGE);
+  uint64_t* empty = full + PRE_STAGES;
 
-  float acc[BK / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  const int k0 = blockIdx.x * BK, q0 = blockIdx.y * ROWS2, h = blockIdx.z;
+  const bool active = q0 < T && k0 < T;
+  auto len_of = [&](int bb) { return min(max(lens[bb], 0), T); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PRE_STAGES; ++s) {
+      mbar_init(&full[s], 33);
+      mbar_init(&empty[s], BWD_CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  if (q0 < T && k0 < T) {
-    // the tile's bias is the same for every batch row: this thread's 32
-    // values stay in registers (0 past T, where p is 0 anyway)
-    const __nv_bfloat16* bias_h = bias + (size_t)h * bias_ld * bias_ld;
-    float bv[BK / 8][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // ------------------------------------------ producer
+    setmaxnreg_dec<24>();
+    const int lane = threadIdx.x - BWD_CONSUMERS;
+    if (lane < 32 && active) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int bb = 0; bb < B; ++bb) {
+        if (len_of(bb) <= k0) continue;  // no key of this row in the tile
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[stage], 6 * TILE64);
+          tma_load_3d(sQ(stage), &tm_q, &full[stage], h * 64, q0, bb);
+          tma_load_3d(sG(stage), &tm_g, &full[stage], h * 64, q0, bb);
+          tma_load_3d(sK(stage), &tm_k, &full[stage], h * 64, k0, bb);
+          tma_load_3d(sV(stage), &tm_v, &full[stage], h * 64, k0, bb);
+        }
+        const float* lse_bh = lse + ((size_t)bb * H + h) * T;
+        const float* del_bh = delta + ((size_t)bb * H + h) * T;
+        float* L = sL(stage);
+        float vals[8];
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+        for (int u = 0; u < 4; ++u) {
+          const int i = q0 + lane + 32 * u;
+          vals[u] = i < T ? lse_bh[i] : INFINITY;
+          vals[4 + u] = i < T ? del_bh[i] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          L[lane + 32 * u] = vals[u];
+          L[ROWS2 + lane + 32 * u] = vals[4 + u];
+        }
+        mbar_arrive(&full[stage]);
+        if (++stage == PRE_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const float scale2 = sm_scale * LOG2E;  // exact: a power of two times LOG2E
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int rb = wg * 64 + warp * 16 + g;
+    const int i0 = q0 + rb, i1 = i0 + 8;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    if (active) {
+      float bv[32];  // this thread's bias values (0 past T)
+      const __nv_bfloat16* bias_h = bias + (size_t)h * ld * ld;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = half ? i1 : i0, j = k0 + nt * 8 + 2 * t;
+          float2 f = make_float2(0.f, 0.f);
+          if (i < T && j < T)
+            f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                bias_h + (size_t)i * ld + j));
+          bv[4 * nt + 2 * half] = f.x;
+          bv[4 * nt + 2 * half + 1] = f.y;
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int bb = 0; bb < B; ++bb) {
+        const int len = len_of(bb);
+        if (len <= k0) continue;
+        mbar_wait(&full[stage], phase);
+        float sc[32], dp[32];
+        issue_qk(sc, sQ(stage) + wg * TILE64, sK(stage));
+        issue_qk(dp, sG(stage) + wg * TILE64, sV(stage));
+        wgmma_wait<0>();
+        fence_operand(sc);
+        fence_operand(dp);
+        const float* L = sL(stage);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float lq = L[rb + 8 * half];
+            const float dl = L[ROWS2 + rb + 8 * half];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int idx = 4 * nt + 2 * half + e;
+              const float s2 = fmaf(sc[idx], scale2, fmaf(bv[idx], LOG2E, -lq));
+              const float p =
+                  k0 + nt * 8 + 2 * t + e < len ? exp2_fast(s2) : 0.f;
+              acc[idx] += p * (dp[idx] - dl);
+            }
+          }
+        }
+        mbar_arrive(&empty[stage]);
+        if (++stage == PRE_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    // the whole (ld, ld) plane: the T x T core, zeros around it
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int j = k0 + nt * 8 + 2 * t;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = half ? i1 : i0, col = k0 + nt * 8 + 2 * t;
-        float2 f = make_float2(0.f, 0.f);
-        if (row < T && col < T)
-          f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              bias_h + (size_t)row * bias_ld + col));
-        bv[nt][2 * half] = f.x;
-        bv[nt][2 * half + 1] = f.y;
+        const int i = half ? i1 : i0;
+        if (i >= ld || j >= ld) continue;
+        const bool in = i < T;
+        const float v0 = in && j < T ? acc[4 * nt + 2 * half] : 0.f;
+        const float v1 = in && j + 1 < T ? acc[4 * nt + 2 * half + 1] : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(
+            dbias + ((size_t)h * ld + i) * ld + j) =
+            __floats2bfloat162_rn(v0, v1);
       }
-    }
-    auto load_tiles = [&](int b, int s) {
-      const size_t row0 = (size_t)b * T;
-      for (int c = tid; c < BQ * CH; c += blockDim.x) {
-        const int r = c / CH, cc = (c % CH) * 8;
-        const int qrow = q0 + r, krow = k0 + r;
-        const size_t qoff = (row0 + min(qrow, T - 1)) * D + h * DH + cc;
-        const size_t koff = (row0 + min(krow, T - 1)) * D + h * DH + cc;
-        cp_async16(sT(s, 0) + r * LDS + cc, q + qoff, qrow < T);
-        cp_async16(sT(s, 1) + r * LDS + cc, g + qoff, qrow < T);
-        cp_async16(sT(s, 2) + r * LDS + cc, k + koff, krow < T);
-        cp_async16(sT(s, 3) + r * LDS + cc, v + koff, krow < T);
-      }
-      cp_async_commit();
-    };
-    int b = next_b(0), s = 0;
-    if (b < B) load_tiles(b, 0);
-    while (b < B) {
-      const int bn = next_b(b + 1);
-      if (bn < B) {
-        load_tiles(bn, s ^ 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const int len = len_of(b);
-      const __nv_bfloat16 *tQ = sT(s, 0), *tG = sT(s, 1), *tK = sT(s, 2),
-                          *tV = sT(s, 3);
-      // q * sm_scale rounded to bf16 and g: A fragments of this warp's rows
-      uint32_t qa[DH / 16][4], ga[DH / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        const int o0 = (wr + gq) * LDS + kk * 16 + 2 * t, o1 = o0 + 8 * LDS;
-        const int offs[4] = {o0, o1, o0 + 8, o1 + 8};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float2 f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(tQ + offs[r]));
-          qa[kk][r] = pack_bf16(f.x * sm_scale, f.y * sm_scale);
-          ga[kk][r] = ld32(tG + offs[r]);
-        }
-      }
-      float p[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          const int off = (nt * 8 + gq) * LDS + kk * 16 + 2 * t;
-          mma_bf16(p[nt], qa[kk], ld32(tK + off), ld32(tK + off + 8));
-          mma_bf16(dp[nt], ga[kk], ld32(tV + off), ld32(tV + off + 8));
-        }
-      }
-      const float* lse_bh = lse + ((size_t)b * H + h) * T;
-      const float* del_bh = delta + ((size_t)b * H + h) * T;
-      const float l2[2] = {i0 < T ? lse_bh[i0] : INFINITY,
-                           i1 < T ? lse_bh[i1] : INFINITY};
-      const float dl[2] = {i0 < T ? del_bh[i0] : 0.f,
-                           i1 < T ? del_bh[i1] : 0.f};
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int col = k0 + nt * 8 + 2 * t;
-          const float s0 = (p[nt][2 * half] + bv[nt][2 * half]) * LOG2E;
-          const float s1 =
-              (p[nt][2 * half + 1] + bv[nt][2 * half + 1]) * LOG2E;
-          const float p0 = col < len ? exp2f(s0 - l2[half]) : 0.f;
-          const float p1 = col + 1 < len ? exp2f(s1 - l2[half]) : 0.f;
-          acc[nt][2 * half] += p0 * (dp[nt][2 * half] - dl[half]);
-          acc[nt][2 * half + 1] += p1 * (dp[nt][2 * half + 1] - dl[half]);
-        }
-      }
-      __syncthreads();  // stage s is consumed before it is refilled
-      b = bn;
-      s ^= 1;
     }
   }
+}
 
-  // the whole (bias_ld, bias_ld) plane: the T x T core, zeros around it
+}  // namespace hop
+
+__host__ __device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// ddiag[h, d] = the sum of the main kernel's per-tile column sums: tile (b,
+// kt, qt) holds diagonal j - i = d - (T-1) in column c = d - (T-1) - 128 kt
+// + 64 qt + 63, c < 191; key blocks past lens[b] wrote nothing and are
+// skipped. A block takes 32 diagonals of one head: lane l its diagonal,
+// warp w the (batch row, key block) pairs w, w + 8, ... in order, and the
+// eight warps' sums are added in warp order: one fixed order.
+constexpr int SUM_WARPS = 8;
+__global__ void __launch_bounds__(SUM_WARPS * 32)
+attn_bwd_ddiag_sum_kernel(const float* __restrict__ part,
+                          const int* __restrict__ lens,
+                          float* __restrict__ ddiag, int B, int T, int H) {
+  using namespace hop;
+  __shared__ float sums[SUM_WARPS][32];
+  const int W = 2 * T - 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = blockIdx.x * 32 + lane, h = blockIdx.y;
+  const int n_kb = (T + KEYS - 1) / KEYS;
+  const int n_qt = (T + QT - 1) / QT;
+  float acc = 0.f;
+  if (d < W) {
+    for (int r = warp; r < B * n_kb; r += SUM_WARPS) {
+      const int b = r / n_kb, kt = r % n_kb;
+      if (kt * KEYS >= min(max(lens[b], 0), T)) continue;
+      const int X = d - (T - 1) - kt * KEYS + QT - 1;  // c = X + 64 qt
+      const int lo = max(0, -floor_div(X, QT));
+      const int hi = min(n_qt - 1, floor_div(KEYS + QT - 2 - X, QT));
+      const float* row =
+          part + (((size_t)b * n_kb + kt) * H + h) * n_qt * DIAG_COLS;
+      for (int qt = lo; qt <= hi; ++qt)
+        acc += row[(size_t)qt * DIAG_COLS + X + QT * qt];
+    }
+  }
+  sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && d < W) {
+    float total = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-    const int col = k0 + nt * 8 + 2 * t;
+    for (int w = 0; w < SUM_WARPS; ++w) total += sums[w][lane];
+    ddiag[(size_t)h * W + d] = total;
+  }
+}
+
+// dq = sm_scale * the sum of the main kernel's dQ partials over the key
+// blocks of (b, h) that reach lens[b], in key-block order, rounded to bf16;
+// 0 where the row has no key. A block per (64-query tile, head, batch row),
+// a thread per consumer thread's 16 values of the tile. (BM only names the
+// instance, so that a profile tells the two paths apart.)
+template <int BM>
+__global__ void __launch_bounds__(256)
+attn_bwd_dq_sum_kernel(const float* __restrict__ dq_part,
+                       const int* __restrict__ lens,
+                       __nv_bfloat16* __restrict__ dq, int T, int H,
+                       float sm_scale) {
+  using namespace hop;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_qt = gridDim.x, n_kb = (T + KEYS - 1) / KEYS;
+  const int nk = (min(max(lens[b], 0), T) + KEYS - 1) / KEYS;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const float4* src = reinterpret_cast<const float4*>(
+      dq_part + ((((size_t)b * H + h) * n_kb * n_qt + qt) * 2 + wg) * 2048 +
+      tid * 16);
+  const size_t kstride = (size_t)n_qt * 1024;  // float4s between key blocks
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+#pragma unroll 4
+  for (int kt = 0; kt < nk; ++kt) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 x = __ldcs(src + kt * kstride + u);
+      acc[4 * u] += x.x;
+      acc[4 * u + 1] += x.y;
+      acc[4 * u + 2] += x.z;
+      acc[4 * u + 3] += x.w;
+    }
+  }
+  // consumer thread tid of warpgroup wg held rows warp*16 + g (+8), columns
+  // wg*32 + nt*8 + 2t (+1)
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int D = H * 64;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = h * 64 + wg * 32 + nt * 8 + 2 * t;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int i = half ? i1 : i0;
-      if (i >= bias_ld || col >= bias_ld) continue;
-      const bool in = i < T;
-      const float v0 = in && col < T ? acc[nt][2 * half] : 0.f;
-      const float v1 = in && col + 1 < T ? acc[nt][2 * half + 1] : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(
-          dbias + ((size_t)h * bias_ld + i) * bias_ld + col) =
-          __floats2bfloat162_rn(v0, v1);
-    }
-  }
-}
-
-// ddiag[h, d] = the sum over (batch row, query tile), in that order, of the
-// dq blocks' partial rows: block (b, qt) holds diagonal d at slot d - (T-1)
-// + qt*BQ + BQ-1. One thread per (h, d).
-__global__ void attn_bwd_ddiag_sum_kernel(const float* __restrict__ part,
-                                          float* __restrict__ ddiag, int B,
-                                          int T, int H) {
-  const int W = 2 * T - 1;
-  const int d = blockIdx.x * blockDim.x + threadIdx.x, h = blockIdx.y;
-  if (d >= W) return;
-  const int n_qt = (T + BQ - 1) / BQ;
-  const int KW = (T + BK - 1) / BK * BK + BQ;
-  float acc = 0.f;
-  for (int b = 0; b < B; ++b) {
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int u = d - (T - 1) + qt * BQ + (BQ - 1);
-      if (u >= 0 && u < KW)
-        acc += part[(((size_t)b * n_qt + qt) * H + h) * KW + u];
-    }
-  }
-  ddiag[(size_t)h * W + d] = acc;
-}
-
-template <int DH, int BM>
-__global__ void __launch_bounds__(128)
-attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ g,
-                     const typename BiasOf<BM>::T* __restrict__ bias,
-                     int bias_ld, const int* __restrict__ lens,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int T, int H,
-                     float sm_scale) {
-  constexpr int LDS = DH + 8;
-  constexpr int CH = DH / 8;
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  // stage s: Q tile [BQ][LDS], G tile [BQ][LDS], bias tile [BQ][LDB]
-  // (rows are queries, columns this block's keys)
-  auto sQ = [&](int s) { return smem + s * stage_elems<DH>(); };
-  auto sG = [&](int s) { return sQ(s) + BQ * LDS; };
-  auto sBias = [&](int s) { return sG(s) + BQ * LDS; };
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, t = lane & 3;
-  const int len = min(max(lens[b], 0), T);
-  const size_t row0 = (size_t)b * T;
-  const auto* bias_h = head_bias<BM>(bias, h, bias_ld, T);
-  const int wr = warp * 16;
-  const int j0 = kt * BK + wr + gq;  // this thread's two keys
-  const int j1 = j0 + 8;
-
-  if (kt * BK >= len) {  // every key of the tile is masked: p = 0
-    for (int c = tid; c < BK * CH; c += blockDim.x) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      const int row = kt * BK + r;
-      if (row < T) {
-        const size_t off = (row0 + row) * D + h * DH + cc;
-        *reinterpret_cast<uint4*>(dk + off) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(dv + off) = make_uint4(0, 0, 0, 0);
-      }
-    }
-    return;
-  }
-
-  // K and V tiles -> A fragments (rows are keys)
-  {
-    for (int c = tid; c < BK * CH; c += blockDim.x) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      const int row = kt * BK + r;
-      __align__(16) uint4 rk = make_uint4(0, 0, 0, 0), rv = rk;
-      if (row < T) {
-        const size_t off = (row0 + row) * D + h * DH + cc;
-        rk = *reinterpret_cast<const uint4*>(k + off);
-        rv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(sQ(1) + r * LDS + cc) = rk;
-      *reinterpret_cast<uint4*>(sG(1) + r * LDS + cc) = rv;
-    }
-  }
-  __syncthreads();
-  uint32_t ka[DH / 16][4], va[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const int o0 = (wr + gq) * LDS + kk * 16 + 2 * t, o1 = o0 + 8 * LDS;
-    ka[kk][0] = ld32(sQ(1) + o0);
-    ka[kk][1] = ld32(sQ(1) + o1);
-    ka[kk][2] = ld32(sQ(1) + o0 + 8);
-    ka[kk][3] = ld32(sQ(1) + o1 + 8);
-    va[kk][0] = ld32(sG(1) + o0);
-    va[kk][1] = ld32(sG(1) + o1);
-    va[kk][2] = ld32(sG(1) + o0 + 8);
-    va[kk][3] = ld32(sG(1) + o1 + 8);
-  }
-  __syncthreads();
-
-  auto load_tile = [&](int qt, int s) {
-    __nv_bfloat16* dq_ = sQ(s);
-    __nv_bfloat16* dg_ = sG(s);
-    for (int c = tid; c < BQ * CH; c += blockDim.x) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      const int row = qt * BQ + r;
-      const size_t off = (row0 + min(row, T - 1)) * D + h * DH + cc;
-      cp_async16(dq_ + r * LDS + cc, q + off, row < T);
-      cp_async16(dg_ + r * LDS + cc, g + off, row < T);
-    }
-    if constexpr (BM == kDiag)
-      load_diag_window(reinterpret_cast<float*>(sBias(s)), bias_h, T,
-                       qt * BQ, kt * BK, tid, blockDim.x);
-    if constexpr (BM == kDense) {
-      __nv_bfloat16* db = sBias(s);
-      for (int c = tid; c < BQ * (BK / 8); c += blockDim.x) {
-        const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-        const int row = qt * BQ + r, col = kt * BK + cc;
-        const bool ok = row < T && col < T;
-        const __nv_bfloat16* src =
-            bias_h + (size_t)(ok ? row : 0) * bias_ld + (ok ? col : 0);
-        cp_async16(db + r * LDB + cc, src, ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float dka[DH / 8][4], dva[DH / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) {
-    dka[nt][0] = dka[nt][1] = dka[nt][2] = dka[nt][3] = 0.f;
-    dva[nt][0] = dva[nt][1] = dva[nt][2] = dva[nt][3] = 0.f;
-  }
-  const float* lse_bh = lse + ((size_t)b * H + h) * T;
-  const float* del_bh = delta + ((size_t)b * H + h) * T;
-  const int n_qt = (T + BQ - 1) / BQ;
-  const int q4 = lane >> 3;
-
-  load_tile(0, 0);
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int s = qt & 1;
-    if (qt + 1 < n_qt) {
-      load_tile(qt + 1, s ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    __nv_bfloat16* tQ = sQ(s);
-    const __nv_bfloat16* tG = sG(s);
-    const __nv_bfloat16* tB = sBias(s);
-    // q * sm_scale rounded to bf16, in place (the s and dk operand)
-    for (int c = tid; c < BQ * DH / 2; c += blockDim.x) {
-      const int r = c / (DH / 2), cc = (c % (DH / 2)) * 2;
-      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(tQ + r * LDS + cc);
-      const float2 f = __bfloat1622float2(*e);
-      *e = __floats2bfloat162_rn(f.x * sm_scale, f.y * sm_scale);
-    }
-    __syncthreads();
-
-    // s^T = k q^T and dp^T = v g^T: rows keys, columns queries
-    float p[BQ / 8][4], ds[BQ / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-      p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
-      ds[nt][0] = ds[nt][1] = ds[nt][2] = ds[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        const int off = (nt * 8 + gq) * LDS + kk * 16 + 2 * t;
-        mma_bf16(p[nt], ka[kk], ld32(tQ + off), ld32(tQ + off + 8));
-        mma_bf16(ds[nt], va[kk], ld32(tG + off), ld32(tG + off + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int ql = nt * 8 + 2 * t + e;  // block-local query
-        const int i = qt * BQ + ql;
-        const bool qok = i < T;
-        const float li = qok ? __ldg(lse_bh + i) : INFINITY;
-        const float di = qok ? __ldg(del_bh + i) : 0.f;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int kl = wr + gq + half * 8;  // block-local key
-          float bb = 0.f;
-          if constexpr (BM == kDense) bb = __bfloat162float(tB[ql * LDB + kl]);
-          if constexpr (BM == kDiag)
-            bb = reinterpret_cast<const float*>(tB)[kl - ql + BQ - 1];
-          const float s2 = (p[nt][2 * half + e] + bb) * LOG2E;
-          const bool kok = (half ? j1 : j0) < len;
-          const float pv = (kok && qok) ? exp2f(s2 - li) : 0.f;
-          p[nt][2 * half + e] = pv;
-          ds[nt][2 * half + e] = pv * (ds[nt][2 * half + e] - di);
-        }
-      }
-    }
-    // dv += bf16(p^T) g and dk += bf16(ds^T) (q * sm_scale)
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t ap[4], ad[4];
-      ap[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-      ap[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-      ap[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      ap[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-      ad[0] = pack_bf16(ds[2 * kk][0], ds[2 * kk][1]);
-      ad[1] = pack_bf16(ds[2 * kk][2], ds[2 * kk][3]);
-      ad[2] = pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]);
-      ad[3] = pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3]);
-      const int roff = (kk * 16 + (q4 & 1) * 8 + (lane & 7)) * LDS;
-#pragma unroll
-      for (int nt = 0; nt < DH / 8; nt += 2) {
-        const int off = roff + (nt + (q4 >> 1)) * 8;
-        uint32_t bg[4], bq[4];
-        ldmatrix_x4_trans(bg, tG + off);
-        mma_bf16(dva[nt], ap, bg[0], bg[1]);
-        mma_bf16(dva[nt + 1], ap, bg[2], bg[3]);
-        ldmatrix_x4_trans(bq, tQ + off);
-        mma_bf16(dka[nt], ad, bq[0], bq[1]);
-        mma_bf16(dka[nt + 1], ad, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // stage s is consumed before it is refilled
-  }
-
-#pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) {
-    const int col = h * DH + nt * 8 + 2 * t;
-    if (j0 < T) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + (row0 + j0) * D + col) =
-          __floats2bfloat162_rn(dka[nt][0], dka[nt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + (row0 + j0) * D + col) =
-          __floats2bfloat162_rn(dva[nt][0], dva[nt][1]);
-    }
-    if (j1 < T) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + (row0 + j1) * D + col) =
-          __floats2bfloat162_rn(dka[nt][2], dka[nt][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + (row0 + j1) * D + col) =
-          __floats2bfloat162_rn(dva[nt][2], dva[nt][3]);
+      const int i = qt * QT + warp * 16 + g + 8 * half;
+      if (i < T)
+        *reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)b * T + i) * D +
+                                           col) =
+            __floats2bfloat162_rn(acc[4 * nt + 2 * half] * sm_scale,
+                                  acc[4 * nt + 2 * half + 1] * sm_scale);
     }
   }
 }
@@ -1289,10 +1345,13 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-constexpr size_t kStageBytes = 2 * stage_elems<64>() * sizeof(__nv_bfloat16);
-// The dq kernel's per-diagonal sums and warp windows in kDiag mode.
-size_t diag_acc_bytes(int T) {
-  return ((size_t)(T + BK - 1) / BK * BK + BQ + 16 * DIAG_WIN) * sizeof(float);
+// the dense bias (H, ld, ld) bf16: boxes of `rows` queries x 64 keys
+inline cudaError_t bias_map(CUtensorMap* m, const void* bias, int ld, int H,
+                            int rows) {
+  const uint64_t dims[3] = {(uint64_t)ld, (uint64_t)ld, (uint64_t)H};
+  const uint64_t strides[2] = {(uint64_t)ld * 2, (uint64_t)ld * ld * 2};
+  const uint32_t box[3] = {BK, (uint32_t)rows, 1};
+  return hopper::encode_bf16_sw128(m, bias, 3, dims, strides, box);
 }
 
 template <int BM>
@@ -1304,14 +1363,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   cudaError_t e = hop::qkv_map(&mq, q, B, T, H, hop::QROWS);
   if (e == cudaSuccess) e = hop::qkv_map(&mk, k, B, T, H, BK);
   if (e == cudaSuccess) e = hop::qkv_map(&mv, v, B, T, H, BK);
-  if (e == cudaSuccess && BM == kDense) {
-    const uint64_t dims[3] = {(uint64_t)bias_ld, (uint64_t)bias_ld,
-                              (uint64_t)H};
-    const uint64_t strides[2] = {(uint64_t)bias_ld * 2,
-                                 (uint64_t)bias_ld * bias_ld * 2};
-    const uint32_t box[3] = {BK, hop::QROWS, 1};
-    e = hopper::encode_bf16_sw128(&mb, bias, 3, dims, strides, box);
-  }
+  if (e == cudaSuccess && BM == kDense)
+    e = bias_map(&mb, bias, bias_ld, H, hop::QROWS);
   constexpr size_t bytes = hop::smem_bytes<BM>();
   if (e == cudaSuccess) e = allow_smem(hop::attention_fwd_kernel<BM>, bytes);
   if (e != cudaSuccess) return e;
@@ -1325,53 +1378,81 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The backward's largest T: the kernels index with 32-bit ints per (batch
+// row, head), and the dQ partials take 2 B H T^2 bytes.
+constexpr int MAX_BWD_T = 65536;
+
 template <int BM>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* g, const void* bias, int bias_ld,
                        const void* lens, const void* lse, void* delta,
-                       void* dq, void* dk, void* dv, void* part, void* dbias,
-                       int B, int T, int H, float sm_scale, cudaStream_t s) {
+                       void* work, void* dq, void* dk, void* dv, void* part,
+                       void* dbias, int B, int T, int H, float sm_scale,
+                       cudaStream_t s) {
   using bf = __nv_bfloat16;
-  using Bias = typename BiasOf<BM>::T;
-  const size_t dq_bytes =
-      kStageBytes + (BM == kDiag ? diag_acc_bytes(T) : 0);
-  cudaError_t e = allow_smem(attn_bwd_dq_kernel<64, BM>, dq_bytes);
-  if (e == cudaSuccess)
-    e = allow_smem(attn_bwd_dkdv_kernel<64, BM>, kStageBytes);
+  using namespace hop;
+  if (T > MAX_BWD_T) return cudaErrorInvalidValue;
+  int expo = 0;  // sm_scale must be a power of two (see the note above)
+  if (!(sm_scale > 0.f) || frexpf(sm_scale, &expo) != 0.5f)
+    return cudaErrorInvalidValue;
+  CUtensorMap mq64, mq128, mg64, mg128, mk64, mk128, mv64, mv128, mb64{},
+      mb128{};
+  cudaError_t e = qkv_map(&mq64, q, B, T, H, QT);
+  if (e == cudaSuccess) e = qkv_map(&mq128, q, B, T, H, ROWS2);
+  if (e == cudaSuccess) e = qkv_map(&mg64, g, B, T, H, QT);
+  if (e == cudaSuccess) e = qkv_map(&mg128, g, B, T, H, ROWS2);
+  if (e == cudaSuccess) e = qkv_map(&mk64, k, B, T, H, BK);
+  if (e == cudaSuccess) e = qkv_map(&mk128, k, B, T, H, KEYS);
+  if (e == cudaSuccess) e = qkv_map(&mv64, v, B, T, H, BK);
+  if (e == cudaSuccess) e = qkv_map(&mv128, v, B, T, H, KEYS);
+  if (e == cudaSuccess && BM == kDense) {
+    e = bias_map(&mb64, bias, bias_ld, H, QT);
+    if (e == cudaSuccess) e = bias_map(&mb128, bias, bias_ld, H, ROWS2);
+  }
+  constexpr size_t pre_bytes = pre_smem_bytes<BM>();
+  constexpr size_t main_bytes = main_smem_bytes<BM>();
+  if (e == cudaSuccess) e = allow_smem(attn_bwd_delta_kernel<BM>, pre_bytes);
+  if (e == cudaSuccess) e = allow_smem(attn_bwd_main_kernel<BM>, main_bytes);
   if (e != cudaSuccess) return e;
-  const int n_qt = (T + BQ - 1) / BQ;
-  attn_bwd_dq_kernel<64, BM><<<dim3(n_qt, H, B), 128, dq_bytes, s>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(g),
-      static_cast<const Bias*>(bias), bias_ld, static_cast<const int*>(lens),
-      static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<bf*>(dq), static_cast<float*>(part), T, H, sm_scale);
+  const float* diag = BM == kDiag ? static_cast<const float*>(bias) : nullptr;
+  const int n_qt = (T + QT - 1) / QT;
+  attn_bwd_delta_kernel<BM>
+      <<<dim3((T + ROWS2 - 1) / ROWS2, H, B), BWD_THREADS, pre_bytes, s>>>(
+          mq128, mk64, mv64, mg128, mb128, diag,
+          static_cast<const int*>(lens), static_cast<const float*>(lse),
+          static_cast<float*>(delta), T, H, sm_scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dkdv_kernel<64, BM><<<dim3(n_qt, H, B), 128, kStageBytes, s>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(g),
-      static_cast<const Bias*>(bias), bias_ld, static_cast<const int*>(lens),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf*>(dk), static_cast<bf*>(dv), T, H, sm_scale);
+  attn_bwd_main_kernel<BM>
+      <<<dim3((T + KEYS - 1) / KEYS, H, B), BWD_THREADS, main_bytes, s>>>(
+          mq64, mk128, mv128, mg64, mb64, diag,
+          static_cast<const int*>(lens), static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<float*>(work),
+          static_cast<bf*>(dk), static_cast<bf*>(dv),
+          static_cast<float*>(part), T, H, sm_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attn_bwd_dq_sum_kernel<BM><<<dim3(n_qt, H, B), 256, 0, s>>>(
+      static_cast<const float*>(work), static_cast<const int*>(lens),
+      static_cast<bf*>(dq), T, H, sm_scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if constexpr (BM == kDense) {
-    constexpr size_t bytes = 8 * BK * (64 + 8) * sizeof(bf);
-    e = allow_smem(attn_bwd_dbias_kernel<64>, bytes);
+    e = allow_smem(attn_bwd_dbias_kernel, DB_SMEM);
     if (e != cudaSuccess) return e;
-    const int n_p = (bias_ld + BK - 1) / BK;
-    attn_bwd_dbias_kernel<64><<<dim3(n_p, n_p, H), 128, bytes, s>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k),
-        static_cast<const bf*>(v), static_cast<const bf*>(g),
-        static_cast<const bf*>(bias), bias_ld, static_cast<const int*>(lens),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf*>(dbias), B, T, H, sm_scale);
+    attn_bwd_dbias_kernel<<<dim3((bias_ld + BK - 1) / BK,
+                                 (bias_ld + ROWS2 - 1) / ROWS2, H),
+                            BWD_THREADS, DB_SMEM, s>>>(
+        mq128, mk64, mv64, mg128, static_cast<const bf*>(bias), bias_ld,
+        static_cast<const int*>(lens), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf*>(dbias), B, T, H,
+        sm_scale);
     e = cudaGetLastError();
   }
   if constexpr (BM == kDiag) {
-    attn_bwd_ddiag_sum_kernel<<<dim3((2 * T - 1 + 127) / 128, H), 128, 0,
-                                s>>>(static_cast<const float*>(part),
+    attn_bwd_ddiag_sum_kernel<<<dim3((2 * T - 1 + 31) / 32, H),
+                                SUM_WARPS * 32, 0, s>>>(static_cast<const float*>(part),
+                                     static_cast<const int*>(lens),
                                      static_cast<float*>(dbias), B, T, H);
     e = cudaGetLastError();
   }
@@ -1401,36 +1482,65 @@ extern "C" int attention_launch(const void* q, const void* k, const void* v,
 
 // The backward. q, k, v, g (the output cotangent), dq, dk, dv: (B, T, H*Dh)
 // bf16; bias as above or null; lse: the forward's (B, H, T) float32; delta:
-// (B, H, T) float32 scratch; dbias: (H, bias_ld, bias_ld) bf16, all of it
-// written, or null (then bias must be null too). Dh must be 64.
+// (B, H, T) float32 scratch; work: B * H * ceil(T / 128) * ceil(T / 64) *
+// 4,096 float32 scratch (the dQ partials, 2 B H T^2 bytes); dbias: (H,
+// bias_ld, bias_ld) bf16, all of it written, or null (then bias must be
+// null too). Dh must be 64 and sm_scale a power of two; T at most 65,536
+// (else cudaErrorInvalidValue).
 extern "C" int attention_bwd_launch(const void* q, const void* k,
                                     const void* v, const void* g,
                                     const void* bias, int bias_ld,
                                     const void* lens, const void* lse,
-                                    void* delta, void* dq, void* dk, void* dv,
-                                    void* dbias, int B, int T, int H, int Dh,
-                                    float sm_scale, void* stream) {
+                                    void* delta, void* work, void* dq,
+                                    void* dk, void* dv, void* dbias, int B,
+                                    int T, int H, int Dh, float sm_scale,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bias != nullptr && bias_ld % 8) return (int)cudaErrorInvalidValue;
   if ((bias == nullptr) != (dbias == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (Dh != 64) return (int)cudaErrorInvalidValue;
+  if (Dh != 64 || work == nullptr) return (int)cudaErrorInvalidValue;
   return (int)(bias != nullptr
                    ? launch_bwd<kDense>(q, k, v, g, bias, bias_ld, lens, lse,
-                                        delta, dq, dk, dv, nullptr, dbias, B,
-                                        T, H, sm_scale, s)
+                                        delta, work, dq, dk, dv, nullptr,
+                                        dbias, B, T, H, sm_scale, s)
                    : launch_bwd<kNoBias>(q, k, v, g, nullptr, 0, lens, lse,
-                                         delta, dq, dk, dv, nullptr, nullptr,
-                                         B, T, H, sm_scale, s));
+                                         delta, work, dq, dk, dv, nullptr,
+                                         nullptr, B, T, H, sm_scale, s));
 }
 
-// The dynamic shared memory the forward kernel takes for bias mode
-// `bias_mode` (0 none, 1 dense, 2 diagonals), for reports.
-extern "C" int attention_fwd_smem_bytes(int bias_mode) {
-  return bias_mode == kDense  ? (int)hop::smem_bytes<kDense>()
-         : bias_mode == kDiag ? (int)hop::smem_bytes<kDiag>()
-                              : (int)hop::smem_bytes<kNoBias>();
+// The dynamic shared memory of the wgmma kernels for bias mode `bias_mode`
+// (0 none, 1 dense, 2 diagonals), for reports: `which` 0 the forward, 1 the
+// backward's delta pre-pass, 2 its main kernel, 3 the dbias kernel.
+extern "C" int attention_smem_bytes(int which, int bias_mode) {
+  switch (which) {
+    case 0:
+      return bias_mode == kDense  ? (int)hop::smem_bytes<kDense>()
+             : bias_mode == kDiag ? (int)hop::smem_bytes<kDiag>()
+                                  : (int)hop::smem_bytes<kNoBias>();
+    case 1:
+      return bias_mode == kDense  ? (int)hop::pre_smem_bytes<kDense>()
+             : bias_mode == kDiag ? (int)hop::pre_smem_bytes<kDiag>()
+                                  : (int)hop::pre_smem_bytes<kNoBias>();
+    case 2:
+      return bias_mode == kDense  ? (int)hop::main_smem_bytes<kDense>()
+             : bias_mode == kDiag ? (int)hop::main_smem_bytes<kDiag>()
+                                  : (int)hop::main_smem_bytes<kNoBias>();
+    default:
+      return (int)hop::DB_SMEM;
+  }
 }
+
+#ifdef ATTN_PHASES
+// the phase cycles of the last main backward launch: the first key block's
+// (0..15) and the last's (16..31)
+extern "C" int attn_phase_read(long long* out) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(out, attn_phase_cycles, 32 * sizeof(long long));
+  return (int)e;
+}
+#endif
 
 // Long-audio flash attention (TPU kernel 7): as attention_launch, with the
 // relative bias as diagonals diag (H, 2T-1) float32 (attention without a
@@ -1446,19 +1556,20 @@ extern "C" int flash_launch(const void* q, const void* k, const void* v,
 }
 
 // Its backward (TPU kernel 8): as attention_bwd_launch, with diag (H, 2T-1)
-// float32, part (B * ceil(T / 64) * H, roundup(T, 64) + 64) float32
-// scratch and ddiag (H, 2T-1) float32, all written.
-// The dq kernel's shared memory grows with T (4 bytes per diagonal): T up to
-// ~42,000 frames (else cudaErrorInvalidValue from the launch).
+// float32, part (B * ceil(T / 128) * H * ceil(T / 64), 192) float32
+// scratch (the per-tile diagonal sums) and ddiag (H, 2T-1) float32, all
+// written. T at most 65,536 (else cudaErrorInvalidValue).
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* g, const void* diag,
                                 const void* lens, const void* lse, void* delta,
-                                void* dq, void* dk, void* dv, void* part,
-                                void* ddiag, int B, int T, int H, int Dh,
-                                float sm_scale, void* stream) {
+                                void* work, void* dq, void* dk, void* dv,
+                                void* part, void* ddiag, int B, int T, int H,
+                                int Dh, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (diag == nullptr || ddiag == nullptr || part == nullptr || Dh != 64)
+  if (diag == nullptr || ddiag == nullptr || part == nullptr ||
+      work == nullptr || Dh != 64)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_bwd<kDiag>(q, k, v, g, diag, 0, lens, lse, delta, dq, dk,
-                                dv, part, ddiag, B, T, H, sm_scale, s);
+  return (int)launch_bwd<kDiag>(q, k, v, g, diag, 0, lens, lse, delta, work,
+                                dq, dk, dv, part, ddiag, B, T, H, sm_scale,
+                                s);
 }

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA kernels
-// (`ffn.cu`'s forward, `attention.cu`'s forward): shared-memory addresses,
-// mbarriers, TMA tensor loads and the host-side tensor-map encoding,
-// warpgroup matrix multiplies (wgmma) with their shared-memory descriptors,
-// and the fences between them.
+// (`ffn.cu`'s forward, `attention.cu`'s forward and backward): shared-memory
+// addresses, mbarriers, TMA tensor loads and the host-side tensor-map
+// encoding, warpgroup matrix multiplies (wgmma) with their shared-memory
+// descriptors, and the fences between them.
 //
 // Layout convention. Every wgmma operand in shared memory is stored as TMA
 // writes it with CU_TENSOR_MAP_SWIZZLE_128B: rows of 128 bytes (64 bf16),
@@ -226,8 +226,9 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
 }
 
 // D (64 x 64, float32) += A (64 x 16) B (16 x 64), A and B bf16 in shared
-// memory (descriptors); D is zeroed first when scale_d is 0.
-template <int TRANS_B>
+// memory (descriptors); D is zeroed first when scale_d is 0. TRANS_A = 1
+// reads A MN-major (M contiguous), as TRANS_B = 1 reads B.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -237,7 +238,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -246,7 +247,51 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+}
+
+// D (64 x 32, float32) += A (64 x 16) B (16 x 32), both in shared memory,
+// each K-major (0) or MN-major (1); D is zeroed first when scale_d is 0.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// D (64 x 64, float32) += A (64 x 16) B (16 x 64): A bf16 in registers (the
+// mma.sync m16n8k16 A fragment of each warp's 16 rows), B in shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "n"(TRANS_B), "r"(1));
 }
 
 // D (64 x 256, float32) += A (64 x 16) B (16 x 256): A bf16 in registers (the

@@ -42,16 +42,16 @@ SIGNATURES = {
     # q, k, v, bias, bias_ld, lens, out, lse, B, T, H, Dh, sm_scale, stream
     "attention_launch": [_P, _P, _P, _P, _I, _P, _P, _P,
                          _I, _I, _I, _I, _F, _P],
-    # q, k, v, g, bias, bias_ld, lens, lse, delta, dq, dk, dv, dbias,
+    # q, k, v, g, bias, bias_ld, lens, lse, delta, work, dq, dk, dv, dbias,
     # B, T, H, Dh, sm_scale, stream
     "attention_bwd_launch": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _I, _I, _I, _I, _F, _P],
+                             _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, diag, lens, out, lse, B, T, H, Dh, sm_scale, stream
     "flash_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # q, k, v, g, diag, lens, lse, delta, dq, dk, dv, part, ddiag,
+    # q, k, v, g, diag, lens, lse, delta, work, dq, dk, dv, part, ddiag,
     # B, T, H, Dh, sm_scale, stream
     "flash_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _I, _I, _F, _P],
+                         _P, _P, _I, _I, _I, _I, _F, _P],
     # lp, skip, sok, tlen, last, alpha, ll, B, T, S, stream
     "ctc_alpha_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # lp, skip, sok, tlen, last, alpha, ll, g, grad, B, T, S, stream
@@ -71,9 +71,11 @@ SIGNATURES = {
     "ffn_fwd_launch": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _P],
     # R, D, F -> the backward's row splits S
     "ffn_bwd_splits": [_I, _I, _I],
-    # the wgmma forwards' dynamic shared memory in bytes (for reports):
-    # attention by bias mode (0 none, 1 dense, 2 diagonals), FFN at D 256
-    "attention_fwd_smem_bytes": [_I],
+    # the wgmma kernels' dynamic shared memory in bytes (for reports):
+    # attention by kernel (0 forward, 1 backward delta pre-pass, 2 backward
+    # main, 3 dbias) and bias mode (0 none, 1 dense, 2 diagonals); the FFN
+    # forward at D 256
+    "attention_smem_bytes": [_I, _I],
     "ffn_fwd_smem_bytes": [],
     # x, g, gamma, beta, w1, b1, w2, seed, dx, yw, g2w, part, dw1p, dw2p,
     # db1p, dgamma, dbeta, dw1, db1, dw2, db2, x_is_bf16, R, D, F, S,

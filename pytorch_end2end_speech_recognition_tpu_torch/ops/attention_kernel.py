@@ -288,16 +288,27 @@ def _fwd_launch(launch, name, q, k, v, bias_args, lens32, heads,
     return out, lse, True
 
 
-TILE = 64  # the attention kernels' query and key tiles
+TILE = 64  # the backward's query tile
+KEY_BLOCK = 128  # the backward main kernel's keys a block
+DIAG_COLS = 192  # diagonals a (64-query, 128-key) tile spans (191), + 1
 
 
 def ddiag_scratch(B: int, T: int, H: int) -> tuple[int, int]:
-    """Shape of the flash backward's float32 partial ddiag: a row per dq
-    block (batch row, 64-query tile, head) holding the diagonals the block
-    can touch (T rounded up to the tile, plus a tile), summed per diagonal
-    in (batch row, query tile) order."""
-    n = -(-T // TILE)
-    return (B * n * H, n * TILE + TILE)
+    """Shape of the flash backward's float32 partial ddiag: a row per main
+    kernel tile (batch row b, 128-key block kt, head h, 64-query tile qt),
+    row ((b n_kt + kt) H + h) n_qt + qt, whose column c holds the tile's ds
+    summed along diagonal j - i = 128 kt - 64 qt + c - 63; the last launch
+    adds, per diagonal, the rows of the key blocks that reach lens[b], in a
+    fixed order."""
+    n_kt, n_qt = -(-T // KEY_BLOCK), -(-T // TILE)
+    return (B * n_kt * H * n_qt, DIAG_COLS)
+
+
+def bwd_work_words(B: int, T: int, H: int) -> int:
+    """float32 words of the backward's `work` scratch: each 128-key block's
+    dQ partial, a (64, 64) tile per (b, h, key block, query tile), which
+    the last launch adds in key-block order (2 B H T^2 bytes)."""
+    return B * H * -(-T // KEY_BLOCK) * -(-T // TILE) * TILE * TILE
 
 
 def _bwd_launch(launch, name, q, k, v, g, bias_args, grad_args, lens32, lse,
@@ -306,7 +317,7 @@ def _bwd_launch(launch, name, q, k, v, g, bias_args, grad_args, lens32, lse,
     (`attention_bwd_launch` or `flash_bwd_launch`, bias_args as in
     `_fwd_launch`) on checked operands; grad_args are the bias gradient's
     pointers: (dbias,) or (None,) for `attention_bwd_launch`, (partial
-    scratch, ddiag) for `flash_bwd_launch`.
+    scratch, ddiag) for `flash_bwd_launch` (`ddiag_scratch`).
     Returns (dq, dk, dv, whether it launched)."""
     from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
 
@@ -319,10 +330,12 @@ def _bwd_launch(launch, name, q, k, v, g, bias_args, grad_args, lens32, lse,
     if B == 0 or T == 0:
         return dq, dk, dv, False
     delta = torch.empty((B, heads, T), dtype=torch.float32, device=q.device)
+    work = torch.empty(bwd_work_words(B, T, heads), dtype=torch.float32,
+                       device=q.device)
     err = getattr(_build.load(), launch)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), *bias_args,
-        lens32.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *grad_args,
+        lens32.data_ptr(), lse.data_ptr(), delta.data_ptr(), work.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *grad_args,
         B, T, heads, D // heads, 1.0 / ((D // heads) ** 0.5), _stream(q))
     _build.check(err, name)
     return dq, dk, dv, True
@@ -352,11 +365,11 @@ attention_fwd.launches = 0
 
 
 def attention_bwd(q, k, v, bias, lens, g, lse, heads: int):
-    """The backward kernels (dq with delta, dk/dv, then dbias): returns
-    (dq, dk, dv, dbias) as `attention_bwd_plain` does, from the forward's
-    `lse`. dbias is summed over the batch in float32 in batch order and
-    rounded to the bias' dtype. On CPU tensors: `attention_bwd_plain` (lse
-    unused)."""
+    """The backward kernels (the delta pre-pass; dq, dk and dv; then
+    dbias): returns (dq, dk, dv, dbias) as `attention_bwd_plain` does, from
+    the forward's `lse`. dq is summed over the key blocks in key order,
+    dbias over the batch in float32 in batch order and rounded to the bias'
+    dtype. On CPU tensors: `attention_bwd_plain` (lse unused)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, bias, lens, g, heads)
     (q, k, v, bias, g), lens32 = _kernel_args("attention_bwd", q, k, v, bias,
@@ -537,8 +550,8 @@ flash_fwd.launches = 0
 
 
 def flash_bwd(q, k, v, diag, lens, g, lse, heads: int):
-    """The long-audio backward kernels (dq with delta and ddiag, then
-    dk/dv): returns (dq, dk, dv, ddiag) as `flash_bwd_plain` does, from the
+    """The long-audio backward kernels (the delta pre-pass; dq, dk, dv and
+    per-tile diagonal sums; then ddiag): returns (dq, dk, dv, ddiag) as `flash_bwd_plain` does, from the
     forward's `lse`. ddiag (H, 2T-1) float32 is summed over the batch in a
     fixed order (`ddiag_scratch`). On CPU tensors: `flash_bwd_plain`."""
     if q.device.type == "cpu":

@@ -115,21 +115,26 @@ def test_toeplitz_reduce_kernel_matches_plain(dev, T, P, dtype):
     assert bool(((out - ref).abs() <= bound).all())
 
 
-@pytest.mark.parametrize("T,P", [(150, 256), (750, 768)])
+@pytest.mark.parametrize("T,P", [(150, 256), (750, 768), (1000, 1000)])
 @pytest.mark.parametrize("with_bias", [False, True])
-def test_attention_bwd_kernel_matches_plain(dev, T, P, with_bias):
+@pytest.mark.parametrize("H", [2, 8])  # 8: rung 4's d512
+def test_attention_bwd_kernel_matches_plain(dev, T, P, with_bias, H):
+    """The backward kernels (delta pre-pass, main kernel with its ordered dQ
+    sum, dbias) against the plain backward at T 150, 750 and 1,000 (none a
+    multiple of the 64- or 128-row tiles), H 2 and 8, with lens T, 65, 0
+    and 1: every row of the length-0 batch row gets zero gradients."""
     from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
         attention_bwd,
         attention_bwd_plain,
         attention_fwd,
     )
 
-    B, H, Dh = 3, 2, 64
-    g_ = torch.Generator(device="cpu").manual_seed(T + with_bias)
+    B, Dh = 4, 64
+    g_ = torch.Generator(device="cpu").manual_seed(T + with_bias + H)
     mk = lambda *s: (torch.randn(*s, generator=g_) * 0.5).to(dev, torch.bfloat16)
     q, k, v = mk(B, T, H * Dh), mk(B, T, H * Dh), mk(B, T, H * Dh)
     bias = (mk(H, P, P) * 4) if with_bias else None
-    lens = torch.tensor([T, 65, 0], device=dev)
+    lens = torch.tensor([T, 65, 0, 1], device=dev)
     # the training path's cotangent is zero on rows past a row's length
     g = mk(B, T, H * Dh) * (torch.arange(T, device=dev)[None, :, None]
                             < lens[:, None, None])
@@ -225,18 +230,20 @@ def test_flash_kernel_matches_plain(dev, T):
     assert torch.allclose(out * valid, ref * valid, rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("T", [150, 1000])
+@pytest.mark.parametrize("T", [150, 1000, 1638])
 def test_flash_bwd_kernel_matches_plain(dev, T):
+    """The flash backward (diagonals) against its plain version at T 150,
+    1,000 and the long-audio path's 1,638, with lens T, 65, 0 and 1."""
     from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
         flash_bwd,
         flash_bwd_plain,
         flash_fwd,
     )
 
-    q, k, v, diag, lens = _flash_inputs(dev, 3, T, 2, [T, 65, 0], T + 1)
+    q, k, v, diag, lens = _flash_inputs(dev, 4, T, 2, [T, 65, 0, 1], T + 1)
     g_ = torch.Generator(device="cpu").manual_seed(T)
     # the training path's cotangent is zero on rows past a row's length
-    g = (torch.randn(3, T, 128, generator=g_) * 0.5).to(dev, torch.bfloat16)
+    g = (torch.randn(4, T, 128, generator=g_) * 0.5).to(dev, torch.bfloat16)
     g = g * (torch.arange(T, device=dev)[None, :, None] < lens[:, None, None])
     _, lse = flash_fwd(q, k, v, diag, lens, 2, with_lse=True)
     got = flash_bwd(q, k, v, diag, lens, g, lse, 2)
@@ -250,6 +257,26 @@ def test_flash_bwd_kernel_matches_plain(dev, T):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert _rel_err(a, b) < tol, (name, _rel_err(a, b))
     assert torch.all(got[0][2] == 0) and torch.all(got[1][2] == 0)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_attention_bwd_kernel_rejects_other_head_dims(dev, flash):
+    """The backward kernels take head width 64 only: a width-48 call raises
+    instead of launching (or falling back to the plain version)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
+        attention_bwd,
+        flash_bwd,
+    )
+
+    q = torch.zeros(1, 70, 96, device=dev, dtype=torch.bfloat16)
+    lens = torch.tensor([70], device=dev)
+    lse = torch.zeros(1, 2, 70, device=dev)
+    with pytest.raises(ValueError, match="head dim 64"):
+        if flash:
+            diag = torch.zeros(2, 139, device=dev)
+            flash_bwd(q, q, q, diag, lens, q, lse, 2)
+        else:
+            attention_bwd(q, q, q, None, lens, q, lse, 2)
 
 
 def test_flash_kernel_rejects_a_dense_or_bf16_bias(dev):
@@ -525,7 +552,8 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-@pytest.mark.parametrize("kind", ["attention", "flash", "toeplitz"])
+@pytest.mark.parametrize("kind", ["attention", "attention_h8", "flash",
+                                  "toeplitz"])
 def test_gradient_sums_are_deterministic(dev, kind):
     """Two launches of the dense attention backward (dbias summed over the
     batch), the flash backward (ddiag) and the Toeplitz reduce on the same
@@ -545,20 +573,21 @@ def test_gradient_sums_are_deterministic(dev, kind):
         g = torch.randn(48, 768, 768, generator=g_).to(dev, torch.bfloat16)
         runs = [(toeplitz_reduce(g, 750),) for _ in range(2)]
     else:
-        T = 750 if kind == "attention" else 1638
-        lens_l = [T, T - 50, 3, 0, 700, 64, 65, T]
-        q, k, v, diag, lens = _flash_inputs(dev, len(lens_l), T, 4, lens_l, 9)
+        T = 1638 if kind == "flash" else 750
+        H = 8 if kind == "attention_h8" else 4  # 8: rung 4's d512
+        lens_l = [T, T - 50, 3, 0, 700, 64, 65, T, 1, 129]
+        q, k, v, diag, lens = _flash_inputs(dev, len(lens_l), T, H, lens_l, 9)
         g = (torch.randn(*q.shape, generator=g_) * 0.5).to(dev, torch.bfloat16)
         g = g * (torch.arange(T, device=dev)[None, :, None]
                  < lens[:, None, None])
-        if kind == "attention":
+        if kind != "flash":
             bias = toeplitz_expand(diag, 768, 768, T=T).to(torch.bfloat16)
-            _, lse = attention_fwd(q, k, v, bias, lens, 4, with_lse=True)
-            runs = [attention_bwd(q, k, v, bias, lens, g, lse, 4)
+            _, lse = attention_fwd(q, k, v, bias, lens, H, with_lse=True)
+            runs = [attention_bwd(q, k, v, bias, lens, g, lse, H)
                     for _ in range(2)]
         else:
-            _, lse = flash_fwd(q, k, v, diag, lens, 4, with_lse=True)
-            runs = [flash_bwd(q, k, v, diag, lens, g, lse, 4)
+            _, lse = flash_fwd(q, k, v, diag, lens, H, with_lse=True)
+            runs = [flash_bwd(q, k, v, diag, lens, g, lse, H)
                     for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*runs):

@@ -257,39 +257,61 @@ def test_long_audio_train_step_matches_jax(long_case):
 @pytest.mark.parametrize("B,T", [(2, 70), (3, 129), (1, 1638)])
 def test_ddiag_partials_layout_sums_to_plain(B, T):
     """The flash backward's ddiag partial buffer (`ddiag_scratch`), as its
-    kernels fill and sum it: the dq block of (batch row b, 64-query tile
-    qt, head h) owns row (b n_qt + qt) H + h, whose slot u holds its ds
-    summed along diagonal (T-1) - 64 qt - 63 + u; the second launch adds,
-    per diagonal, the rows in (b, qt) order. Filled from random ds at
-    ragged T (the last query tile runs past T), the rows sum to the plain
-    per-diagonal sums."""
+    kernels fill and sum it: the main kernel's tile (batch row b, 128-key
+    block kt, head h, 64-query tile qt) owns row ((b n_kt + kt) H + h) n_qt
+    + qt, whose column c holds its ds summed along diagonal j - i = 128 kt -
+    64 qt + c - 63; the last launch adds, per diagonal, the rows of the
+    query tiles whose columns reach it. Filled from random ds at ragged T
+    (the last tiles run past T), the rows sum to the plain per-diagonal
+    sums."""
     H = 2
     rng = np.random.default_rng(T)
     ds = rng.standard_normal((B, H, T, T))
-    rows, KW = ak.ddiag_scratch(B, T, H)
-    n_qt = -(-T // ak.TILE)
-    assert rows == B * n_qt * H and KW >= T + ak.TILE - 1
-    part = np.zeros((rows, KW))
-    i = np.arange(T)[:, None]
-    u_all = np.arange(T)[None, :] - i + ak.TILE - 1  # j - i + 63
+    rows, cols = ak.ddiag_scratch(B, T, H)
+    n_kt, n_qt = -(-T // ak.KEY_BLOCK), -(-T // ak.TILE)
+    assert rows == B * n_kt * H * n_qt and cols == ak.DIAG_COLS
+    part = np.zeros((rows, cols))
     for b in range(B):
-        for qt in range(n_qt):
-            r0, r1 = qt * ak.TILE, min(qt * ak.TILE + ak.TILE, T)
+        for kt in range(n_kt):
+            k0, k1 = kt * ak.KEY_BLOCK, min(kt * ak.KEY_BLOCK + ak.KEY_BLOCK, T)
             for h in range(H):
-                row = (b * n_qt + qt) * H + h
-                u = u_all[r0:r1] + qt * ak.TILE
-                np.add.at(part[row], u.ravel(), ds[b, h, r0:r1].ravel())
+                for qt in range(n_qt):
+                    q0, q1 = qt * ak.TILE, min(qt * ak.TILE + ak.TILE, T)
+                    i = np.arange(q0, q1)[:, None]
+                    j = np.arange(k0, k1)[None, :]
+                    c = j - i - k0 + q0 + ak.TILE - 1
+                    assert c.min() >= 0 and c.max() < cols - 1
+                    row = ((b * n_kt + kt) * H + h) * n_qt + qt
+                    np.add.at(part[row], c.ravel(), ds[b, h, q0:q1, k0:k1].ravel())
     got = np.zeros((H, 2 * T - 1))
+    span = ak.KEY_BLOCK + ak.TILE - 2  # the largest column, 190
     for h in range(H):
         for d in range(2 * T - 1):
             for b in range(B):
-                for qt in range(n_qt):
-                    u = d - (T - 1) + qt * ak.TILE + ak.TILE - 1
-                    if 0 <= u < KW:
-                        got[h, d] += part[(b * n_qt + qt) * H + h, u]
+                for kt in range(n_kt):
+                    X = d - (T - 1) - kt * ak.KEY_BLOCK + ak.TILE - 1
+                    lo = max(0, -(X // ak.TILE))
+                    hi = min(n_qt - 1, (span - X) // ak.TILE)
+                    for qt in range(lo, hi + 1):
+                        c = X + ak.TILE * qt
+                        assert 0 <= c <= span
+                        got[h, d] += part[((b * n_kt + kt) * H + h) * n_qt + qt, c]
     # the plain version sums in float32
     want = ak.toeplitz_reduce_plain(torch.from_numpy(ds.sum(0)), T).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 1, 4), (32, 750, 4), (16, 1638, 4),
+                                   (8, 750, 8), (3, 65, 2)])
+def test_bwd_work_words(B, T, H):
+    """The backward's `work` scratch: a float32 (64, 64) dQ partial per
+    (batch row, head, 128-key block, 64-query tile): at the flagship's
+    shape 151 MB, on long audio 354 MB."""
+    n_kt, n_qt = -(-T // ak.KEY_BLOCK), -(-T // ak.TILE)
+    words = ak.bwd_work_words(B, T, H)
+    assert words == B * H * n_kt * n_qt * ak.TILE * ak.TILE
+    assert words * 4 == {(32, 750, 4): 150_994_944,
+                         (16, 1638, 4): 354_418_688}.get((B, T, H), words * 4)
 
 
 @pytest.mark.parametrize("N,T,P", [(3, 70, 72), (2, 129, 256), (1, 750, 768)])
