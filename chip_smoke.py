@@ -10,7 +10,12 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    the wgmma/TMA kernels' registers and spills summed up);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it, with kernel, plain, library and bound times:
-   log-mel, Toeplitz expand and reduce, attention forward and backward
+   [3a] log-mel (bf16 on ragged and full rows and on a random dense
+   filterbank; controls that must fail: a nonzero basis_prev zeroed, the
+   frames read one hop late, one band's last bin left out of its range;
+   two launches bit for bit; timed in turns with a library sequence of
+   unfold, cuBLAS matmuls and log; float32 too), Toeplitz expand and
+   reduce, attention forward and backward
    (also at rung 4's d512/H8 shape), the long-audio flash attention forward
    and backward (the bias as float32 diagonals; B=16 x T' 1,638, B=4 x T'
    3,000 and rung 5's width, B=8 x T 750, H16, D1024), CTC alpha and beta
@@ -88,10 +93,14 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    1,024), a ragged R and rung 4's width (D 512, F 2,048), rates 0 and 0.1,
    every element of out and the seven gradients held to 2^-6 (|plain| +
    m); controls that must fail it (b1 dropped, gamma ignored, the backward
-   seeded with seed + 1, the last row tile left out); the dropout mask read
-   from both kernels against the plain formula, its drop fraction and kept
-   scale; kernel, plain, unfused-torch and bound times, the D-256 forward
-   (wgmma/TMA) in turns with the unfused sequence at rates 0 and 0.1;
+   seeded with seed + 1, the last row tile left out, a row split of the
+   backward's launch B, one 128-row tile's a and gh1 of its launch A, the
+   split's rows left out of launch A's column sums, dgamma zeroed); two
+   backward launches bit for bit; the dropout mask read from both kernels
+   against the plain formula, its drop fraction and kept scale; kernel,
+   plain, unfused-torch and bound times, the D-256 forward (wgmma/TMA) in
+   turns with the unfused sequence at rates 0 and 0.1, the backward in
+   turns with the unfused sequence's backward alone, split by launch;
 13. the flagship with model.ffn_impl=cuda: serving launch counts (logmel 1,
    Toeplitz 1, attention 12, FFN 24) against all-plain torch (with the
    bias-zeroed control) and against the same kernels with ffn_impl=torch;
@@ -760,6 +769,147 @@ def lstm_kernel_phase(dev, gen, peaks, card, kernels) -> None:
     kernels["lstm_bwd"]["max_abs_err"] = err_b
 
 
+def logmel_library(audio, basis, basis_prev, mel_b, hop, n_frames, flens):
+    """The log-mel as a sequence of library calls (the [3a] yardstick; no
+    single PyTorch call computes it): frames by unfold, cast to bf16, a
+    cuBLAS bf16 matmul with the (win, 2F) basis, the predecessor term,
+    power, a float32 matmul with the filterbank, log, the frame mask."""
+    win = basis.shape[0]
+    fr = audio.unfold(1, win, hop)[:, :n_frames].to(torch.bfloat16)
+    reim = (fr @ basis).float()
+    prev = torch.nn.functional.pad(
+        audio[:, hop - 1:(n_frames - 1) * hop:hop].to(torch.bfloat16).float(),
+        (1, 0))
+    reim = reim + prev[..., None] * basis_prev
+    n = reim.shape[-1] // 2
+    mel = (reim[..., :n].square() + reim[..., n:].square()) @ mel_b
+    valid = torch.arange(n_frames, device=audio.device)[None, :] < flens[:, None]
+    return torch.where(valid[..., None], torch.log(mel + 1e-10),
+                       torch.zeros((), device=audio.device))
+
+
+def logmel_kernel_phase(dev, front, audio, audio_lens, full_lens, n_frames,
+                        peaks, card, kernels) -> None:
+    """[3a] the log-mel kernels (TPU kernel 1) against their plain version
+    on the main path's batch (B=32 x 30 s, ragged and full rows): the bf16
+    wgmma kernel and the float32 one within TOL_LOGMEL; on the ragged batch
+    the bf16 kernel's controls, each of which must exceed the tolerance (a
+    nonzero basis_prev, which the Hann window's zero first sample leaves
+    at 0 on the main path, held and then zeroed; the frames read one hop
+    late; one band's last bin left out of its range), a random dense
+    filterbank (every bin of every band nonzero) that must pass, and two
+    launches compared bit for bit; on the full batch its time in turns with
+    the library sequence (`logmel_library`), plain and bound times."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend_kernel import (
+        logmel,
+        logmel_plain,
+        mel_band_ranges,
+        mel_plan,
+    )
+
+    gl = torch.Generator(device=dev).manual_seed(11)  # [3a]'s own draws
+    plan = (front.mel_bands, front.mel_t)
+    hop = front.hop
+    for dt in (torch.bfloat16, torch.float32):
+        basis = (front.basis if dt == front.basis.dtype
+                 else front.basis.to(dt).contiguous())
+        for tag, al in (("ragged", audio_lens), ("full", full_lens)):
+            flens = front.frame_lens(al)
+            args = (audio, basis, front.basis_prev, front.mel_b, hop,
+                    n_frames, flens)
+            out = logmel(*args, plan=plan)
+            ref = logmel_plain(*args)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            print(f"[3a] logmel {str(dt)[6:]} {tag} lens: max |kernel - "
+                  f"plain| = {err:.3e} (tol {TOL_LOGMEL})", flush=True)
+            check(err <= TOL_LOGMEL and bool(torch.isfinite(out).all()),
+                  f"logmel {dt} {tag} disagrees with its plain version ({err})")
+            if dt != front.basis.dtype:
+                continue
+            kernels.setdefault("logmel", dict(name="logmel", max_abs_err=0.0))
+            kernels["logmel"]["max_abs_err"] = max(
+                err, kernels["logmel"]["max_abs_err"])
+            if tag == "ragged":
+                n_diff = bits_differ((out,), (logmel(*args, plan=plan),))
+                print(f"[3a] logmel bf16, two launches: {n_diff} elements "
+                      "differ in their bits", flush=True)
+                check(n_diff == 0, f"logmel launches differ ({n_diff})")
+                bp = 0.5 * torch.randn(front.basis_prev.shape, device=dev,
+                                       generator=gl)
+                late = torch.cat([audio[:, hop:], audio.new_zeros(
+                    audio.shape[0], hop)], 1)
+                # the band whose last bin weighs the most loses that bin
+                bands, mel_t = plan
+                M = front.mel_b.shape[1]
+                _, hi = mel_band_ranges(front.mel_b)
+                m_cut = int(front.mel_b[hi, torch.arange(M, device=dev)]
+                            .argmax())
+                cut = bands.clone()
+                cut[2 + M + m_cut] -= 1
+                dense = 0.01 + 0.1 * torch.rand(front.mel_b.shape, device=dev,
+                                                generator=gl)
+                want_bp = logmel_plain(audio, basis, bp, *args[3:])
+                want_dense = logmel_plain(audio, basis, front.basis_prev,
+                                          dense, *args[4:])
+                for ctag, must_fail, got, want in (
+                        ("a nonzero basis_prev", False,
+                         logmel(audio, basis, bp, *args[3:], plan=plan),
+                         want_bp),
+                        ("control: that basis_prev zeroed", True,
+                         logmel(audio, basis, torch.zeros_like(bp),
+                                *args[3:], plan=plan), want_bp),
+                        ("control: frames read one hop late", True,
+                         logmel(late, *args[1:], plan=plan), ref),
+                        (f"control: band {m_cut}'s last bin left out", True,
+                         logmel(*args, plan=(cut, mel_t)), ref),
+                        ("a random dense filterbank", False,
+                         logmel(audio, basis, front.basis_prev, dense,
+                                *args[4:], plan=mel_plan(dense)),
+                         want_dense)):
+                    e = (got - want).abs().max().item()
+                    print(f"[3a] logmel bf16, {ctag}: max |kernel - plain| "
+                          f"{e:.3e} ({'must exceed' if must_fail else 'within'}"
+                          f" {TOL_LOGMEL})", flush=True)
+                    check((e > TOL_LOGMEL) if must_fail else
+                          (e <= TOL_LOGMEL), f"logmel {ctag}: {e}")
+                del late, dense, want_bp, want_dense, got, want
+                continue
+            # the bound: the DFT of the bins the filterbank reads on the
+            # tensor cores (bf16), the filterbank's nonzeros on the float32
+            # CUDA cores, concurrently; the bytes of audio, operands, output
+            win = basis.shape[0]
+            n_valid = int(flens.sum())
+            lo, hi = mel_band_ranges(front.mel_b)
+            n_bins = int(hi.max()) - int(lo.min()) + 1
+            dft = 2.0 * n_valid * win * 2 * n_bins
+            mel_ops = 2.0 * n_valid * int((front.mel_b != 0).sum())
+            b_ms, b_by = bound(
+                nbytes(audio, basis, front.basis_prev, front.mel_b, flens, out),
+                max(dft / peaks["bf16_flops"], mel_ops / peaks["fp32_flops"]),
+                peaks)
+            turns = turns_ms({
+                "kernel": lambda: logmel(*args, plan=plan),
+                "library": lambda: logmel_library(*args)}, iters=20)
+            row = dict(route="cuda", source=f"{PKG}/csrc/logmel.cu",
+                       replaces="pytorch_end2end_speech_recognition_tpu/ops/"
+                                "frontend_pallas.py:138",
+                       ms=turns["kernel"],
+                       plain_ms=cuda_ms(lambda: logmel_plain(*args), iters=5),
+                       bound_ms=b_ms, bound_by=b_by,
+                       library_ms=turns["library"])
+            kernels["logmel"].update(row)
+            print_turns(f"[3a] logmel bf16 (B={audio.shape[0]} x "
+                        f"{audio.shape[1] / SR:g} s, {n_frames} frames, the "
+                        f"DFT of {n_bins} bins)", turns, dft, b_ms, card,
+                        iters=20)
+            print(f"[3a] logmel bf16: plain {row['plain_ms']:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}); library = the sequence unfold, "
+                  "bf16 cuBLAS matmul, predecessor term, power, float32 "
+                  f"matmul, log, mask; {card}", flush=True)
+        del out, ref
+
+
 FFN_OUTPUTS = ("out", "dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
 
 
@@ -850,9 +1000,9 @@ def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
     as the library yardstick."""
     import torch.nn.functional as F
 
-    from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
     from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
         LN_EPS,
+        bwd_plan,
         ffn_bwd,
         ffn_bwd_plain,
         ffn_fwd,
@@ -884,26 +1034,36 @@ def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
             check(all(r[1] == 0.0 for r in res) and all(
                 t.dtype == p.dtype for t, p in zip((out, *grads), want)),
                 f"ffn kernels disagree ({tag}, rate {rate}): {res}")
+            n_diff = bits_differ(grads, ffn_bwd(x, g, *w, seed, rate, scale))
+            print(f"[3j] ffn backward {tag}, rate {rate}, two launches: "
+                  f"{n_diff} elements differ in their bits", flush=True)
+            check(n_diff == 0, f"ffn backward launches differ ({n_diff})")
             if si == 1 and rate > 0:
                 # controls, each a kernel that misreads its inputs or drops
                 # part of a sum, with the outputs it must fail on: b1
                 # dropped, gamma ignored, the backward's mask from seed + 1,
                 # the last (partial) row tile never computed; one of the S
-                # row splits left out of launch B's weight gradients, the
-                # same rows left out of launch A's column sums, and dgamma
-                # zeroed
+                # row splits left out of launch B's weight gradients, one
+                # 128-row tile's a and gh1 never written by launch A (read
+                # by launch B as zeros), the split's rows left out of launch
+                # A's column sums, and dgamma zeroed
                 ones, zb1 = torch.ones_like(gamma), torch.zeros_like(b1)
                 w_nob1 = (gamma, beta, w1, zb1, w2, b2)
                 w_nog = (ones, beta, w1, b1, w2, b2)
                 Rc = (R - 1) // 64 * 64
                 cut = ffn_bwd(x[:Rc], g[:Rc], *w, seed, rate, scale)
-                S = _build.load().ffn_bwd_splits(R, D, F_)
+                S = bwd_plan(R, D, F_)["S"]
                 n_tiles = -(-R // 64)
                 per = -(-n_tiles // S) * 64  # rows per split
                 r0, r1 = S // 2 * per, min(S // 2 * per + per, R)
                 g_cut = g.clone()
                 g_cut[r0:r1] = 0
                 sp = ffn_bwd(x, g_cut, *w, seed, rate, scale)
+                t0 = -(-R // 128) // 2 * 128  # a 128-row tile of launch A
+                g_tile = g.clone()
+                g_tile[t0:t0 + 128] = 0
+                tl = ffn_bwd(x, g_tile, *w, seed, rate, scale)
+                del g_tile
                 full = (out, *grads)
                 for ctag, must, c_got in (
                         ("b1 dropped", ("out",),
@@ -921,11 +1081,15 @@ def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
                           torch.cat([cut[0], torch.zeros_like(x[Rc:])]),
                           *cut[1:])),
                         (f"launch B's row split {S // 2} of {S} (rows {r0}-"
-                         f"{r1 - 1}) left out", ("dw1", "db1", "dw2"),
-                         full[:4] + sp[3:6] + full[7:]),
+                         f"{r1 - 1}) left out", ("dw1", "dw2"),
+                         full[:4] + (sp[3], full[5], sp[5]) + full[7:]),
+                        (f"launch A's a and gh1 of rows {t0}-{t0 + 127} never"
+                         " written", ("dw1", "dw2"),
+                         full[:4] + (tl[3], full[5], tl[5]) + full[7:]),
                         (f"launch A's column sums over rows {r0}-{r1 - 1} "
-                         "left out", ("dgamma", "dbeta", "db2"),
-                         full[:2] + sp[1:3] + full[4:7] + sp[6:]),
+                         "left out", ("dgamma", "dbeta", "db1", "db2"),
+                         full[:2] + sp[1:3] + (full[4], sp[4], full[6])
+                         + sp[6:]),
                         ("dgamma zeroed", ("dgamma",),
                          full[:2] + (torch.zeros_like(grads[1]),) + full[3:])):
                     shares = dict(zip(FFN_OUTPUTS, (
@@ -937,7 +1101,7 @@ def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
                           f" (must include {list(must)})", flush=True)
                     check(all(shares[n] > 0.0 for n in must),
                           f"ffn control '{ctag}' passed on {must}")
-                del cut, c_got, sp, g_cut, full
+                del cut, c_got, sp, g_cut, full, tl
             if si == 0 and rate > 0:
                 # the forward's mask: out = 0 + 1 * keep * (a 0 + 1) at x = 0
                 # float32; the backward's, row by row: db2 = sum_r g keep
@@ -989,8 +1153,8 @@ def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
                 fb = bound(nbytes(x, *w, out),
                            4.0 * R * D * F_ / peaks["bf16_flops"], peaks)
                 # the backward's five products (h1, dW2, ga, dW1, gy; h2
-                # enters no gradient): 10 R D F; the kernel does 14 (launch
-                # B recomputes h1 and ga)
+                # enters no gradient): 10 R D F, what the D-256 kernels do
+                # (the D-512 ones do 14: their launch B recomputes h1, ga)
                 bb = bound(nbytes(x, g, *w, *grads),
                            10.0 * R * D * F_ / peaks["bf16_flops"], peaks)
                 if D == 256:  # the wgmma kernel, in turns with cuBLAS
@@ -1014,21 +1178,37 @@ def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
                         x, *w, seed, rate, scale), iters=5),
                     bound_ms=fb[0], bound_by=fb[1],
                     library_ms=turns["library"])
+                # the backward in turns with the unfused sequence's
+                # autograd backward alone (its forward run once, outside the
+                # timed window); its forward + backward timed as well
+                out_u = unfused(*leaves)
+                bwd = lambda: ffn_bwd(x, g, *w, seed, rate, scale)  # noqa: E731
+                tb = turns_ms({"kernel": bwd,
+                               "library": lambda: torch.autograd.grad(
+                                   out_u, leaves, g, retain_graph=True)},
+                              iters=20)
+                print_turns(f"[3j] ffn backward {tag}, rate {rate} (library: "
+                            "the unfused sequence's backward alone)", tb,
+                            10.0 * R * D * F_, bb[0], card, iters=20)
+                print_split(f"[3j] ffn backward {tag}", kernel_split(bwd),
+                            card)
                 row_b = dict(
-                    ms=cuda_ms(lambda: ffn_bwd(x, g, *w, seed, rate, scale)),
+                    ms=tb["kernel"],
                     plain_ms=cuda_ms(lambda: ffn_bwd_plain(
                         x, g, *w, seed, rate, scale), iters=5),
-                    bound_ms=bb[0], bound_by=bb[1],
-                    library_ms=cuda_ms(lambda: torch.autograd.grad(
-                        unfused(*leaves), leaves, g), iters=10))
+                    bound_ms=bb[0], bound_by=bb[1], library_ms=tb["library"])
+                fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+                    unfused(*leaves), leaves, g), iters=10)
                 fwd0 = cuda_ms(lambda: ffn_fwd(x, *w, seed, 0.0, scale))
                 for kname, row in (("forward", row_f), ("backward", row_b)):
                     print(f"[3j] ffn {kname} {tag}: kernel {row['ms']:.4f} ms"
                           f", plain {row['plain_ms']:.4f} ms, unfused torch "
-                          f"sequence {'fwd' if row is row_f else 'fwd + bwd'}"
+                          f"sequence {'fwd' if row is row_f else 'bwd alone'}"
                           f" {row['library_ms']:.4f} ms, bound "
                           f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
                           f"{card}", flush=True)
+                print(f"[3j] ffn unfused torch sequence {tag}, forward + "
+                      f"backward: {fwd_bwd:.4f} ms; {card}", flush=True)
                 print(f"[3j] ffn forward {tag} at rate 0 (serving): kernel "
                       f"{fwd0:.4f} ms", flush=True)
                 if si == 0:
@@ -1042,11 +1222,12 @@ def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
                         source=f"{PKG}/csrc/ffn.cu",
                         replaces="pytorch_end2end_speech_recognition_tpu/ops/"
                                  "ffn_pallas.py:202", **row_b)
-                del leaves
+                del leaves, out_u
             del out, grads, want, mags
     print("[3j] ffn library yardstick: the unfused torch sequence (bf16 "
-          "cuBLAS linears, float32 layer norm), forward and forward + "
-          "backward; no single PyTorch call computes the block", flush=True)
+          "cuBLAS linears, float32 layer norm), its forward and its "
+          "backward alone; no single PyTorch call computes the block",
+          flush=True)
     kernels["ffn_fwd"]["max_abs_err"] = err_f
     kernels["ffn_bwd"]["max_abs_err"] = err_b
 
@@ -1948,7 +2129,10 @@ def main() -> int:
     # exactly 65,536 / threads: checked here, before any of them launches.
     ws_threads = {"attention_fwd_kernel": 512, "ffn_fwd_wgmma_kernel": 384,
                   "attn_bwd_delta_kernel": 384, "attn_bwd_main_kernel": 384,
-                  "attn_bwd_dbias_kernel": 384}
+                  "attn_bwd_dbias_kernel": 384,
+                  "ffn_bwd_rows_wgmma_kernel": 384,
+                  "ffn_bwd_weights_wgmma_kernel": 384,
+                  "logmel_wgmma_kernel": 384}
     for i, line in enumerate(lines):
         m = re.search(r"hop\d+([a-z_]+)(?:I(Li(\d+)E|f|13__nv_bfloat16)|E)",
                       line)
@@ -1958,7 +2142,8 @@ def main() -> int:
             spill = re.search(r"(\d+) bytes spill stores", info)
             targ = (f"bias mode {m.group(3)}" if m.group(3) else
                     {"f": "float32 x", "13__nv_bfloat16": "bf16 x",
-                     None: "dense bias"}[m.group(2)])
+                     None: "dense bias" if m.group(1).startswith("attn")
+                     else "bf16"}[m.group(2)])
             need = (65536 // ws_threads[m.group(1)] // 8 * 8
                     if m.group(1) in ws_threads else None)
             print(f"[2] wgmma kernel {m.group(1)} ({targ}): "
@@ -1970,6 +2155,8 @@ def main() -> int:
             check(need is None or (regs and int(regs.group(1)) == need),
                   f"{m.group(1)} ({targ}) not compiled at {need} registers: "
                   "its setmaxnreg would hang")
+            check(need is None or (spill and int(spill.group(1)) == 0),
+                  f"{m.group(1)} ({targ}) spills registers")
     # the LSTM cluster kernels, one instantiation per rows-per-cluster R
     lstm_regs = []
     for i, line in enumerate(lines):
@@ -2005,7 +2192,11 @@ def main() -> int:
                                       "attn_bwd_delta_kernel",
                                       "attn_bwd_main_kernel")))
           + f"; attn_bwd_dbias_kernel {lib.attention_smem_bytes(3, 1)} B"
-          + f"; ffn_fwd_wgmma_kernel {lib.ffn_fwd_smem_bytes()} B (one "
+          + "; " + ", ".join(
+              f"{kn} {lib.ffn_smem_bytes(w)} B" for w, kn in enumerate((
+                  "ffn_fwd_wgmma_kernel", "ffn_bwd_rows_wgmma_kernel",
+                  "ffn_bwd_weights_wgmma_kernel")))
+          + f"; logmel_wgmma_kernel {lib.logmel_smem_bytes()} B (one "
           "block an SM; a block may take 232,448)", flush=True)
 
     cfg = resolve_device(flagship_conformer(), dev)
@@ -2023,49 +2214,8 @@ def main() -> int:
     # ---- [3a] log-mel at the main path's shapes (bf16 DFT operands) and f32
     front = fe.Frontend(fcfg, dev)
     n_frames = front.n_frames(Ts)
-    for dt in (torch.bfloat16, torch.float32):
-        basis = (front.basis if dt == front.basis.dtype
-                 else front.basis.to(dt).contiguous())
-        for tag, al in (("ragged", audio_lens), ("full", full_lens)):
-            flens = front.frame_lens(al)
-            args = (audio, basis, front.basis_prev, front.mel_b, front.hop,
-                    n_frames, flens)
-            out = logmel(*args)
-            ref = logmel_plain(*args)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            print(f"[3] logmel {str(dt)[6:]} {tag} lens: max |kernel - plain| "
-                  f"= {err:.3e} (tol {TOL_LOGMEL})", flush=True)
-            check(err <= TOL_LOGMEL and bool(torch.isfinite(out).all()),
-                  f"logmel {dt} {tag} disagrees with its plain version ({err})")
-            if dt != front.basis.dtype:
-                continue
-            kernels.setdefault("logmel", dict(name="logmel", max_abs_err=0.0))
-            kernels["logmel"]["max_abs_err"] = max(
-                err, kernels["logmel"]["max_abs_err"])
-            if tag != "full":
-                continue
-            win, two_f = basis.shape
-            n_valid = int(flens.sum())
-            # the DFT on the tensor cores (bf16) and the mel product on the
-            # CUDA cores run concurrently; the triangular filterbank has at
-            # most 2 filters per bin, so the mel product's operations are
-            # those of its nonzeros
-            dft = 2.0 * n_valid * win * two_f
-            mel_ops = 2.0 * n_valid * int((front.mel_b != 0).sum())
-            dft_peak = peaks["bf16_flops"] if dt == torch.bfloat16 else \
-                peaks["fp32_flops"]
-            b_ms, b_by = bound(
-                nbytes(audio, basis, front.basis_prev, front.mel_b, flens, out),
-                max(dft / dft_peak, mel_ops / peaks["fp32_flops"]), peaks)
-            kernels["logmel"].update(
-                route="cuda", source=f"{PKG}/csrc/logmel.cu",
-                replaces="pytorch_end2end_speech_recognition_tpu/ops/"
-                         "frontend_pallas.py:138",
-                ms=cuda_ms(lambda: logmel(*args)),
-                plain_ms=cuda_ms(lambda: logmel_plain(*args)),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        del out, ref
+    logmel_kernel_phase(dev, front, audio, audio_lens, full_lens, n_frames,
+                        peaks, card, kernels)
 
     # ---- [3b] Toeplitz expansion of all 12 layers x 4 heads
     T_enc = ((n_frames + 1) // 2 + 1) // 2

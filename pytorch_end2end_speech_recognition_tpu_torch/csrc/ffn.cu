@@ -1,5 +1,7 @@
 // Fused FFN block: LayerNorm -> fc1 -> SiLU -> fc2 -> dropout -> residual,
-// forward and backward, the (R, F) intermediates never written to memory.
+// forward and backward. The forward writes no (R, F) intermediate; the
+// backward at D 256 writes bf16 a and gh1 (R, F) once, for its weight
+// gradients.
 //
 // Replaces: pytorch_end2end_speech_recognition_tpu/ops/ffn_pallas.py
 //   _ffn_fwd (pallas_call at :172, kernel body _fwd_kernel :77) and
@@ -29,41 +31,35 @@
 // the forward does 4 R D F = 25 GFLOP (25 us at 989 TFLOP/s bf16) against
 // ~25 MB of x and out (7.5 us at 3.35 TB/s); the backward's function needs
 // five products (h1, dW2, ga, dW1, gy; h2 enters no gradient), 10 R D F =
-// 63 GFLOP (64 us) against ~40 MB: the tensor cores bound both. These
-// kernels do 14 R D F in the backward (launch B recomputes h1 and ga), part
-// of their gap to the bound. Unfused, the two (R, F) activations alone
-// would move ~200 MB each way.
+// 63 GFLOP (64 us) against ~40 MB: the tensor cores bound both. Unfused,
+// the two (R, F) activations alone would move ~200 MB each way.
 //
 // Design. The TPU kernel keeps W1, W2 and their float32 gradient sums
 // (6 MB) in VMEM and walks row tiles in order. One SM holds 227 KB, so
 // here the weights stream through shared memory and the weight gradients
 // come from a second pass:
-// - forward at D 256 (the flagship's and rung 3's width): wgmma and TMA,
-//   see `hop::ffn_fwd_wgmma_kernel` below.
-// - forward at D 512: one block (D threads: 4 row warps x D/128 column warps)
-//   owns 64 rows, keeps bf16 LN(x) in shared memory, and walks F in chunks
-//   of 32; each chunk's W1 rows and W2 columns arrive by
-//   cp.async into a double buffer. Per chunk: h1 = y W1c^T on the tensor
-//   cores (mma.sync m16n8k16, bf16 in, float32 out), SiLU, bf16 a into shared
-//   memory, then out_acc += a W2c^T into a (64, D) float32 accumulator held
-//   in registers (64 per thread). The epilogue adds b2, applies the mask and
-//   the residual, and stores.
-// - backward, launch A (row-tile-major): the same tile walk recomputes
-//   h1 and also ga = bf16(g2) W2c, forms gh1, and accumulates gy += gh1
-//   W1c in registers; then dx, and this tile's column sums of gy xn, gy
-//   and g2 (dgamma, dbeta, db2 partials). It writes bf16 y and bf16 g2
-//   (R, D) for launch B, never the (R, F) intermediates.
-// - launch B (F-chunk-major): a block owns one F chunk (its W1 rows and W2
-//   columns stay in shared memory) and 1/S of the rows: per 64-row tile it
-//   recomputes h1 and ga from y and g2, and accumulates dW2c += g2^T a and
-//   dW1c += gh1^T y in registers (operands transposed on the way by
-//   ldmatrix.trans). S is the SM count over the chunk count, so the blocks
-//   fill the card once.
-// - launch C sums launch B's S partials and launch A's per-tile partials
-//   in a fixed order: the weight gradients are deterministic.
-// Operands not in the product's layout come through ldmatrix.trans. No
-// library product is called. The backward's wgmma/TMA redesign is later
-// work; launch B re-reads y and g2 once per F chunk (from L2).
+// - at D 256 (the flagship's and rung 3's width), wgmma and TMA: the
+//   forward `hop::ffn_fwd_wgmma_kernel` and the backward's three launches
+//   (`hop::ffn_bwd_rows_wgmma_kernel`, `hop::ffn_bwd_weights_wgmma_kernel`,
+//   `ffn_bwd_sum_kernel`), each described where it is defined; the
+//   backward does the function's 10 R D F, and writes bf16 a and gh1 (R, F)
+//   once for its weight-gradient products.
+// - at D 512 (rung 4's width, which `fits_vmem` sends to no model path),
+//   mma.sync: the forward's block (D threads: 4 row warps x D/128 column
+//   warps) owns 64 rows, keeps bf16 LN(x) in shared memory, and walks F in
+//   chunks of 32 through a cp.async double buffer; per chunk h1 = y W1c^T
+//   on the tensor cores (mma.sync m16n8k16, bf16 in, float32 out), SiLU,
+//   bf16 a into shared memory, then out_acc += a W2c^T into a (64, D)
+//   float32 accumulator in registers; the epilogue adds b2, applies the
+//   mask and the residual. Its backward: launch A (row tiles) recomputes h1
+//   and ga = bf16(g2) W2c, forms gh1, accumulates gy += gh1 W1c, writes dx,
+//   the tile's column sums of gy xn, gy and g2, and bf16 y and g2 (R, D);
+//   launch B (a block per F chunk and row split) recomputes h1 and ga from
+//   them and accumulates dW2c += g2^T a and dW1c += gh1^T y (operands
+//   transposed by ldmatrix.trans): 14 R D F in all.
+// - `ffn_bwd_sum_kernel` adds the partials of either in a fixed order:
+//   the weight gradients are deterministic.
+// No library product is called.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -679,20 +675,693 @@ inline cudaError_t weight_maps(CUtensorMap* m1, CUtensorMap* m2,
   return encode_bf16_sw128(m2, w2, 2, d2, s2, b2);
 }
 
+
+// ------------------------------------------------ backward for Hopper (D 256)
+// Three launches, the function's five products and no more (10 R D F):
+// - launch A (`ffn_bwd_rows_wgmma_kernel`) is the forward's structure with
+//   two more products: persistent blocks of two consumer warpgroups (64 rows
+//   each, a 128-row tile) and a producer warpgroup whose one thread streams
+//   each F chunk of 64 by TMA: W1's rows (four 64 x 64 boxes) into a
+//   two-stage ring, W2's columns (one 256 x 64 box) into a buffer of their
+//   own, which frees as soon as ga has read it. Per tile each warpgroup
+//   writes bf16 y = LN(x) and bf16 g2 = scale g keep in the swizzled layout
+//   (and to yw, g2w for launch B). Per chunk:
+//     h1 = y W1c^T (W1's boxes K-major) and ga = g2 W2c (W2's box read
+//     MN-major), m64n64k16 with both operands in shared memory;
+//     in registers a = silu(h1 + b1) and gh1 = ga silu'(h1 + b1); their
+//     bf16 values, the operands of dW2 and dW1, stored to aw and hw (R, F);
+//     gh1's float32 column sums (db1) per warp into db1p;
+//     gy += bf16(gh1) W1c: gh1 is the register A operand, W1's four boxes
+//     the MN-major B operand (LBO one box), m64n256k16 into a (64, 256)
+//     float32 gy held in registers across the chunks.
+//   The next chunk's ga and h1 go to the tensor cores right behind this
+//   chunk's gy, three wgmma groups awaited in order: gy's end frees W1's
+//   stage, ga's W2's buffer; the two warpgroups take turns at issuing, so
+//   that one's register work overlaps the other's products. The epilogue
+//   is the LayerNorm backward, with gy moved through the freed y and g2
+//   buffers to a warp-per-row layout: dx, and the column sums of gy xn, gy
+//   and g2 (dgamma, dbeta, db2) over each warp's 16 rows into part. Shared
+//   memory: y and g2 of both warpgroups (128 KB), W1's two stages (64 KB),
+//   W2's chunk (32 KB).
+// - launch B (`ffn_bwd_weights_wgmma_kernel`): dW2 = bf16(g2)^T bf16(a) and
+//   dW1 = bf16(gh1)^T bf16(y), plain TMA-fed products over the rows: a block
+//   owns one 128 x 256 output tile of one of them and one of S row splits,
+//   so that (tiles x S) blocks fill the card once. The rows are the
+//   products' K, so every operand arrives as it lies in memory and is read
+//   MN-major. Partial sums per split, float32.
+// - launch C (`ffn_bwd_sum_kernel`) adds the partials in a fixed order.
+// Scratch: a and gh1 (R, F) bf16 each, written once and read once (98 MB
+// at R = 24,000), against the four products launch B would recompute.
+// Cycles per phase of launch A's row tiles (consumer thread 0 of block 0),
+// for csrc/probe/ffn_logmel_phases.py, which builds this file with
+// -DFFN_PHASES; the kernel library compiles the markers to nothing.
+#ifdef FFN_PHASES
+__device__ long long ffn_phase_cycles[16];
+#define PHASES_BEGIN long long ph_last_ = clock64(), ph_acc_[16] = {};
+#define PHASE(i)                    \
+  do {                              \
+    const long long c_ = clock64(); \
+    ph_acc_[i] += c_ - ph_last_;    \
+    ph_last_ = c_;                  \
+  } while (0)
+#define PHASES_END                                 \
+  if (threadIdx.x == 0 && blockIdx.x == 0)         \
+    for (int i_ = 0; i_ < 16; ++i_) ffn_phase_cycles[i_] = ph_acc_[i_];
+#else
+#define PHASES_BEGIN
+#define PHASE(i)
+#define PHASES_END
+#endif
+
+constexpr uint32_t BWD_W_BYTES = 2 * W1_BYTES + W2_BYTES;  // 96 KB
+constexpr size_t BWD_SMEM = 1024 + 4 * Y_BYTES + BWD_W_BYTES + 64;
+
+// float32 sigmoid with the fast exponential and division (a few ulp, far
+// below the bf16 rounding of a and gh1 that follows; no branch, so the
+// compiler interleaves many of them): 0 where exp(-v) overflows
+__device__ __forceinline__ float sigmoid_fast(float v) {
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+
+// 2 x 2 transpose across a lane pair (lanes 2p, 2p + 1; e = lane % 2): on
+// return x[k] holds what pair lane k held in x[e]
+__device__ __forceinline__ void pair_transpose(uint32_t (&x)[2], int e) {
+  const uint32_t r = __shfl_xor_sync(0xffffffffu, e ? x[0] : x[1], 1);
+  x[0] = e ? r : x[0];
+  x[1] = e ? x[1] : r;
+}
+
+template <typename XT>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w1,
+                          const __grid_constant__ CUtensorMap tm_w2,
+                          const XT* __restrict__ x, const XT* __restrict__ gin,
+                          const float* __restrict__ gamma,
+                          const float* __restrict__ beta,
+                          const bf16* __restrict__ b1,
+                          const int* __restrict__ seed, XT* __restrict__ dx,
+                          bf16* __restrict__ yw, bf16* __restrict__ g2w,
+                          bf16* __restrict__ aw, bf16* __restrict__ hw,
+                          float* __restrict__ part, float* __restrict__ db1p,
+                          int R, int F, float scale, float rate,
+                          float keep_scale) {
+  // aligned by pointer arithmetic on smem_raw, not through an integer, so
+  // that the compiler keeps every access below in the shared state space
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* sY = base;                  // [2][Y_BYTES]
+  unsigned char* sG = base + 2 * Y_BYTES;    // [2][Y_BYTES]
+  unsigned char* sW1 = base + 4 * Y_BYTES;   // [2][W1_BYTES]
+  unsigned char* sW2 = sW1 + 2 * W1_BYTES;   // [W2_BYTES]
+  uint64_t* w1full = reinterpret_cast<uint64_t*>(sW2 + W2_BYTES);
+  uint64_t* w1empty = w1full + 2;
+  uint64_t* w2full = w1empty + 2;
+  uint64_t* w2empty = w2full + 1;
+
+  const int n_tiles = (R + ROWS - 1) / ROWS;
+  const int nC = F / FC;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&w1full[s], 1);
+      mbar_init(&w1empty[s], 256);
+    }
+    mbar_init(w2full, 1);
+    mbar_init(w2empty, 256);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // ------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      int st = 0;
+      uint32_t ph = 0, ph2 = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        for (int c = 0; c < nC; ++c) {
+          mbar_wait(&w1empty[st], ph ^ 1);
+          unsigned char* w1s = sW1 + st * W1_BYTES;
+          mbar_arrive_expect_tx(&w1full[st], W1_BYTES);
+#pragma unroll
+          for (int kb = 0; kb < D / 64; ++kb)
+            tma_load_2d(w1s + kb * (FC * 128), &tm_w1, &w1full[st], kb * 64,
+                        c * FC);
+          if (++st == 2) {
+            st = 0;
+            ph ^= 1;
+          }
+          mbar_wait(w2empty, ph2 ^ 1);
+          mbar_arrive_expect_tx(w2full, W2_BYTES);
+          tma_load_2d(sW2, &tm_w2, w2full, c * FC, 0);
+          ph2 ^= 1;
+        }
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+  setmaxnreg_inc<240>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* myY = sY + wg * Y_BYTES;
+  unsigned char* myG = sG + wg * Y_BYTES;
+  const uint32_t sd = rate > 0.f ? static_cast<uint32_t>(seed[0]) : 0u;
+  int st = 0;
+  uint32_t ph = 0, ph2 = 0;
+  // the two warpgroups take turns at issuing their products (named
+  // barriers 3 and 4), so that one's a, gh1 and LayerNorm work runs while
+  // the other's products occupy the tensor cores; warpgroup 0 goes first
+  auto my_turn = [&]() { named_sync(3 + wg, 256); };
+  auto your_turn = [&]() { named_arrive(4 - wg, 256); };
+  if (wg == 1) named_arrive(3, 256);
+  PHASES_BEGIN
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int r0 = tile * ROWS + wg * 64;  // this warpgroup's first row
+    const int pidx = tile * 2 + wg;  // rows 4 pidx + warp of part and db1p
+    const int ra = r0 + warp * 16 + g, rb = ra + 8;  // this thread's rows
+    // LayerNorm and g2, a warp per row over the warp's own 16 rows (those
+    // its threads hold in the products), 8 columns a lane: bf16 y and g2
+    // into the swizzled column blocks (block lane / 8, chunk lane % 8) and
+    // to yw, g2w. Rows past R read as zeros: y = beta, g2 = 0, never stored.
+    for (int i0 = 0; i0 < 16; i0 += 4) {  // 4 rows' loads in flight at once
+      float vv[4][8], gg[4][8];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int row = r0 + warp * 16 + i0 + u;
+        if (row < R) {
+          const XT* px = x + (size_t)row * D + lane * 8;
+          const XT* pg = gin + (size_t)row * D + lane * 8;
+#pragma unroll
+          for (int j = 0; j < 8; j += 2) {
+            load2(px + j, vv[u][j], vv[u][j + 1]);
+            load2(pg + j, gg[u][j], gg[u][j + 1]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) vv[u][j] = gg[u][j] = 0.f;
+        }
+      }
+      // the four rows' means and variances, their butterflies interleaved
+      float mean[4], rstd[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        mean[u] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mean[u] += vv[u][j];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          mean[u] += __shfl_xor_sync(0xffffffffu, mean[u], o);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        mean[u] *= 1.f / D;
+        rstd[u] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          rstd[u] += (vv[u][j] - mean[u]) * (vv[u][j] - mean[u]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          rstd[u] += __shfl_xor_sync(0xffffffffu, rstd[u], o);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) rstd[u] = rsqrtf(rstd[u] * (1.f / D) + LN_EPS);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u;
+      const int r = warp * 16 + i, row = r0 + r;
+      const float* v = vv[u];
+      const float* gv = gg[u];
+      const uint32_t rk = row_key(sd, row);
+      __align__(16) bf16 y[8], q[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = lane * 8 + j;
+        y[j] = __float2bfloat16((v[j] - mean[u]) * rstd[u] * gamma[c] +
+                                beta[c]);
+        float g2v = scale * gv[j];
+        if (rate > 0.f) g2v *= keep_mult(rk, c, rate, keep_scale);
+        q[j] = __float2bfloat16(g2v);
+      }
+      const uint32_t off =
+          (lane >> 3) * (64 * 128) + sw128_offset(r, (lane & 7) * 8);
+      *reinterpret_cast<uint4*>(myY + off) = *reinterpret_cast<uint4*>(y);
+      *reinterpret_cast<uint4*>(myG + off) = *reinterpret_cast<uint4*>(q);
+      if (row < R) {
+        *reinterpret_cast<uint4*>(yw + (size_t)row * D + lane * 8) =
+            *reinterpret_cast<uint4*>(y);
+        *reinterpret_cast<uint4*>(g2w + (size_t)row * D + lane * 8) =
+            *reinterpret_cast<uint4*>(q);
+      }
+    }
+    }
+    fence_proxy_async();
+    warpgroup_sync(1 + wg);
+    PHASE(0);
+
+    float gy[128], h[32], ga[32];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) gy[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) h[i] = ga[i] = 0.f;
+    uint32_t fr[FC / 16][4];
+    // ga = g2 W2c: K = D in 16 steps; W2's box (rows d, 64 columns f) is
+    // B read MN-major, 16 rows (2 KB) a step
+    // (descriptors are formed from one opaque base each, so that the
+    // compiler keeps no loop-invariant set of them in registers)
+    auto issue_ga = [&]() {
+      const uint64_t da = opaque(desc_sw128(myG)), db = opaque(desc_sw128(sW2));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss<1>(
+            ga, desc_add(da, (kk >> 2) * (64 * 128) + (kk & 3) * 32),
+            desc_add(db, kk * 2048), kk > 0 ? 1 : 0);
+      wgmma_commit();
+    };
+    // h1 = y W1c^T for the chunk in stage s, as the forward's issue_h1
+    auto issue_h1 = [&](int s) {
+      const uint64_t da = opaque(desc_sw128(myY));
+      const uint64_t db = opaque(desc_sw128(sW1 + s * W1_BYTES));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+        wgmma_m64n64k16_ss<0>(h, desc_add(da, off), desc_add(db, off),
+                              kk > 0 ? 1 : 0);
+      }
+      wgmma_commit();
+    };
+    // gy += gh1 W1c for the chunk in stage s: K = FC in 4 steps of 16 rows
+    // of W1's boxes, N = D across the four boxes (LBO = one box)
+    auto issue_gy = [&](int s) {
+      const uint64_t db = opaque(desc_sw128(sW1 + s * W1_BYTES, FC * 128));
+      fence_operand(gy);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FC / 16; ++kk)
+        wgmma_m64n256k16_rs<1>(gy, fr[kk], desc_add(db, kk * 2048));
+      wgmma_commit();
+    };
+    // chunk c's a and gh1 from h1 and ga: bf16 a and gh1 to aw and hw, gh1's
+    // column sums over the warp's 16 rows to db1p, gh1's A fragments into
+    // fr (k step kk from h1's 8-column blocks 2kk and 2kk + 1). The stores
+    // go out 8 bytes a thread: each lane pair's two 8-column blocks (2kk,
+    // 2kk + 1) are transposed across the pair first.
+    auto act = [&](int c) {
+      float* dbp = db1p + (size_t)(pidx * 4 + warp) * F + c * FC;
+#pragma unroll
+      for (int jg = 0; jg < FC / 16; ++jg) {
+      uint32_t xa[2], xb[2], ya[2], yb[2];  // a and gh1, rows ra and rb
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = jg * 2 + jj;
+        const int col = j * 8 + 2 * t, f = c * FC + col;
+        const __nv_bfloat162 bb =
+            *reinterpret_cast<const __nv_bfloat162*>(b1 + f);
+        const float c0 = __low2float(bb), c1 = __high2float(bb);
+        const float v0 = h[4 * j] + c0, v1 = h[4 * j + 1] + c1;
+        const float v2 = h[4 * j + 2] + c0, v3 = h[4 * j + 3] + c1;
+        const float s0 = sigmoid_fast(v0), s1 = sigmoid_fast(v1);
+        const float s2 = sigmoid_fast(v2), s3 = sigmoid_fast(v3);
+        const float q0 = ga[4 * j] * (s0 * (1.f + v0 * (1.f - s0)));
+        const float q1 = ga[4 * j + 1] * (s1 * (1.f + v1 * (1.f - s1)));
+        const float q2 = ga[4 * j + 2] * (s2 * (1.f + v2 * (1.f - s2)));
+        const float q3 = ga[4 * j + 3] * (s3 * (1.f + v3 * (1.f - s3)));
+        const uint32_t qa = pack_bf16(q0, q1), qb = pack_bf16(q2, q3);
+        fr[j >> 1][(j & 1) * 2 + 0] = qa;
+        fr[j >> 1][(j & 1) * 2 + 1] = qb;
+        xa[jj] = pack_bf16(v0 * s0, v1 * s1);
+        xb[jj] = pack_bf16(v2 * s2, v3 * s3);
+        ya[jj] = qa;
+        yb[jj] = qb;
+        // rows past R have g2 = 0, so ga = gh1 = 0 there
+        float cs0 = q0 + q2, cs1 = q1 + q3;
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          cs0 += __shfl_xor_sync(0xffffffffu, cs0, o);
+          cs1 += __shfl_xor_sync(0xffffffffu, cs1, o);
+        }
+        if (g == 0) *reinterpret_cast<float2*>(dbp + col) = make_float2(cs0, cs1);
+      }
+      // lane t now stores columns 8 (2 jg + t % 2) + 2 (t & 2) .. + 3 of
+      // its two rows
+      pair_transpose(xa, t & 1);
+      pair_transpose(xb, t & 1);
+      pair_transpose(ya, t & 1);
+      pair_transpose(yb, t & 1);
+      const int cc = c * FC + 8 * (2 * jg + (t & 1)) + 2 * (t & 2);
+      if (ra < R) {
+        *reinterpret_cast<uint2*>(aw + (size_t)ra * F + cc) =
+            make_uint2(xa[0], xa[1]);
+        *reinterpret_cast<uint2*>(hw + (size_t)ra * F + cc) =
+            make_uint2(ya[0], ya[1]);
+      }
+      if (rb < R) {
+        *reinterpret_cast<uint2*>(aw + (size_t)rb * F + cc) =
+            make_uint2(xb[0], xb[1]);
+        *reinterpret_cast<uint2*>(hw + (size_t)rb * F + cc) =
+            make_uint2(yb[0], yb[1]);
+      }
+      }
+    };
+
+    // chunk 0: ga and h1 alone
+    mbar_wait(&w1full[st], ph);
+    mbar_wait(w2full, ph2);
+    PHASE(1);
+    my_turn();
+    issue_ga();
+    issue_h1(st);
+    your_turn();
+    PHASE(2);
+    wgmma_wait<1>();
+    fence_operand(ga);
+    mbar_arrive(w2empty);
+    ph2 ^= 1;
+    wgmma_wait<0>();
+    fence_operand(h);
+    PHASE(3);
+    act(0);
+    PHASE(4);
+    // every further chunk: the previous chunk's gy, then this one's ga and
+    // h1, each awaited in turn; no branch between issue and wait
+    for (int c = 1; c < nC; ++c) {
+      const int prev = st;
+      if (++st == 2) {
+        st = 0;
+        ph ^= 1;
+      }
+      mbar_wait(&w1full[st], ph);
+      mbar_wait(w2full, ph2);
+      PHASE(1);
+      my_turn();
+      issue_gy(prev);
+      issue_ga();
+      issue_h1(st);
+      your_turn();
+      PHASE(2);
+      wgmma_wait<2>();
+      fence_operand(gy);
+      fence_operand(fr);
+      mbar_arrive(&w1empty[prev]);
+      wgmma_wait<1>();
+      fence_operand(ga);
+      mbar_arrive(w2empty);
+      ph2 ^= 1;
+      wgmma_wait<0>();
+      fence_operand(h);
+      PHASE(3);
+      act(c);
+      PHASE(4);
+    }
+    {  // the last chunk's gy
+      const int prev = st;
+      if (++st == 2) {
+        st = 0;
+        ph ^= 1;
+      }
+      my_turn();
+      issue_gy(prev);
+      your_turn();
+      PHASE(2);
+      wgmma_wait<0>();
+      fence_operand(gy);
+      fence_operand(fr);
+      mbar_arrive(&w1empty[prev]);
+      PHASE(3);
+    }
+
+    // the LayerNorm backward. Every warp of this warpgroup is past its
+    // products, so y's and g2's buffers (64 KB) take gy as float32 rows
+    // (16-byte groups XOR-swizzled by row, conflict-free both ways); then a
+    // warp per row of its own 16, 8 columns a lane, as the LayerNorm ran:
+    // x's mean and rstd again (the same arithmetic), m1 = mean(gy gamma),
+    // m2 = mean(gy gamma xn), dx, and the lane's column sums of gy xn, gy
+    // and g2 over the warp's rows into part (one row of part per warp)
+    warpgroup_sync(1 + wg);
+    static_assert(Y_BYTES == 32 * D * 4, "gy's rows fill y's and g2's buffers");
+    auto gy_row = [&](int r) {  // rows 0..31 in y's buffer, 32..63 in g2's
+      return reinterpret_cast<float*>(r < 32 ? myY : myG) + (r & 31) * D;
+    };
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = warp * 16 + g + 8 * half;
+        const int col = (j * 8 + 2 * t) ^ ((r & 7) << 3);
+        *reinterpret_cast<float2*>(gy_row(r) + col) =
+            make_float2(gy[4 * j + 2 * half], gy[4 * j + 2 * half + 1]);
+      }
+    warpgroup_sync(1 + wg);
+    float cg[8] = {}, cb[8] = {}, c2[8] = {};  // dgamma, dbeta, db2 partials
+    float gm[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) gm[j] = gamma[lane * 8 + j];
+    for (int i0 = 0; i0 < 16; i0 += 4) {  // 4 rows' loads in flight at once
+      float vv[4][8], gg[4][8], yy[4][8];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = warp * 16 + i0 + u, row = r0 + r;
+        if (row < R) {
+          const XT* px = x + (size_t)row * D + lane * 8;
+          const XT* pg = gin + (size_t)row * D + lane * 8;
+#pragma unroll
+          for (int j = 0; j < 8; j += 2) {
+            load2(px + j, vv[u][j], vv[u][j + 1]);
+            load2(pg + j, gg[u][j], gg[u][j + 1]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) vv[u][j] = gg[u][j] = 0.f;
+        }
+        const float* py = gy_row(r) + ((lane * 8) ^ ((r & 7) << 3));
+        const float4 y0 = *reinterpret_cast<const float4*>(py);
+        const float4 y1 = *reinterpret_cast<const float4*>(py + 4);
+        yy[u][0] = y0.x, yy[u][1] = y0.y, yy[u][2] = y0.z, yy[u][3] = y0.w;
+        yy[u][4] = y1.x, yy[u][5] = y1.y, yy[u][6] = y1.z, yy[u][7] = y1.w;
+      }
+      float mean[4], rstd[4], m1[4], m2[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        mean[u] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mean[u] += vv[u][j];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          mean[u] += __shfl_xor_sync(0xffffffffu, mean[u], o);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        mean[u] *= 1.f / D;
+        rstd[u] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          rstd[u] += (vv[u][j] - mean[u]) * (vv[u][j] - mean[u]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          rstd[u] += __shfl_xor_sync(0xffffffffu, rstd[u], o);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        rstd[u] = rsqrtf(rstd[u] * (1.f / D) + LN_EPS);
+        m1[u] = m2[u] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xn = (vv[u][j] - mean[u]) * rstd[u];
+          vv[u][j] = xn;
+          m1[u] += yy[u][j] * gm[j];
+          m2[u] += yy[u][j] * gm[j] * xn;
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          m1[u] += __shfl_xor_sync(0xffffffffu, m1[u], o);
+          m2[u] += __shfl_xor_sync(0xffffffffu, m2[u], o);
+        }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int row = r0 + warp * 16 + i0 + u;
+        if (row >= R) continue;  // gy = g2 = 0 there: no sums to add
+        const float a1 = m1[u] * (1.f / D), a2 = m2[u] * (1.f / D);
+        const uint32_t rk = row_key(sd, row);
+        float d8[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xn = vv[u][j], gyv = yy[u][j];
+          d8[j] = gg[u][j] + rstd[u] * (gyv * gm[j] - a1 - xn * a2);
+          cg[j] += gyv * xn;
+          cb[j] += gyv;
+          float g2v = scale * gg[u][j];
+          if (rate > 0.f) g2v *= keep_mult(rk, lane * 8 + j, rate, keep_scale);
+          c2[j] += g2v;  // db2: float32 g2
+        }
+        XT* pd = dx + (size_t)row * D + lane * 8;
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) store2(pd + j, d8[j], d8[j + 1]);
+      }
+    }
+    float* pp = part + (size_t)(pidx * 4 + warp) * 3 * D + lane * 8;
+#pragma unroll
+    for (int j = 0; j < 8; j += 4) {
+      *reinterpret_cast<float4*>(pp + j) =
+          make_float4(cg[j], cg[j + 1], cg[j + 2], cg[j + 3]);
+      *reinterpret_cast<float4*>(pp + D + j) =
+          make_float4(cb[j], cb[j + 1], cb[j + 2], cb[j + 3]);
+      *reinterpret_cast<float4*>(pp + 2 * D + j) =
+          make_float4(c2[j], c2[j + 1], c2[j + 2], c2[j + 3]);
+    }
+    // the next tile's LayerNorm rewrites y and g2: every warp is past this
+    warpgroup_sync(1 + wg);
+    PHASE(5);
+  }
+  if (wg == 0) named_sync(3, 256);  // warpgroup 1's last turn
+  PHASES_END
+  }  // consumers
+}
+
+// Launch B. Block (tile, split): tiles [0, n_t2) are dW2's (D x F) 128 x
+// 256 tiles, the rest dW1's (F x D); split s sums the 64-row blocks [s kps,
+// (s + 1) kps) of launch A's scratch. The producer's thread loads, per row
+// block, each warpgroup's 64 columns of A (g2w or hw) and the 256 columns
+// of B (aw or yw) as four 64 x 64 boxes; rows past R read as zeros.
+constexpr int WB_BK = 64, WB_STAGES = 4;
+constexpr uint32_t WB_BOX = 64 * WB_BK * 2;               // 8 KB
+constexpr uint32_t WB_STAGE = 6 * WB_BOX;                 // A x 2, B x 4
+constexpr size_t WB_SMEM = 1024 + WB_STAGES * WB_STAGE + 64;
+
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_bwd_weights_wgmma_kernel(const __grid_constant__ CUtensorMap tm_g2,
+                             const __grid_constant__ CUtensorMap tm_a,
+                             const __grid_constant__ CUtensorMap tm_h,
+                             const __grid_constant__ CUtensorMap tm_y,
+                             float* __restrict__ dw2p,
+                             float* __restrict__ dw1p, int R, int F,
+                             int n_t2, int kps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + WB_STAGES * WB_STAGE);
+  uint64_t* empty = full + WB_STAGES;
+
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const bool w2t = tile < n_t2;  // a dW2 tile: A = g2 (M = d), B = a
+  const int m0 = w2t ? (tile % (D / 128)) * 128 : (tile - n_t2) * 128;
+  const int n0 = w2t ? (tile / (D / 128)) * 256 : 0;
+  const int n_k = (R + WB_BK - 1) / WB_BK;
+  const int k0 = split * kps, k1 = min(n_k, k0 + kps);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WB_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // ------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      const CUtensorMap* ma = w2t ? &tm_g2 : &tm_h;
+      const CUtensorMap* mb = w2t ? &tm_a : &tm_y;
+      int st = 0;
+      uint32_t ph = 0;
+      for (int kb = k0; kb < k1; ++kb) {
+        mbar_wait(&empty[st], ph ^ 1);
+        unsigned char* s = base + st * WB_STAGE;
+        mbar_arrive_expect_tx(&full[st], WB_STAGE);
+        tma_load_2d(s, ma, &full[st], m0, kb * WB_BK);
+        tma_load_2d(s + WB_BOX, ma, &full[st], m0 + 64, kb * WB_BK);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tma_load_2d(s + (2 + i) * WB_BOX, mb, &full[st], n0 + 64 * i,
+                      kb * WB_BK);
+        if (++st == WB_STAGES) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+  setmaxnreg_inc<240>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int st = 0;
+  uint32_t ph = 0;
+  for (int kb = k0; kb < k1; ++kb) {
+    mbar_wait(&full[st], ph);
+    const unsigned char* s = base + st * WB_STAGE;
+    const uint64_t da = opaque(desc_sw128(s + wg * WB_BOX));
+    const uint64_t db = opaque(desc_sw128(s + 2 * WB_BOX, WB_BOX));
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WB_BK / 16; ++kk)
+      wgmma_m64n256k16_ss<1, 1>(acc, desc_add(da, kk * 2048),
+                                desc_add(db, kk * 2048), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+    mbar_arrive(&empty[st]);
+    if (++st == WB_STAGES) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+  // rows m (d of dW2, f of dW1), columns n (f of dW2, d of dW1)
+  float* out = w2t ? dw2p + (size_t)split * D * F : dw1p + (size_t)split * F * D;
+  const int M = w2t ? D : F, N = w2t ? F : D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + wg * 64 + warp * 16 + g + 8 * half;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int n = n0 + j * 8 + 2 * t;
+      if (n < N)
+        *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+  }  // consumers
+}
+
+// a tensor map over bf16 (rows, cols) row-major scratch, 64 x WB_BK boxes
+inline cudaError_t rows_map(CUtensorMap* m, const void* p, int cols,
+                            int rows) {
+  const uint64_t d[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t s[1] = {cols * 2ull};
+  const uint32_t b[2] = {64, WB_BK};
+  return encode_bf16_sw128(m, p, 2, d, s, b);
+}
+
 }  // namespace hop
 
-// ------------------------------------------------- backward A: row tiles
-template <int D, int FC, int STAGES>
+// ---------------------------------------- backward at D 512: row tiles
+template <int D, int FC>
 __host__ __device__ constexpr size_t rows_smem_bytes() {
   return (2 * BR + 2 * (D / 128) * BR) * sizeof(float) +
-         (size_t)(2 * BR * (D + 8) + STAGES * (FC * (D + 8) + D * (FC + 8)) +
+         (size_t)(2 * BR * (D + 8) + (FC * (D + 8) + D * (FC + 8)) +
                   BR * (FC + 8)) * sizeof(bf16);
 }
 
-// grid: one block per 64-row tile; D threads as in the forward. Writes dx,
-// bf16 y and g2 (R, D) for launch B, and part[tile] = (column sums over
-// the tile's rows of gy xn, gy, g2), (3, D) float32.
-template <int D, int FC, int STAGES, typename XT>
+// grid: one block per 64-row tile; D threads as in the forward; one weight
+// chunk in shared memory at a time. Writes dx, bf16 y and g2 (R, D) for
+// launch B, and part[tile] = (column sums over the tile's rows of gy xn, gy,
+// g2), (3, D) float32.
+template <int D, int FC, typename XT>
 __global__ void __launch_bounds__(D)
 ffn_bwd_rows_kernel(const XT* __restrict__ x, const XT* __restrict__ gin,
                     const float* __restrict__ gamma,
@@ -714,7 +1383,7 @@ ffn_bwd_rows_kernel(const XT* __restrict__ x, const XT* __restrict__ gin,
   bf16* sY = reinterpret_cast<bf16*>(s_row + 2 * C * BR);
   bf16* sG = sY + BR * LDD;
   bf16* sStage = sG + BR * LDD;
-  bf16* sH = sStage + STAGES * STAGE;
+  bf16* sH = sStage + STAGE;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -752,27 +1421,14 @@ ffn_bwd_rows_kernel(const XT* __restrict__ x, const XT* __restrict__ gin,
   for (int nt = 0; nt < 16; ++nt) gy[nt][0] = gy[nt][1] = gy[nt][2] = gy[nt][3] = 0.f;
 
   for (int c = 0; c < nC; ++c) {
-    const int s = STAGES == 2 ? (c & 1) : 0;
-    if constexpr (STAGES == 2) {
-      if (c + 1 < nC) {
-        bf16* nxt = sStage + (s ^ 1) * STAGE;
-        load_weight_chunk<D, FC>(w1, w2, F, (c + 1) * FC, nxt, nxt + FC * LDD,
-                                 tid, D);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-    } else {
-      if (c > 0) {
-        load_weight_chunk<D, FC>(w1, w2, F, c * FC, sStage, sStage + FC * LDD,
-                                 tid, D);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
+    if (c > 0) {
+      load_weight_chunk<D, FC>(w1, w2, F, c * FC, sStage, sStage + FC * LDD,
+                               tid, D);
+      cp_async_commit();
     }
+    cp_async_wait<0>();
     __syncthreads();
-    const bf16* W1 = sStage + s * STAGE;
+    const bf16* W1 = sStage;
     const bf16* W2 = W1 + FC * LDD;
 
     // h1 = y W1c^T and ga = g2 W2c, the same 16 rows x CW columns
@@ -929,7 +1585,7 @@ ffn_bwd_rows_kernel(const XT* __restrict__ x, const XT* __restrict__ gin,
   }
 }
 
-// ---------------------------------------------- backward B: weight chunks
+// ------------------------------------- backward at D 512: weight chunks
 template <int D, int FCB>
 __host__ __device__ constexpr size_t weights_smem_bytes() {
   return 4 * FCB * sizeof(float) +
@@ -1114,46 +1770,60 @@ ffn_bwd_weights_kernel(const bf16* __restrict__ yw, const bf16* __restrict__ g2w
   }
 }
 
+
 // ------------------------------------------------- backward C: the sums
-// Blocks [0, dense_blocks): a thread per element of dW1, dW2, db1, the S
-// partials summed in order. The rest: a warp per element of (dgamma, dbeta,
-// db2), the per-tile partials summed lane-strided then by a fixed butterfly.
-__global__ void ffn_bwd_reduce_kernel(
+// Blocks [0, dense_blocks): dW1 and dW2, each element the sum of the S row
+// splits' partials in split order. The rest take 32 columns each of the db1
+// partials (n_db rows) or of the (dgamma, dbeta, db2) partials (n_part rows
+// of 3 D): 32 threads a column walk the rows 32 apart, and their 32 sums are
+// added in thread order. Every sum has one fixed order: no atomics.
+constexpr int SUM_THREADS = 1024;
+
+__global__ void __launch_bounds__(SUM_THREADS) ffn_bwd_sum_kernel(
     const float* __restrict__ dw1p, const float* __restrict__ dw2p,
     const float* __restrict__ db1p, const float* __restrict__ part,
     bf16* __restrict__ dw1, bf16* __restrict__ dw2, bf16* __restrict__ db1,
     float* __restrict__ dgamma, float* __restrict__ dbeta,
-    bf16* __restrict__ db2, int S, int F, int D, int n_tiles,
+    bf16* __restrict__ db2, int S, int F, int D, int n_db, int n_part,
     int dense_blocks) {
+  __shared__ float red[32][33];
   if ((int)blockIdx.x < dense_blocks) {
-    const size_t FD = (size_t)F * D, total = 2 * FD + F;
-    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+    const size_t FD = (size_t)F * D;
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < 2 * FD;
          i += (size_t)dense_blocks * blockDim.x) {
-      const float* src = dw1p;
-      bf16* dst = dw1;
-      size_t j = i, stride = FD;
-      if (i >= 2 * FD) {
-        src = db1p, dst = db1, j = i - 2 * FD, stride = F;
-      } else if (i >= FD) {
-        src = dw2p, dst = dw2, j = i - FD;
-      }
+      const bool w2 = i >= FD;
+      const size_t j = w2 ? i - FD : i;
+      const float* src = w2 ? dw2p : dw1p;
       float v = 0.f;
-      for (int s = 0; s < S; ++s) v += src[s * stride + j];
-      dst[j] = __float2bfloat16(v);
+      for (int s = 0; s < S; ++s) v += src[s * FD + j];
+      (w2 ? dw2 : dw1)[j] = __float2bfloat16(v);
     }
     return;
   }
-  const int w = (int)(((blockIdx.x - dense_blocks) * blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (w >= 3 * D) return;
-  const int k = w / D, c = w % D;
+  const int cb = (int)blockIdx.x - dense_blocks, db_blocks = (F + 31) / 32;
+  const bool is_db = cb < db_blocks;
+  const int C = is_db ? F : 3 * D, n = is_db ? n_db : n_part;
+  const float* src = is_db ? db1p : part;
+  const int lane = threadIdx.x & 31, rg = threadIdx.x >> 5;
+  const int col = (is_db ? cb : cb - db_blocks) * 32 + lane;
   float v = 0.f;
-  for (int i = lane; i < n_tiles; i += 32) v += part[((size_t)i * 3 + k) * D + c];
-  v = warp_sum(v);
-  if (lane == 0) {
-    if (k == 0) dgamma[c] = v;
-    else if (k == 1) dbeta[c] = v;
-    else db2[c] = __float2bfloat16(v);
+  if (col < C) {
+#pragma unroll 4
+    for (int i = rg; i < n; i += 32) v += src[(size_t)i * C + col];
+  }
+  red[rg][lane] = v;
+  __syncthreads();
+  if (rg == 0 && col < C) {
+    float s = 0.f;
+    for (int q = 0; q < 32; ++q) s += red[q][lane];
+    if (is_db) {
+      db1[col] = __float2bfloat16(s);
+    } else {
+      const int k = col / D, c = col % D;
+      if (k == 0) dgamma[c] = s;
+      else if (k == 1) dbeta[c] = s;
+      else db2[c] = __float2bfloat16(s);
+    }
   }
 }
 
@@ -1203,57 +1873,117 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta,
   }
 }
 
-int splits_of(int R, int D, int F) {
+// The backward's plan: S row splits of the weight-gradient pass (its
+// partials are S x the weights' size, float32), the rows of its partial
+// column sums (part: (n_part, 3, D); db1p: (n_db, F)), and whether it takes
+// the (R, F) a and gh1 scratch (the wgmma path at D 256).
+struct BwdPlan {
+  int S, n_part, n_db, af;
+};
+
+BwdPlan plan_of(int R, int D, int F) {
   const int sms = hopper::sm_count();
-  const int chunks = F / chunk_of(D), tiles = (R + BR - 1) / BR;
-  int S = sms / chunks;
-  if (S < 1) S = 1;
-  if (S > tiles) S = tiles;
-  return S;
+  BwdPlan p;
+  if (D == hop::D) {
+    // launch B: (D / 128) x ceil(F / 256) dW2 tiles and ceil(F / 128) dW1
+    // tiles, times S splits of the 64-row blocks, about one wave
+    const int tiles = (R + hop::ROWS - 1) / hop::ROWS;
+    const int wtiles = (D / 128) * ((F + 255) / 256) + (F + 127) / 128;
+    const int n_k = (R + hop::WB_BK - 1) / hop::WB_BK;
+    p.S = sms / wtiles;
+    if (p.S > n_k) p.S = n_k;
+    if (p.S < 1) p.S = 1;
+    p.n_part = 8 * tiles;  // one per warp (16 rows)
+    p.n_db = 8 * tiles;
+    p.af = 1;
+  } else {  // one block per F chunk and split, one part row per 64-row tile
+    const int chunks = F / chunk_of(D), tiles = (R + BR - 1) / BR;
+    p.S = sms / chunks;
+    if (p.S < 1) p.S = 1;
+    if (p.S > tiles) p.S = tiles;
+    p.n_part = tiles;
+    p.n_db = p.S;
+    p.af = 0;
+  }
+  return p;
 }
 
 template <int D, typename XT>
 cudaError_t launch_bwd(const void* x, const void* g, const void* gamma,
                        const void* beta, const void* w1, const void* b1,
                        const void* w2, const void* seed, void* dx, void* yw,
-                       void* g2w, void* part, void* dw1p, void* dw2p,
-                       void* db1p, void* dgamma, void* dbeta, void* dw1,
-                       void* db1, void* dw2, void* db2, int R, int F, int S,
-                       float scale, float rate, float keep_scale,
-                       cudaStream_t s) {
-  constexpr int FC = chunk_of(D);
-  constexpr int STAGES = D <= 256 ? 2 : 1;
-  constexpr size_t a_bytes = rows_smem_bytes<D, FC, STAGES>();
-  constexpr size_t b_bytes = weights_smem_bytes<D, FC>();
-  const int n_tiles = (R + BR - 1) / BR;
-  const int tps = (n_tiles + S - 1) / S;
-  cudaError_t e = allow_smem(ffn_bwd_rows_kernel<D, FC, STAGES, XT>, a_bytes);
-  if (e == cudaSuccess) e = allow_smem(ffn_bwd_weights_kernel<D, FC>, b_bytes);
-  if (e != cudaSuccess) return e;
-  ffn_bwd_rows_kernel<D, FC, STAGES, XT><<<n_tiles, D, a_bytes, s>>>(
-      static_cast<const XT*>(x), static_cast<const XT*>(g),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const int*>(seed),
-      static_cast<XT*>(dx), static_cast<bf16*>(yw), static_cast<bf16*>(g2w),
-      static_cast<float*>(part), R, F, scale, rate, keep_scale);
+                       void* g2w, void* aw, void* hw, void* part, void* dw1p,
+                       void* dw2p, void* db1p, void* dgamma, void* dbeta,
+                       void* dw1, void* db1, void* dw2, void* db2, int R,
+                       int F, const BwdPlan& p, float scale, float rate,
+                       float keep_scale, cudaStream_t s) {
+  cudaError_t e;
+  if constexpr (D == hop::D) {  // wgmma/TMA: launches A and B
+    CUtensorMap m1, m2, mg, ma, mh, my;
+    e = hop::weight_maps(&m1, &m2, w1, w2, F);
+    if (e == cudaSuccess) e = hop::rows_map(&mg, g2w, D, R);
+    if (e == cudaSuccess) e = hop::rows_map(&ma, aw, F, R);
+    if (e == cudaSuccess) e = hop::rows_map(&mh, hw, F, R);
+    if (e == cudaSuccess) e = hop::rows_map(&my, yw, D, R);
+    if (e == cudaSuccess)
+      e = allow_smem(hop::ffn_bwd_rows_wgmma_kernel<XT>, hop::BWD_SMEM);
+    if (e == cudaSuccess)
+      e = allow_smem(hop::ffn_bwd_weights_wgmma_kernel, hop::WB_SMEM);
+    if (e != cudaSuccess) return e;
+    const int tiles = (R + hop::ROWS - 1) / hop::ROWS;
+    const int grid = tiles < hopper::sm_count() ? tiles : hopper::sm_count();
+    hop::ffn_bwd_rows_wgmma_kernel<XT><<<grid, hop::THREADS, hop::BWD_SMEM,
+                                         s>>>(
+        m1, m2, static_cast<const XT*>(x), static_cast<const XT*>(g),
+        static_cast<const float*>(gamma), static_cast<const float*>(beta),
+        static_cast<const bf16*>(b1), static_cast<const int*>(seed),
+        static_cast<XT*>(dx), static_cast<bf16*>(yw), static_cast<bf16*>(g2w),
+        static_cast<bf16*>(aw), static_cast<bf16*>(hw),
+        static_cast<float*>(part), static_cast<float*>(db1p), R, F, scale,
+        rate, keep_scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const int n_t2 = (D / 128) * ((F + 255) / 256), n_t1 = (F + 127) / 128;
+    const int n_k = (R + hop::WB_BK - 1) / hop::WB_BK;
+    const int kps = (n_k + p.S - 1) / p.S;
+    hop::ffn_bwd_weights_wgmma_kernel<<<dim3(n_t2 + n_t1, p.S), hop::THREADS,
+                                        hop::WB_SMEM, s>>>(
+        mg, ma, mh, my, static_cast<float*>(dw2p), static_cast<float*>(dw1p),
+        R, F, n_t2, kps);
+  } else {  // D 512: the mma.sync kernels
+    constexpr int FC = chunk_of(D);
+    constexpr size_t a_bytes = rows_smem_bytes<D, FC>();
+    constexpr size_t b_bytes = weights_smem_bytes<D, FC>();
+    const int n_tiles = (R + BR - 1) / BR;
+    const int tps = (n_tiles + p.S - 1) / p.S;
+    e = allow_smem(ffn_bwd_rows_kernel<D, FC, XT>, a_bytes);
+    if (e == cudaSuccess) e = allow_smem(ffn_bwd_weights_kernel<D, FC>, b_bytes);
+    if (e != cudaSuccess) return e;
+    ffn_bwd_rows_kernel<D, FC, XT><<<n_tiles, D, a_bytes, s>>>(
+        static_cast<const XT*>(x), static_cast<const XT*>(g),
+        static_cast<const float*>(gamma), static_cast<const float*>(beta),
+        static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+        static_cast<const bf16*>(w2), static_cast<const int*>(seed),
+        static_cast<XT*>(dx), static_cast<bf16*>(yw), static_cast<bf16*>(g2w),
+        static_cast<float*>(part), R, F, scale, rate, keep_scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    ffn_bwd_weights_kernel<D, FC><<<dim3(F / FC, p.S), 256, b_bytes, s>>>(
+        static_cast<const bf16*>(yw), static_cast<const bf16*>(g2w),
+        static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+        static_cast<const bf16*>(w2), static_cast<float*>(dw1p),
+        static_cast<float*>(dw2p), static_cast<float*>(db1p), R, F, tps);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  ffn_bwd_weights_kernel<D, FC><<<dim3(F / FC, S), 256, b_bytes, s>>>(
-      static_cast<const bf16*>(yw), static_cast<const bf16*>(g2w),
-      static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), static_cast<float*>(dw1p),
-      static_cast<float*>(dw2p), static_cast<float*>(db1p), R, F, tps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int dense_blocks = 264;
-  const int part_blocks = (3 * D * 32 + 255) / 256;
-  ffn_bwd_reduce_kernel<<<dense_blocks + part_blocks, 256, 0, s>>>(
+  const int dense_blocks = 256;
+  const int col_blocks = (F + 31) / 32 + (3 * D + 31) / 32;
+  ffn_bwd_sum_kernel<<<dense_blocks + col_blocks, SUM_THREADS, 0, s>>>(
       static_cast<const float*>(dw1p), static_cast<const float*>(dw2p),
       static_cast<const float*>(db1p), static_cast<const float*>(part),
       static_cast<bf16*>(dw1), static_cast<bf16*>(dw2), static_cast<bf16*>(db1),
       static_cast<float*>(dgamma), static_cast<float*>(dbeta),
-      static_cast<bf16*>(db2), S, F, D, n_tiles, dense_blocks);
+      static_cast<bf16*>(db2), p.S, F, D, p.n_db, p.n_part, dense_blocks);
   return cudaGetLastError();
 }
 
@@ -1288,36 +2018,50 @@ int ffn_fwd_launch(const void* x, const void* gamma, const void* beta,
 #undef FFN_FWD
 }
 
-// The dynamic shared memory the D-256 forward kernel takes, for reports.
-int ffn_fwd_smem_bytes() { return (int)hop::SMEM; }
+// The dynamic shared memory of the D-256 wgmma kernels, for reports: 0 the
+// forward, 1 the backward's launch A, 2 its launch B.
+int ffn_smem_bytes(int which) {
+  return (int)(which == 0 ? hop::SMEM : which == 1 ? hop::BWD_SMEM
+                                                    : hop::WB_SMEM);
+}
 
-// The number S of row splits of the backward's weight-gradient pass (its
-// partial sums are S x the weights' size, float32).
-int ffn_bwd_splits(int R, int D, int F) {
-  if (!shape_ok(R, D, F)) return -1;
-  return splits_of(R, D, F);
+// The backward's plan for (R, D, F) into out[4]: S, n_part, n_db and 1 when
+// the (R, F) a and gh1 scratch is taken (see BwdPlan). Returns 0, or
+// cudaErrorInvalidValue for a shape the kernels do not take.
+int ffn_bwd_plan(int R, int D, int F, int* out) {
+  if (!shape_ok(R, D, F)) return (int)cudaErrorInvalidValue;
+  const BwdPlan p = plan_of(R, D, F);
+  out[0] = p.S;
+  out[1] = p.n_part;
+  out[2] = p.n_db;
+  out[3] = p.af;
+  return 0;
 }
 
 // The backward. x, g (the cotangent of out), dx: (R, D) of x's dtype;
-// gamma, beta, w1, b1, w2 as in the forward; scratch: yw, g2w (R, D) bf16,
-// part (ceil(R / 64), 3, D), dw1p (S, F, D), dw2p (S, D, F), db1p (S, F)
-// float32 with S = ffn_bwd_splits(R, D, F); outputs dgamma, dbeta (D,)
-// float32 and dw1 (F, D), db1 (F,), dw2 (D, F), db2 (D,) bf16.
+// gamma, beta, w1, b1, w2 as in the forward; scratch as `ffn_bwd_plan`
+// gives it: yw, g2w (R, D) bf16, aw, hw (R, F) bf16 (D 256; else unused),
+// part (n_part, 3, D), dw1p (S, F, D), dw2p (S, D, F), db1p (n_db, F)
+// float32; outputs dgamma, dbeta (D,) float32 and dw1 (F, D), db1 (F,), dw2
+// (D, F), db2 (D,) bf16.
 int ffn_bwd_launch(const void* x, const void* g, const void* gamma,
                    const void* beta, const void* w1, const void* b1,
                    const void* w2, const void* seed, void* dx, void* yw,
-                   void* g2w, void* part, void* dw1p, void* dw2p, void* db1p,
-                   void* dgamma, void* dbeta, void* dw1, void* db1, void* dw2,
-                   void* db2, int x_is_bf16, int R, int D, int F, int S,
-                   float scale, float rate, float keep_scale, void* stream) {
-  if (!shape_ok(R, D, F) || S != splits_of(R, D, F))
+                   void* g2w, void* aw, void* hw, void* part, void* dw1p,
+                   void* dw2p, void* db1p, void* dgamma, void* dbeta,
+                   void* dw1, void* db1, void* dw2, void* db2, int x_is_bf16,
+                   int R, int D, int F, int S, float scale, float rate,
+                   float keep_scale, void* stream) {
+  if (!shape_ok(R, D, F)) return (int)cudaErrorInvalidValue;
+  const BwdPlan p = plan_of(R, D, F);
+  if (S != p.S || (p.af && (aw == nullptr || hw == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FFN_BWD(DD, XT)                                                      \
   return (int)launch_bwd<DD, XT>(x, g, gamma, beta, w1, b1, w2, seed, dx, yw, \
-                                 g2w, part, dw1p, dw2p, db1p, dgamma, dbeta, \
-                                 dw1, db1, dw2, db2, R, F, S, scale, rate,   \
-                                 keep_scale, s)
+                                 g2w, aw, hw, part, dw1p, dw2p, db1p, dgamma, \
+                                 dbeta, dw1, db1, dw2, db2, R, F, p, scale,  \
+                                 rate, keep_scale, s)
   if (x_is_bf16) {
     if (D == 256) FFN_BWD(256, bf16);
     FFN_BWD(512, bf16);
@@ -1326,5 +2070,15 @@ int ffn_bwd_launch(const void* x, const void* g, const void* gamma,
   FFN_BWD(512, float);
 #undef FFN_BWD
 }
+
+#ifdef FFN_PHASES
+// launch A's phase cycles of the last backward (block 0, consumer thread 0)
+int ffn_phase_read(long long* out) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(out, hop::ffn_phase_cycles, 16 * sizeof(long long));
+  return (int)e;
+}
+#endif
 
 }  // extern "C"

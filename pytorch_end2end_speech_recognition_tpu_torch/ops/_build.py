@@ -29,12 +29,15 @@ _F = ctypes.c_float
 # C entry points: name -> argument types. Every entry returns the
 # cudaError_t of its launch (0 on success).
 SIGNATURES = {
-    # audio, basis (f32, (win, 2F)) or basis_t (bf16, (2F, win)),
-    # basis_prev, mel, flens, out, B, Ts, n_frames, hop, win, F, M, stream
+    # audio, basis (f32, (win, 2F)), basis_prev, mel, flens, out, B, Ts,
+    # n_frames, hop, win, F, M, stream
     "logmel_f32_launch": [_P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _P],
-    "logmel_bf16_launch": [_P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _P],
+    # audio, basis_t (bf16, (2F, win)), basis_prev, mel_t, bands, flens,
+    # out, B, Ts, n_frames, hop, win, F, M, vec4, stream
+    "logmel_bf16_launch": [_P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "logmel_smem_bytes": [],
     # diag, out, out_is_bf16, N, T, P, stream
     "toeplitz_launch": [_P, _P, _I, _I, _I, _I, _P],
     # g, part, out, in_is_bf16, N, T, P, stream
@@ -69,18 +72,18 @@ SIGNATURES = {
     # x, gamma, beta, w1, b1, w2, b2, seed, out, x_is_bf16, R, D, F,
     # scale, rate, keep_scale, stream
     "ffn_fwd_launch": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _F, _P],
-    # R, D, F -> the backward's row splits S
-    "ffn_bwd_splits": [_I, _I, _I],
+    # R, D, F, out (int[4]): the backward's plan (S, n_part, n_db, af)
+    "ffn_bwd_plan": [_I, _I, _I, _P],
     # the wgmma kernels' dynamic shared memory in bytes (for reports):
     # attention by kernel (0 forward, 1 backward delta pre-pass, 2 backward
     # main, 3 dbias) and bias mode (0 none, 1 dense, 2 diagonals); the FFN
-    # forward at D 256
+    # kernels at D 256 (0 forward, 1 backward rows, 2 backward weights)
     "attention_smem_bytes": [_I, _I],
-    "ffn_fwd_smem_bytes": [],
-    # x, g, gamma, beta, w1, b1, w2, seed, dx, yw, g2w, part, dw1p, dw2p,
-    # db1p, dgamma, dbeta, dw1, db1, dw2, db2, x_is_bf16, R, D, F, S,
+    "ffn_smem_bytes": [_I],
+    # x, g, gamma, beta, w1, b1, w2, seed, dx, yw, g2w, aw, hw, part, dw1p,
+    # dw2p, db1p, dgamma, dbeta, dw1, db1, dw2, db2, x_is_bf16, R, D, F, S,
     # scale, rate, keep_scale, stream
-    "ffn_bwd_launch": [_P] * 21 + [_I, _I, _I, _I, _I, _F, _F, _F, _P],
+    "ffn_bwd_launch": [_P] * 23 + [_I, _I, _I, _I, _I, _F, _F, _F, _P],
 }
 
 

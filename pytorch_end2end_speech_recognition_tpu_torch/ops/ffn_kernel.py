@@ -17,6 +17,8 @@ for CPU tensors. `FfnFused` makes the pair one differentiable function, and
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 LN_EPS = 1e-6
@@ -210,12 +212,24 @@ def ffn_fwd(x, gamma, beta, w1, b1, w2, b2, seed, rate: float,
 ffn_fwd.launches = 0
 
 
+def bwd_plan(R: int, D: int, F: int) -> dict:
+    """The backward kernels' plan for (R, D, F), from the library: S row
+    splits of the weight-gradient pass, the rows of its partial column sums
+    (part (n_part, 3, D), db1p (n_db, F)) and whether it takes the (R, F)
+    a and gh1 scratch (`af`: the wgmma/TMA kernels at D 256)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.load().ffn_bwd_plan(R, D, F, out), "ffn_bwd_plan")
+    return dict(zip(("S", "n_part", "n_db", "af"), out))
+
+
 def ffn_bwd(x, g, gamma, beta, w1, b1, w2, b2, seed, rate: float,
             scale: float):
     """(dx, dgamma, dbeta, dw1, db1, dw2, db2) for the cotangent g of out:
-    the backward kernels on CUDA tensors (row tiles, then weight chunks,
-    then a deterministic sum of their partials), `ffn_bwd_plain` on CPU
-    tensors."""
+    the backward kernels on CUDA tensors (row tiles, then the weight
+    gradients over row splits, then a deterministic sum of their partials),
+    `ffn_bwd_plain` on CPU tensors."""
     if x.device.type == "cpu":
         return ffn_bwd_plain(x, g, gamma, beta, w1, b1, w2, b2, seed, rate,
                              scale)
@@ -228,21 +242,26 @@ def ffn_bwd(x, g, gamma, beta, w1, b1, w2, b2, seed, rate: float,
     dx = torch.empty_like(t["x"])
     f32 = dict(dtype=torch.float32, device=x.device)
     bf = dict(dtype=torch.bfloat16, device=x.device)
-    dgamma, dbeta = torch.zeros(D, **f32), torch.zeros(D, **f32)
-    dw1, db1 = torch.zeros(F, D, **bf), torch.zeros(F, **bf)
-    dw2, db2 = torch.zeros(D, F, **bf), torch.zeros(D, **bf)
+    new = torch.empty if R else torch.zeros  # the kernels write every element
+    dgamma, dbeta = new(D, **f32), new(D, **f32)
+    dw1, db1 = new(F, D, **bf), new(F, **bf)
+    dw2, db2 = new(D, F, **bf), new(D, **bf)
     if R:
-        lib = _build.load()
-        S = lib.ffn_bwd_splits(R, D, F)
+        p = bwd_plan(R, D, F)
+        S = p["S"]
         yw, g2w = torch.empty(R, D, **bf), torch.empty(R, D, **bf)
-        part = torch.empty(-(-R // 64), 3, D, **f32)
+        aw = hw = None
+        if p["af"]:
+            aw, hw = torch.empty(R, F, **bf), torch.empty(R, F, **bf)
+        part = torch.empty(p["n_part"], 3, D, **f32)
         dw1p, dw2p = torch.empty(S, F, D, **f32), torch.empty(S, D, F, **f32)
-        db1p = torch.empty(S, F, **f32)
-        err = lib.ffn_bwd_launch(
+        db1p = torch.empty(p["n_db"], F, **f32)
+        ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
+        err = _build.load().ffn_bwd_launch(
             *(t[k].data_ptr() for k in ("x", "g", "gamma", "beta", "w1", "b1",
                                         "w2", "seed")),
-            *(a.data_ptr() for a in (dx, yw, g2w, part, dw1p, dw2p, db1p,
-                                     dgamma, dbeta, dw1, db1, dw2, db2)),
+            *(ptr(a) for a in (dx, yw, g2w, aw, hw, part, dw1p, dw2p, db1p,
+                               dgamma, dbeta, dw1, db1, dw2, db2)),
             int(x.dtype == torch.bfloat16), R, D, F, S, float(scale),
             float(rate), _keep_scale(rate),
             _stream(x))

@@ -22,6 +22,7 @@ import torch.nn as nn
 from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend_kernel import (
     logmel,
     logmel_plain,
+    mel_plan,
     preemph_dft_bases,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
@@ -132,6 +133,10 @@ class Frontend(nn.Module):
         self.register_buffer("basis_prev", torch.from_numpy(basis_prev).to(dev))
         self.register_buffer("mel_b", torch.from_numpy(mel_filterbank(
             cfg.n_mels, cfg.n_fft, cfg.sample_rate, cfg.fmin, cfg.fmax)).to(dev))
+        # what the tensor-core kernel reads of the filterbank
+        bands, mel_t = mel_plan(self.mel_b)
+        self.register_buffer("mel_bands", bands, persistent=False)
+        self.register_buffer("mel_t", mel_t, persistent=False)
         mean = std = None
         if cfg.cmvn == "global":
             if not cfg.cmvn_stats_path or not Path(cfg.cmvn_stats_path).exists():
@@ -159,9 +164,10 @@ class Frontend(nn.Module):
         Frames past each row's length are exact zeros."""
         T = self.n_frames(audio.shape[1])
         flens = self.frame_lens(audio_lens)
-        fn = logmel if self.cfg.impl == "cuda" else logmel_plain
-        feats = fn(audio.float(), self.basis, self.basis_prev, self.mel_b,
-                   self.hop, T, flens)
+        args = (audio.float(), self.basis, self.basis_prev, self.mel_b,
+                self.hop, T, flens)
+        feats = (logmel(*args, plan=(self.mel_bands, self.mel_t))
+                 if self.cfg.impl == "cuda" else logmel_plain(*args))
         if self.cfg.cmvn == "utt":
             feats = cmvn_utt(feats, flens)
         elif self.cfg.cmvn == "global":

@@ -61,13 +61,62 @@ def logmel_plain(audio: torch.Tensor, basis: torch.Tensor,
     return torch.where(valid[..., None], out, torch.zeros((), device=out.device))
 
 
+BAND_CHUNK = 32  # bins per chunk of the tensor-core kernel
+
+
+def mel_band_ranges(mel_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each band's nonzero bin range of the filterbank mel_b (n_bins, M):
+    (lo, hi), int64 (M,), the first and the last bin with a nonzero weight;
+    a band without one gets the empty range (n_bins, -1). Computed from the
+    matrix given: no triangle, order or shape is assumed."""
+    n_bins = mel_b.shape[0]
+    nz = mel_b != 0
+    idx = torch.arange(n_bins, device=mel_b.device)[:, None]
+    lo = torch.where(nz, idx, n_bins).amin(0)
+    hi = torch.where(nz, idx, -1).amax(0)
+    return lo, hi
+
+
+def mel_plan(mel_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the tensor-core kernel reads of the filterbank mel_b (n_bins,
+    M), on its device, with no host sync: (bands, mel_b transposed to (M,
+    n_bins), contiguous: a band's bins adjacent). bands is int32 (2 + 2M,):
+    k_lo (the first bin any band reads), the number of BAND_CHUNK-bin
+    chunks from k_lo to the last such bin (0 when every weight is 0), then
+    `mel_band_ranges`' lo and hi."""
+    lo, hi = mel_band_ranges(mel_b)
+    k_lo = lo.amin().clamp(max=mel_b.shape[0] - 1)
+    n_ch = torch.div(hi.amax() - k_lo + BAND_CHUNK, BAND_CHUNK,
+                     rounding_mode="floor").clamp(min=0)
+    bands = torch.cat([k_lo[None], n_ch[None], lo, hi]).to(torch.int32)
+    return bands, mel_b.t().contiguous()
+
+
+def mel_ranged(power: torch.Tensor, mel_b: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor) -> torch.Tensor:
+    """power (..., n_bins) @ mel_b as the kernel sums it: band m adds
+    power[..., k] mel_b[k, m] for k = lo[m], ..., hi[m] in ascending order,
+    in float32. Equal to the full product wherever [lo, hi] covers every
+    nonzero weight (the terms left out are exact zeros)."""
+    power, mel_b = power.float(), mel_b.float()
+    out = power.new_zeros((*power.shape[:-1], mel_b.shape[1]))
+    for k in range(mel_b.shape[0]):
+        w = torch.where((lo <= k) & (k <= hi), mel_b[k], 0.0)
+        out = out + power[..., k:k + 1] * w
+    return out
+
+
 def logmel(audio: torch.Tensor, basis: torch.Tensor, basis_prev: torch.Tensor,
            mel_b: torch.Tensor, hop: int, n_frames: int,
-           frame_lens: torch.Tensor) -> torch.Tensor:
+           frame_lens: torch.Tensor,
+           plan: tuple[torch.Tensor, torch.Tensor] | None = None
+           ) -> torch.Tensor:
     """The log-mel kernel on CUDA tensors; the plain version on CPU tensors.
 
     audio (B, Ts) float32, basis (win, 2F) float32 or bfloat16, basis_prev
-    (1, 2F) float32, mel_b (F, M) float32, frame_lens (B,) integer."""
+    (1, 2F) float32, mel_b (F, M) float32, frame_lens (B,) integer; plan
+    `mel_plan(mel_b)` where the caller keeps it (`Frontend` does), else it
+    is computed here."""
     if audio.device.type == "cpu":
         return logmel_plain(audio, basis, basis_prev, mel_b, hop, n_frames,
                             frame_lens)
@@ -94,10 +143,11 @@ def logmel(audio: torch.Tensor, basis: torch.Tensor, basis_prev: torch.Tensor,
         raise ValueError(f"logmel: basis {tuple(basis.shape)}, basis_prev "
                          f"{tuple(basis_prev.shape)} and mel_b "
                          f"{tuple(mel_b.shape)} disagree")
-    if basis.dtype == torch.bfloat16 and (win % 16 or hop % 2 or M > 128):
+    if basis.dtype == torch.bfloat16 and (win % 8 or win > 448 or M > 128
+                                          or n_bins > 512):
         raise ValueError(f"logmel tensor-core kernel needs win a multiple of "
-                         f"16, hop even and at most 128 mels (win={win}, "
-                         f"hop={hop}, mels={M})")
+                         f"8 and at most 448, at most 128 mels and 512 bins "
+                         f"(win={win}, hop={hop}, mels={M}, bins={n_bins})")
     if basis.dtype == torch.float32 and (win % 4 or hop % 4 or n_bins > 512):
         raise ValueError(f"logmel kernel needs win and hop multiples of 4 "
                          f"and at most 512 bins (win={win}, hop={hop}, "
@@ -112,17 +162,32 @@ def logmel(audio: torch.Tensor, basis: torch.Tensor, basis_prev: torch.Tensor,
     basis_prev, mel_b = basis_prev.contiguous(), mel_b.contiguous()
     flens = frame_lens.to(torch.int32).contiguous()
     lib = _build.load()
+    stream = torch.cuda.current_stream(audio.device).cuda_stream
     if basis.dtype == torch.bfloat16:
         # the tensor-core kernel reads the basis bin-major, (2F, win); a basis
         # stored that way (as `Frontend` keeps it) passes without a copy
-        launch, basis = lib.logmel_bf16_launch, basis.t().contiguous()
+        bands, mel_t = mel_plan(mel_b) if plan is None else plan
+        if (bands.dtype != torch.int32 or bands.shape != (2 + 2 * M,)
+                or bands.device != audio.device
+                or mel_t.shape != (M, n_bins) or mel_t.device != audio.device
+                or mel_t.dtype != torch.float32):
+            raise ValueError(f"logmel: plan must be int32 ({2 + 2 * M},) "
+                             f"bands and float32 ({M}, {n_bins}) mel_t on "
+                             f"{audio.device}")
+        basis_t, bands = basis.t().contiguous(), bands.contiguous()
+        mel_t = mel_t.contiguous()
+        vec4 = int(audio.data_ptr() % 16 == 0 and Ts % 4 == 0 and hop % 4 == 0)
+        err = lib.logmel_bf16_launch(
+            audio.data_ptr(), basis_t.data_ptr(), basis_prev.data_ptr(),
+            mel_t.data_ptr(), bands.data_ptr(), flens.data_ptr(),
+            out.data_ptr(), B, Ts, n_frames, hop, win, n_bins, M, vec4,
+            stream)
     else:
-        launch, basis = lib.logmel_f32_launch, basis.contiguous()
-    err = launch(
-        audio.data_ptr(), basis.data_ptr(), basis_prev.data_ptr(),
-        mel_b.data_ptr(), flens.data_ptr(), out.data_ptr(), B, Ts, n_frames,
-        hop, win, n_bins, M,
-        torch.cuda.current_stream(audio.device).cuda_stream)
+        basis = basis.contiguous()
+        err = lib.logmel_f32_launch(
+            audio.data_ptr(), basis.data_ptr(), basis_prev.data_ptr(),
+            mel_b.data_ptr(), flens.data_ptr(), out.data_ptr(), B, Ts,
+            n_frames, hop, win, n_bins, M, stream)
     _build.check(err, "logmel")
     logmel.launches += 1
     return out

@@ -503,6 +503,99 @@ def test_ffn_kernels_raise_on_what_they_do_not_take(dev):
                 0.0, 1.0)
 
 
+@pytest.mark.parametrize("R", [1, 127, 128, 24000 - 37])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ffn_bwd_wgmma_matches_plain_and_repeats(dev, R, rate):
+    """The D-256 backward (launch A's row tiles, launch B's split products,
+    launch C's ordered sums) against its plain version at row counts that
+    leave a tile one row, a ragged tile and a full one: the seven gradients
+    within 1e-2 relative, in the plain versions' dtypes; two launches on
+    the same inputs give the same bits in every output."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
+        ffn_bwd,
+        ffn_bwd_plain,
+    )
+
+    *args, g = _ffn_inputs(dev, R, 256, 1024, torch.bfloat16, R + 11)
+    seed = torch.tensor([777], dtype=torch.int32, device=dev)
+    got = ffn_bwd(args[0], g, *args[1:], seed, rate, 0.5)
+    again = ffn_bwd(args[0], g, *args[1:], seed, rate, 0.5)
+    want = ffn_bwd_plain(args[0], g, *args[1:], seed, rate, 0.5)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2",
+                              "db2"), got, want, again):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        assert _rel_err(a, b) < 1e-2, (name, _rel_err(a, b))
+        assert int((_bits(a) != _bits(c)).sum()) == 0, name
+
+
+def _logmel_case(dev, case):
+    """(audio, bf16 basis, basis_prev, filterbank, hop, n_frames, lens) for
+    the tensor-core log-mel cases: fewer frames than a tile; a random dense
+    filterbank (every bin of every band nonzero); the flagship filterbank
+    with one interior bin zeroed in every band."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import frontend as fe
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend_kernel import (
+        preemph_dft_bases,
+    )
+
+    rng = np.random.default_rng({"short": 1, "dense": 2, "zero_bin": 3}[case])
+    T = 100 if case == "short" else 300
+    Ts = (T - 1) * 160 + 400 + 77
+    seg = rng.standard_normal((4, Ts)).astype(np.float32)
+    seg *= 10.0 ** rng.uniform(-3, 0, (4, 1)).astype(np.float32)
+    audio = torch.from_numpy(seg).to(dev)
+    basis, prev = preemph_dft_bases(*fe.dft_bases(512, 400), 0.97)
+    mel = fe.mel_filterbank(80, 512, 16000)
+    if case == "dense":
+        mel = rng.random(mel.shape).astype(np.float32) * 0.1 + 0.01
+    elif case == "zero_bin":
+        mel[100] = 0.0
+    lens = torch.tensor([T, 0, T // 3, 129 if T > 129 else T - 1], device=dev)
+    return (audio, torch.from_numpy(basis).to(dev, torch.bfloat16),
+            torch.from_numpy(prev).to(dev), torch.from_numpy(mel).to(dev),
+            160, T, lens)
+
+
+@pytest.mark.parametrize("case", ["short", "dense", "zero_bin"])
+def test_logmel_wgmma_kernel_cases(dev, case):
+    """The bf16 log-mel kernel against its plain version within 1e-3 (the
+    float32 sums in another order, in the log domain), exact zeros past
+    each row's length (a zero-length row included), and two launches with
+    the same bits."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend_kernel import (
+        logmel,
+        logmel_plain,
+    )
+
+    args = _logmel_case(dev, case)
+    out = logmel(*args)
+    again = logmel(*args)
+    ref = logmel_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.allclose(out, ref, rtol=1e-3, atol=1e-3), (
+        (out - ref).abs().max().item())
+    lens = args[-1].tolist()
+    for b, n in enumerate(lens):
+        assert torch.all(out[b, n:] == 0)
+    assert int((_bits(out) != _bits(again)).sum()) == 0
+
+
+def test_logmel_wgmma_kernel_raises_on_a_long_window(dev):
+    """No fallback: a window past the kernel's 448 samples raises."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend_kernel import (
+        logmel,
+    )
+
+    audio = torch.zeros(1, 4000, device=dev)
+    basis = torch.zeros(512, 2 * 257, device=dev, dtype=torch.bfloat16)
+    prev = torch.zeros(1, 2 * 257, device=dev)
+    mel = torch.ones(257, 80, device=dev)
+    with pytest.raises(ValueError, match="at most 448"):
+        logmel(audio, basis, prev, mel, 160, 10, torch.tensor([10], device=dev))
+
+
 def _attn_excess(out, ref, ref_absv, lens):
     """Share of valid elements beyond 2^-7 |plain| + 2^-6 p.|v| (one bf16
     rounding of the output and of e or p on each side)."""

@@ -20,8 +20,12 @@ from pytorch_end2end_speech_recognition_tpu.utils.config import (
 )
 from pytorch_end2end_speech_recognition_tpu_torch.ops import frontend as tfe
 from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend_kernel import (
+    BAND_CHUNK,
     logmel,
     logmel_plain,
+    mel_band_ranges,
+    mel_plan,
+    mel_ranged,
     preemph_dft_bases,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
@@ -120,6 +124,57 @@ def test_frontend_keeps_bf16_basis_bin_major():
     ref = logmel_plain(x, basis, fe.basis_prev, fe.mel_b, fe.hop, 48,
                        fe.frame_lens(lens))
     assert torch.equal(feats, ref)
+
+
+def _sparse_filterbank(seed):
+    """A random (257, 80) filterbank of nonnegative weights at ~6% density,
+    with an all-zero interior bin and two empty bands."""
+    rng = np.random.default_rng(seed)
+    mel = rng.random((257, 80)).astype(np.float32)
+    mel[rng.random((257, 80)) > 0.06] = 0.0
+    mel[130] = 0.0
+    mel[:, [7, 41]] = 0.0
+    return torch.from_numpy(mel)
+
+
+@pytest.mark.parametrize("which", ["flagship", "random_sparse"])
+def test_mel_band_ranges_cover_every_weight(which):
+    # the tensor-core kernel sums band m over [lo[m], hi[m]] only: the
+    # ranges must hold every nonzero weight, and the ranged float32 product
+    # must be power @ mel_b
+    if which == "flagship":
+        mel = torch.from_numpy(tfe.mel_filterbank(80, 512, 16000))
+    else:
+        mel = _sparse_filterbank(5)
+    n_bins, M = mel.shape
+    lo, hi = mel_band_ranges(mel)
+    k, m = torch.nonzero(mel, as_tuple=True)
+    assert bool(((lo[m] <= k) & (k <= hi[m])).all())
+    full = (mel != 0).any(0)
+    assert torch.equal(mel[lo[full], torch.arange(M)[full]] != 0,
+                       torch.ones(int(full.sum()), dtype=torch.bool))
+    assert torch.equal(mel[hi[full], torch.arange(M)[full]] != 0,
+                       torch.ones(int(full.sum()), dtype=torch.bool))
+    assert bool((lo[~full] == n_bins).all() and (hi[~full] == -1).all())
+    bands, mel_t = mel_plan(mel)
+    assert bands.dtype == torch.int32 and bands.shape == (2 + 2 * M,)
+    assert torch.equal(mel_t, mel.t()) and mel_t.is_contiguous()
+    k_lo, n_ch = int(bands[0]), int(bands[1])
+    assert k_lo == int(lo[full].min())
+    assert k_lo + BAND_CHUNK * n_ch > int(hi.max()) >= k_lo + BAND_CHUNK * (n_ch - 1)
+    assert torch.equal(bands[2:2 + M].long(), lo)
+    assert torch.equal(bands[2 + M:].long(), hi)
+    if which == "flagship":  # bin 0 carries no weight: 256 bins, 8 chunks
+        assert (k_lo, n_ch) == (1, 8)
+    rng = np.random.default_rng(6)
+    power = torch.from_numpy(
+        rng.random((3, 50, n_bins)).astype(np.float32) * 10.0 ** rng.uniform(
+            -6, 2, (3, 50, 1)).astype(np.float32))
+    got = mel_ranged(power, mel, lo, hi)
+    want = power @ mel
+    assert torch.equal(got == 0, want == 0)
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    assert rel <= 1e-6, rel
 
 
 @pytest.mark.parametrize("cmvn", ["utt", "global"])
