@@ -19,11 +19,16 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    (also at rung 4's d512/H8 shape), the long-audio flash attention forward
    and backward (the bias as float32 diagonals; B=16 x T' 1,638, B=4 x T'
    3,000 and rung 5's width, B=8 x T 750, H16, D1024), CTC alpha and beta
-   (also against `torch.nn.functional.ctc_loss`), each with controls that
-   must fail the same check (attention: bias dropped, lengths ignored;
+   at the lattice of every training path ([3g]: the flagship's, rung 3's,
+   long audio's, an4_ctc's and wsj_las's; also against
+   `torch.nn.functional.ctc_loss`, and timed in turns with it; two
+   launches bit for bit), each with controls that must fail the same check
+   (attention: bias dropped, lengths ignored;
    flash forward: diagonals dropped, lengths ignored; flash backward, held
    on ddiag alone to its float32 bound: ddiag shifted by one diagonal, a
-   batch row left out, diagonals reversed; CTC: skip transitions disabled);
+   batch row left out, diagonals reversed; CTC: skip transitions disabled,
+   lengths one frame short); the Toeplitz expand and reduce timed in turns
+   with one gather and one `index_add_`;
    the attention and flash forwards (wgmma/TMA) timed in turns against
    SDPA (5 windows of 50 launches, medians) with their TFLOP/s and bound /
    kernel; the three gradient sums (Toeplitz reduce, attention backward's
@@ -276,6 +281,14 @@ FFN_SHAPES = (("flagship, R = 32 x 750", 24000, 256, 1024),
               ("ragged R", 23977, 256, 1024),
               ("rung 4's width", 11999, 512, 2048))
 U_RUNG3, V_RUNG3 = 128, 256  # rung 3's tokens per row and BPE vocabulary
+# [3g]: (tag, B, T', vocab, U) of the CTC lattice (S = 2U + 1) of every
+# training path beside the flagship's: rung 3, long audio, the an4_ctc
+# CTC-only step ([12]: 8 s rows, U_LAS padded tokens) and wsj_las after its
+# 32x reduction
+CTC_SHAPES = (("rung 3", 32, 750, V_RUNG3, U_RUNG3),
+              ("long audio", LONG_B, 1638, 64, U_LONG),
+              ("an4_ctc", 32, 798, 32, U_LAS),
+              ("wsj_las", 32, 50, 32, U_LAS))
 
 
 # kernel-name patterns for the profile summary, first match wins
@@ -570,6 +583,194 @@ def lstm_excess(got, want, mag) -> tuple[float, float, float]:
     d = (got - want).abs()
     return d.max().item(), (d > lim).float().mean().item(), \
         (d / lim).max().item()
+
+
+def ctc_case(Bc, Tc, Vc, Uc, gen, dev):
+    """(logits (B, T, V), frame lens, labels (B, U) without repeats, label
+    lens), ragged as the flagship's [3g] batch: even rows full, odd rows of
+    T/30 to T frames, at most half a row's frames in labels, the last row a
+    pad row (no labels)."""
+    tlen = torch.full((Bc,), Tc, dtype=torch.int64, device=dev)
+    tlen[1::2] = torch.randint(max(1, Tc // 30), Tc + 1, (Bc // 2,),
+                               device=dev, generator=gen)
+    logits = torch.randn(Bc, Tc, Vc, device=dev, generator=gen)
+    steps = torch.randint(1, Vc - 1, (Bc, Uc), device=dev, generator=gen)
+    labels = 1 + torch.cumsum(steps, 1) % (Vc - 1)
+    lens = torch.minimum(
+        torch.randint(1, Uc + 1, (Bc,), device=dev, generator=gen), tlen // 2)
+    lens[Bc - 1] = 0
+    labels = labels * (torch.arange(Uc, device=dev)[None, :] < lens[:, None])
+    return logits, tlen, labels, lens
+
+
+def ctc_check(tag, logits, tlen, labels, lens, g_ll, peaks, card,
+              plain: bool) -> tuple[dict, dict]:
+    """[3g] at one lattice: the CTC kernels (on the lattice as the main path
+    builds it, S padded to STATE_ALIGN) against their plain versions (ll and
+    alpha to TOL_CTC_LL, every gradient element to its bound), two launches
+    bit for bit, controls that must fail (beta without skip transitions or
+    with lengths one frame short; alpha without skip transitions), the
+    loss and logit gradient against F.ctc_loss; then each kernel in turns
+    with its F.ctc_loss yardstick (forward; forward + backward), its bound
+    at the unpadded S and its time per dependent step, and with `plain` the
+    plain versions' times. Returns the kernels' rows."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc import (
+        ctc_loss,
+        lattice_inputs,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc_kernel import (
+        STATE_ALIGN,
+        ctc_alpha,
+        ctc_alpha_plain,
+        ctc_beta,
+        ctc_beta_plain,
+    )
+
+    F = torch.nn.functional
+    Bc, Tc, _ = logits.shape
+    S = 2 * labels.shape[1] + 1
+    lat, skip, sok = lattice_inputs(logits, labels, lens, pad_to=STATE_ALIGN)
+    last = 2 * lens
+    alpha, ll = ctc_alpha(lat, skip, sok, tlen, last)
+    a_ref, ll_ref = ctc_alpha_plain(lat, skip, sok, tlen, last)
+    cgrad = ctc_beta(lat, skip, sok, tlen, last, alpha, ll, g_ll)
+    cgrad_ref = ctc_beta_plain(lat, skip, sok, tlen, last, a_ref, ll_ref,
+                               g_ll)
+    torch.cuda.synchronize()
+    d_ll = (ll - ll_ref).abs()
+    fin = a_ref > -1e29
+    d_alpha = (alpha - a_ref).abs()[fin]
+    d_grad = (cgrad - cgrad_ref).abs()
+
+    def ctc_grad_excess(got, want, mag, ll_row, g_row):
+        """(share of elements beyond TOL_CTC_GRAD (1 + |ll|) mag + CTC_ABS
+        |g|, largest ratio of |got - want| to that bound)."""
+        tol = (TOL_CTC_GRAD * (1 + ll_row.abs())[:, None, None] * mag
+               + CTC_ABS * g_row.abs()[:, None, None])
+        d = (got - want).abs()
+        ratio = torch.where(d > 0, d / tol, torch.zeros_like(d))
+        return (d > tol).float().mean().item(), ratio.max().item()
+
+    check(bool((ll_ref > -1e29).all()), f"ctc {tag}: a row no path can "
+          "explain")
+    share, worst = ctc_grad_excess(cgrad, cgrad_ref, cgrad_ref.abs(), ll_ref,
+                                   g_ll)
+    print(f"[3] ctc {tag}, lattice {tuple(lat.shape)} (S {S}): alpha: max "
+          f"|d ll| {d_ll.max().item():.3e}, max |d alpha| on reachable "
+          f"states {d_alpha.max().item():.3e}; beta: max |d grad| "
+          f"{d_grad.max().item():.3e}, share beyond the elementwise bound "
+          f"{share:.3e} (largest ratio to it {worst:.3e})", flush=True)
+    check(torch.equal(fin, alpha > -1e29),
+          f"ctc alpha {tag}: reachable states differ")
+    check(bool((d_ll <= TOL_CTC_LL * (1 + ll_ref.abs())).all())
+          and bool((d_alpha <= TOL_CTC_LL * (1 + a_ref.abs()[fin])).all()),
+          f"ctc alpha {tag} disagrees with its plain version")
+    check(share == 0.0, f"ctc beta {tag} disagrees with its plain version")
+    alpha2, ll2 = ctc_alpha(lat, skip, sok, tlen, last)
+    n_diff = bits_differ((alpha2, ll2, ctc_beta(lat, skip, sok, tlen, last,
+                                                alpha, ll, g_ll)),
+                         (alpha, ll, cgrad))
+    print(f"[3] ctc {tag} determinism: a second launch of each differs in "
+          f"{n_diff} elements (must be 0)", flush=True)
+    check(n_diff == 0, f"ctc {tag} kernels are not deterministic")
+    del alpha2, ll2
+    # controls: a beta kernel without skip transitions (labels without
+    # repeats use them), or one that starts a frame early, must fail
+    for ctl_tag, sk, tl in (("skip transitions disabled",
+                             torch.zeros_like(skip), tlen),
+                            ("lengths one frame short", skip, tlen - 1)):
+        bad = ctc_beta(lat, sk, sok, tl, last, alpha, ll, g_ll)
+        share_c, _ = ctc_grad_excess(bad, cgrad_ref, cgrad_ref.abs(), ll_ref,
+                                     g_ll)
+        print(f"[3] ctc {tag} beta control, {ctl_tag}: share beyond the "
+              f"bound {share_c:.3e} (must be > 0)", flush=True)
+        check(share_c > 0.0, f"ctc {tag} beta control '{ctl_tag}' passed "
+              "the check")
+        del bad
+    # against torch's CTC, forward and backward, rows with labels; the
+    # gradient wrt a logit is p_v - occ_v (g = 1), each element held to the
+    # bound above with mag = p_v + occ_v
+    rows = lens > 0
+    x = logits.clone().requires_grad_()
+    loss_k = ctc_loss(x, tlen, labels, lens, impl="cuda")
+    (loss_k * rows).sum().backward()
+    y = logits.clone().requires_grad_()
+    loss_t = F.ctc_loss(F.log_softmax(y, -1).transpose(0, 1), labels, tlen,
+                        lens, reduction="none", zero_infinity=True)
+    (loss_t * rows).sum().backward()
+    d_loss = (loss_k - loss_t).abs()[rows]
+    p_v = torch.softmax(logits, -1)
+    share, worst = ctc_grad_excess(x.grad, y.grad, p_v + (p_v - y.grad).abs(),
+                                   loss_t.detach(), rows.float())
+    print(f"[3] ctc {tag} kernels vs F.ctc_loss: max |d loss| "
+          f"{d_loss.max().item():.3e} (loss up to "
+          f"{loss_t[rows].max().item():.1f}), max |d grad| "
+          f"{(x.grad - y.grad).abs().max().item():.3e}, share beyond the "
+          f"elementwise bound {share:.3e} (largest ratio to it {worst:.3e})",
+          flush=True)
+    check(bool((d_loss <= TOL_CTC_LL * (1 + loss_t[rows].abs())).all())
+          and share == 0.0, f"ctc {tag} kernels disagree with F.ctc_loss")
+    del p_v, x, y
+    # control: without skip transitions the same labels (no repeats) must
+    # give another likelihood
+    _, ll_ctl = ctc_alpha(lat, torch.zeros_like(skip), sok, tlen, last)
+    ctl = ((ll_ctl - ll_ref).abs() > TOL_CTC_LL * (1 + ll_ref.abs()))[rows]
+    print(f"[3] ctc {tag} control, skip transitions disabled: "
+          f"{int(ctl.sum())}/{int(rows.sum())} rows beyond the tolerance "
+          "(must be > 0)", flush=True)
+    check(bool(ctl.any()), f"ctc {tag} control (no skips) passed the check")
+
+    lp_t = F.log_softmax(logits, -1).transpose(0, 1).detach().requires_grad_()
+
+    def torch_ctc():
+        return F.ctc_loss(lp_t, labels, tlen, lens, reduction="none",
+                          zero_infinity=True)
+
+    ta = turns_ms({"kernel": lambda: ctc_alpha(lat, skip, sok, tlen, last),
+                   "library": torch_ctc}, iters=20)
+    tb = turns_ms({"kernel": lambda: ctc_beta(lat, skip, sok, tlen, last,
+                                              alpha, ll, g_ll),
+                   "library": lambda: torch.autograd.grad(torch_ctc().sum(),
+                                                          lp_t)}, iters=20)
+    # each input read once and each output written once, at the function's
+    # own S (the kernels' padding is layout); ~10 and 12 float32 operations
+    # a lattice cell
+    cells, flags, row = Bc * Tc * S, 2 * Bc * S, 4 * Bc
+    steps = int(tlen.max())
+    out = []
+    for name, t, n_lat, n_row, ops, ref in (
+            ("alpha", ta, 2, 3, 10.0,
+             lambda: ctc_alpha_plain(lat, skip, sok, tlen, last)),
+            ("beta", tb, 3, 4, 12.0,
+             lambda: ctc_beta_plain(lat, skip, sok, tlen, last, alpha, ll,
+                                    g_ll))):
+        b_ms, b_by = bound(4 * n_lat * cells + flags + n_row * row,
+                           ops * cells / peaks["fp32_flops"], peaks)
+        p_ms = cuda_ms(ref, iters=3, warmup=1) if plain else None
+        # the kernel's device time alone, without the host's share of the
+        # wrapper (which sets the pace of short lattices)
+        split = kernel_split(lambda: ctc_alpha(lat, skip, sok, tlen, last)
+                             if name == "alpha" else
+                             ctc_beta(lat, skip, sok, tlen, last, alpha, ll,
+                                      g_ll))
+        print_split(f"[3] ctc_{name} {tag} (torch.profiler)", split, card)
+        print(f"[3] ctc_{name} {tag} (B={Bc}, T'={Tc}, S={S}): kernel "
+              f"{t['kernel']:.4f} ms ({t['kernel'] * 1e3 / steps:.4f} us per "
+              f"dependent step over {steps} frames), F.ctc_loss "
+              f"{'forward' if name == 'alpha' else 'forward + backward'} "
+              f"{t['library']:.4f} ms (medians of 5 windows x 20 launches in "
+              f"turns), bound {b_ms:.4f} ms ({b_by})"
+              + (f", plain {p_ms:.1f} ms" if plain else "")
+              + f"; kernel {'below' if t['kernel'] < t['library'] else 'ABOVE'}"
+              f" the library; {card}", flush=True)
+        out.append(dict(
+            name=f"ctc_{name}", route="cuda", source=f"{PKG}/csrc/ctc.cu",
+            replaces="pytorch_end2end_speech_recognition_tpu/ops/ctc_pallas.py:"
+                     + ("160" if name == "alpha" else "211"),
+            max_abs_err=(d_ll if name == "alpha" else d_grad).max().item(),
+            ms=t["kernel"], plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=t["library"]))
+    return tuple(out)
 
 
 def lstm_kernel_phase(dev, gen, peaks, card, kernels) -> None:
@@ -2235,17 +2436,34 @@ def main() -> int:
               f"(tol {TOL_TOEPLITZ})", flush=True)
         check(err <= TOL_TOEPLITZ, f"toeplitz {dt} disagrees ({err})")
         if dt == torch.bfloat16:
+            # the library yardstick: one advanced-indexing gather of the
+            # diagonals (rounded to bf16 beforehand, as rounding commutes
+            # with a gather) by a precomputed (P, P) index
+            ii = torch.arange(P, device=dev)
+            idx = torch.clamp((T_enc - 1) + ii[None, :] - ii[:, None], 0,
+                              2 * T_enc - 2)
+            diag_b = diag.to(dt)
+            check(torch.equal(diag_b[:, idx], out),
+                  "toeplitz: the library gather differs from the kernel")
+            turns = turns_ms({
+                "kernel": lambda: toeplitz_fwd(diag, T_enc, P, dt),
+                "library": lambda: diag_b[:, idx]})
             b_ms, b_by = bound(nbytes(diag, out), 0.0, peaks)
             kernels["toeplitz"] = dict(
                 name="toeplitz", route="cuda",
                 source=f"{PKG}/csrc/toeplitz.cu",
                 replaces="pytorch_end2end_speech_recognition_tpu/ops/"
                          "attention_pallas.py:424",
-                max_abs_err=err,
-                ms=cuda_ms(lambda: toeplitz_fwd(diag, T_enc, P, dt)),
+                max_abs_err=err, ms=turns["kernel"],
                 plain_ms=cuda_ms(
                     lambda: toeplitz_expand(diag, P, P, T=T_enc).to(dt)),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=turns["library"])
+            print(f"[3] toeplitz expand (N {diag.shape[0]}, P {P}, bf16): "
+                  f"kernel {turns['kernel']:.4f} ms, library gather "
+                  f"diag[:, idx] {turns['library']:.4f} ms (medians of 5 "
+                  f"windows x 50 launches in turns), bound {b_ms:.4f} ms "
+                  f"({b_by}); {card}", flush=True)
+            del idx, diag_b
         del out, ref
     # the first layer's (H, P, P) bias, std BIAS_STD
     bias = toeplitz_fwd(diag, T_enc, P, torch.bfloat16)[:mcfg.encoder_heads]
@@ -2342,16 +2560,36 @@ def main() -> int:
     print(f"[3] toeplitz reduce: max |kernel - plain| = {err.max().item():.3e}"
           f", share beyond T u sum|g|: {share:.3e}", flush=True)
     check(share == 0.0, f"toeplitz reduce disagrees ({share})")
+    # the library yardstick: one index_add_ of the T x T core by the same
+    # precomputed diagonal index, into a zeroed output (index_add_ takes
+    # one dtype, so the core is a float32 copy made beforehand)
+    ii = torch.arange(T_enc, device=dev)
+    idx_r = ((T_enc - 1) + ii[None, :] - ii[:, None]).reshape(-1)
+    g32 = g_bias[:, :T_enc, :T_enc].float().reshape(N, -1).contiguous()
+
+    def reduce_library():
+        return torch.zeros(N, 2 * T_enc - 1, device=dev).index_add_(
+            1, idx_r, g32)
+
+    lib_share = ((reduce_library() - red_ref).abs() > red_tol).float() \
+        .mean().item()
+    check(lib_share == 0.0, "toeplitz reduce: the library index_add_ is "
+          f"beyond the bound ({lib_share})")
+    turns = turns_ms({"kernel": lambda: toeplitz_reduce(g_bias, T_enc),
+                      "library": reduce_library})
     b_ms, b_by = bound(N * T_enc * T_enc * 2 + nbytes(red), 0.0, peaks)
     kernels["toeplitz_reduce"] = dict(
         name="toeplitz_reduce", route="cuda", source=f"{PKG}/csrc/toeplitz.cu",
         replaces="pytorch_end2end_speech_recognition_tpu/ops/"
                  "attention_pallas.py:458",
-        max_abs_err=err.max().item(),
-        ms=cuda_ms(lambda: toeplitz_reduce(g_bias, T_enc)),
+        max_abs_err=err.max().item(), ms=turns["kernel"],
         plain_ms=cuda_ms(lambda: toeplitz_reduce_plain(g_bias, T_enc)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del g_bias, red, red_ref, red_tol, err
+        bound_ms=b_ms, bound_by=b_by, library_ms=turns["library"])
+    print(f"[3] toeplitz reduce (N {N}, T {T_enc}, bf16): kernel "
+          f"{turns['kernel']:.4f} ms, library index_add_ (float32 core) "
+          f"{turns['library']:.4f} ms (medians of 5 windows x 50 launches in "
+          f"turns), bound {b_ms:.4f} ms ({b_by}); {card}", flush=True)
+    del g_bias, red, red_ref, red_tol, err, g32, idx_r
 
     # ---- [3e] attention backward at the main path's shape: ragged lens
     # with a pad row (lens 0) and full lens; the cotangent is zero past each
@@ -2723,7 +2961,8 @@ def main() -> int:
           "bf16 (B, H, T, T) attn_mask", flush=True)
 
     # ---- [3g] CTC at the train step's shape: T' frames of the ragged
-    # batch, U = 64 labels without repeats, vocab 64, one pad row
+    # batch, U = 64 labels without repeats, vocab 64, one pad row; then the
+    # lattice of every other training path, on a generator of its own
     V = mcfg.vocab_size
     nf_r = (audio_lens - WIN) // HOP + 1
     enc_lens_r = ((nf_r + 1) // 2 + 1) // 2
@@ -2736,127 +2975,21 @@ def main() -> int:
     c_lens[B - 1] = 0
     c_labels = c_labels * (torch.arange(U_TOKENS, device=dev)[None, :]
                            < c_lens[:, None])
-    lat, skip, sok = lattice_inputs(c_logits, c_labels, c_lens)
-    last = 2 * c_lens
-    alpha, ll = ctc_alpha(lat, skip, sok, enc_lens_r, last)
-    a_ref, ll_ref = ctc_alpha_plain(lat, skip, sok, enc_lens_r, last)
     g_ll = torch.randn(B, device=dev, generator=gen)
-    cgrad = ctc_beta(lat, skip, sok, enc_lens_r, last, alpha, ll, g_ll)
-    cgrad_ref = ctc_beta_plain(lat, skip, sok, enc_lens_r, last, a_ref,
-                               ll_ref, g_ll)
-    torch.cuda.synchronize()
-    d_ll = (ll - ll_ref).abs()
-    fin = a_ref > -1e29
-    d_alpha = (alpha - a_ref).abs()[fin]
-    d_grad = (cgrad - cgrad_ref).abs()
-
-    def ctc_grad_excess(got, want, mag, ll_row, g_row):
-        """(share of elements beyond TOL_CTC_GRAD (1 + |ll|) mag + CTC_ABS
-        |g|, largest ratio of |got - want| to that bound)."""
-        tol = (TOL_CTC_GRAD * (1 + ll_row.abs())[:, None, None] * mag
-               + CTC_ABS * g_row.abs()[:, None, None])
-        d = (got - want).abs()
-        ratio = torch.where(d > 0, d / tol, torch.zeros_like(d))
-        return (d > tol).float().mean().item(), ratio.max().item()
-
-    check(bool((ll_ref > -1e29).all()), "ctc: a row no path can explain")
-    share, worst = ctc_grad_excess(cgrad, cgrad_ref, cgrad_ref.abs(), ll_ref,
-                                   g_ll)
-    print(f"[3] ctc alpha: max |d ll| {d_ll.max().item():.3e}, max |d alpha| "
-          f"on reachable states {d_alpha.max().item():.3e}; beta: max |d "
-          f"grad| {d_grad.max().item():.3e}, share beyond the elementwise "
-          f"bound {share:.3e} (largest ratio to it {worst:.3e})", flush=True)
-    check(torch.equal(fin, alpha > -1e29), "ctc alpha: reachable states differ")
-    check(bool((d_ll <= TOL_CTC_LL * (1 + ll_ref.abs())).all())
-          and bool((d_alpha <= TOL_CTC_LL * (1 + a_ref.abs()[fin])).all()),
-          "ctc alpha disagrees with its plain version")
-    check(share == 0.0, "ctc beta disagrees with its plain version")
-    # controls: a beta kernel without skip transitions (labels without
-    # repeats use them), or one that starts a frame early, must fail
-    for tag, sk, tl in (("skip transitions disabled", torch.zeros_like(skip),
-                         enc_lens_r),
-                        ("lengths one frame short", skip, enc_lens_r - 1)):
-        bad = ctc_beta(lat, sk, sok, tl, last, alpha, ll, g_ll)
-        share_c, _ = ctc_grad_excess(bad, cgrad_ref, cgrad_ref.abs(), ll_ref,
-                                     g_ll)
-        print(f"[3] ctc beta control, {tag}: share beyond the bound "
-              f"{share_c:.3e} (must be > 0)", flush=True)
-        check(share_c > 0.0, f"ctc beta control '{tag}' passed the check")
-        del bad
-    # against torch's CTC, forward and backward, rows with labels; the
-    # gradient wrt a logit is p_v - occ_v (g = 1), each element held to the
-    # bound above with mag = p_v + occ_v
-    rows = c_lens > 0
-    x = c_logits.clone().requires_grad_()
-    loss_k = ctc_loss(x, enc_lens_r, c_labels, c_lens, impl="cuda")
-    (loss_k * rows).sum().backward()
-    y = c_logits.clone().requires_grad_()
-    loss_t = torch.nn.functional.ctc_loss(
-        torch.nn.functional.log_softmax(y, -1).transpose(0, 1), c_labels,
-        enc_lens_r, c_lens, reduction="none", zero_infinity=True)
-    (loss_t * rows).sum().backward()
-    d_loss = (loss_k - loss_t).abs()[rows]
-    p_v = torch.softmax(c_logits, -1)
-    share, worst = ctc_grad_excess(x.grad, y.grad, p_v + (p_v - y.grad).abs(),
-                                   loss_t.detach(), rows.float())
-    print(f"[3] ctc kernels vs F.ctc_loss: max |d loss| "
-          f"{d_loss.max().item():.3e} (loss up to "
-          f"{loss_t[rows].max().item():.1f}), max |d grad| "
-          f"{(x.grad - y.grad).abs().max().item():.3e}, share beyond the "
-          f"elementwise bound {share:.3e} (largest ratio to it {worst:.3e})",
-          flush=True)
-    check(bool((d_loss <= TOL_CTC_LL * (1 + loss_t[rows].abs())).all())
-          and share == 0.0, "ctc kernels disagree with F.ctc_loss")
-    del p_v
-    # control: without skip transitions the same labels (no repeats) must
-    # give another likelihood
-    _, ll_ctl = ctc_alpha(lat, torch.zeros_like(skip), sok, enc_lens_r, last)
-    ctl = ((ll_ctl - ll_ref).abs() > TOL_CTC_LL * (1 + ll_ref.abs()))[rows]
-    print(f"[3] ctc control, skip transitions disabled: {int(ctl.sum())}/"
-          f"{int(rows.sum())} rows beyond the tolerance (must be > 0)",
-          flush=True)
-    check(bool(ctl.any()), "ctc control (no skips) passed the check")
-    cells = lat.numel()
-    lp_t = torch.nn.functional.log_softmax(c_logits, -1).transpose(0, 1)
-    lp_t = lp_t.detach().requires_grad_()
-
-    def torch_ctc():
-        return torch.nn.functional.ctc_loss(lp_t, c_labels, enc_lens_r,
-                                            c_lens, reduction="none",
-                                            zero_infinity=True)
-
-    def torch_ctc_fwd_bwd():
-        return torch.autograd.grad(torch_ctc().sum(), lp_t)
-
-    b_ms, b_by = bound(nbytes(lat, skip, sok, enc_lens_r, last, alpha, ll),
-                       10.0 * cells / peaks["fp32_flops"], peaks)
-    kernels["ctc_alpha"] = dict(
-        name="ctc_alpha", route="cuda", source=f"{PKG}/csrc/ctc.cu",
-        replaces="pytorch_end2end_speech_recognition_tpu/ops/ctc_pallas.py:160",
-        max_abs_err=d_ll.max().item(),
-        ms=cuda_ms(lambda: ctc_alpha(lat, skip, sok, enc_lens_r, last)),
-        plain_ms=cuda_ms(
-            lambda: ctc_alpha_plain(lat, skip, sok, enc_lens_r, last),
-            iters=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(torch_ctc))
-    b_ms, b_by = bound(nbytes(lat, skip, sok, enc_lens_r, last, alpha, ll,
-                              g_ll, cgrad),
-                       12.0 * cells / peaks["fp32_flops"], peaks)
-    kernels["ctc_beta"] = dict(
-        name="ctc_beta", route="cuda", source=f"{PKG}/csrc/ctc.cu",
-        replaces="pytorch_end2end_speech_recognition_tpu/ops/ctc_pallas.py:211",
-        max_abs_err=d_grad.max().item(),
-        ms=cuda_ms(lambda: ctc_beta(lat, skip, sok, enc_lens_r, last, alpha,
-                                    ll, g_ll)),
-        plain_ms=cuda_ms(
-            lambda: ctc_beta_plain(lat, skip, sok, enc_lens_r, last, alpha,
-                                   ll, g_ll), iters=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(torch_ctc_fwd_bwd))
+    rows = ctc_check("flagship 30 s", c_logits, enc_lens_r, c_labels, c_lens,
+                     g_ll, peaks, card, plain=True)
+    kernels["ctc_alpha"], kernels["ctc_beta"] = rows
+    del c_logits, c_labels
+    cgen = torch.Generator(device=dev).manual_seed(10)
+    for tag, Bc, Tc, Vc, Uc in CTC_SHAPES:
+        logits_, tlen_, labels_, lens_ = ctc_case(Bc, Tc, Vc, Uc, cgen, dev)
+        ctc_check(tag, logits_, tlen_, labels_, lens_,
+                  torch.randn(Bc, device=dev, generator=cgen), peaks, card,
+                  plain=False)
+        del logits_, labels_
     print("[3] ctc library yardsticks: F.ctc_loss forward (alpha), forward "
-          "+ backward (beta); the CTC bound counts bytes, but T' = "
-          f"{T_enc} dependent steps set the floor", flush=True)
-    del lat, skip, sok, alpha, ll, a_ref, ll_ref, cgrad, cgrad_ref, x, y
-    del lp_t, c_logits
+          "+ backward (beta); the CTC bound counts bytes, but each row's "
+          "frames are dependent steps and set the floor", flush=True)
 
     # ---- [3i] the LSTM recurrence (rungs 1 and 2)
     lstm_kernel_phase(dev, gen, peaks, card, kernels)

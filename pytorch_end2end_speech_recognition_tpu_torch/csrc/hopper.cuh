@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA kernels
 // (`ffn.cu`'s forward and backward, `attention.cu`'s forward and backward,
-// `logmel.cu`'s bf16 kernel): shared-memory addresses, mbarriers, named
-// barriers, TMA tensor loads and the host-side tensor-map encoding,
+// `logmel.cu`'s bf16 kernel) and the CTC chains (`ctc.cu`): shared-memory
+// addresses, mbarriers, named barriers, TMA tensor and 1-D bulk loads and
+// the host-side tensor-map encoding,
 // warpgroup matrix multiplies (wgmma) with their shared-memory descriptors,
 // and the fences between them.
 //
@@ -103,6 +104,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory; the bytes complete on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -7,7 +7,7 @@ recursion by `impl`:
   (the port of `ctc_loss_xla`);
 - 'cuda': the lattice kernels with their hand-written backward
   (`ops/ctc_kernel.py`, the port of `ctc_loss_pallas`; on CPU tensors their
-  plain versions).
+  plain versions), on the lattice padded to STATE_ALIGN states.
 Both give a row no path can explain (too few frames) loss 1e30 and a zero
 gradient, as `ctc_loss_pallas` does. `torch.nn.functional.ctc_loss` is an
 oracle in the tests only.
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc_kernel import (
     NEG_INF,
+    STATE_ALIGN,
     CtcLogLikelihood,
     ctc_alpha_plain,
 )
@@ -49,14 +50,21 @@ def lattice_flags(ext: torch.Tensor, label_lens: torch.Tensor):
 
 
 def lattice_inputs(logits: torch.Tensor, labels: torch.Tensor,
-                   label_lens: torch.Tensor):
-    """The recursions' inputs: (lp (B, T, 2U+1) float32, the lattice
-    log-probs with NEG_INF on states past the labels; can_skip; state_ok)."""
+                   label_lens: torch.Tensor, pad_to: int = 1):
+    """The recursions' inputs: (lp (B, T, S) float32, the lattice log-probs
+    with NEG_INF on states past the labels; can_skip; state_ok), S = 2U+1
+    rounded up to a multiple of `pad_to`. The padding is part of the gather
+    (no extra pass): padded states are NEG_INF with both flags False, so
+    every recursion gives the unpadded states exactly what it gives them
+    without it."""
     B, T, _ = logits.shape
     ext = ctc_lattice(labels.long())
+    S = ext.shape[1]
+    ext = F.pad(ext, (0, -S % pad_to))
     lp = F.log_softmax(logits.float(), dim=-1).gather(
         2, ext[:, None, :].expand(B, T, ext.shape[1]))
     can_skip, state_ok = lattice_flags(ext, label_lens)
+    can_skip &= torch.arange(ext.shape[1], device=ext.device)[None, :] < S
     lp = torch.where(state_ok[:, None, :], lp,
                      torch.full((), NEG_INF, device=logits.device))
     return lp, can_skip, state_ok
@@ -70,7 +78,9 @@ def ctc_loss(logits: torch.Tensor, logit_lens: torch.Tensor,
     label_len == 0 or logit_len == 0 contribute 0 (pad rows)."""
     if impl not in ("torch", "cuda"):
         raise ValueError(f"unknown ctc impl {impl!r}: use 'torch' or 'cuda'")
-    lp, can_skip, state_ok = lattice_inputs(logits, labels, label_lens)
+    lp, can_skip, state_ok = lattice_inputs(
+        logits, labels, label_lens,
+        pad_to=STATE_ALIGN if impl == "cuda" else 1)
     last = 2 * label_lens
     if impl == "cuda":
         ll = CtcLogLikelihood.apply(lp, can_skip, state_ok, logit_lens, last)

@@ -8,6 +8,12 @@ The log_softmax, the lattice gather and the transition flags stay in torch
 launch their kernel on CUDA tensors, count the launch, and take the plain
 version only for CPU tensors. `CtcLogLikelihood` makes the pair one
 differentiable function.
+
+The kernels take the lattice with S a multiple of STATE_ALIGN (one warp
+carries a row, each lane an even number of consecutive states).
+`ctc_loss(impl='cuda')` builds it so (`lattice_inputs(...,
+pad_to=STATE_ALIGN)`); the wrappers pad any other S themselves
+(`pad_states`, a copy) and return the caller's S.
 """
 
 from __future__ import annotations
@@ -16,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
-MAX_STATES = 1024  # one thread per lattice state, one block per row
+MAX_STATES = 1024  # 32 lanes of at most 32 states
+STATE_ALIGN = 64   # the kernels' S is a multiple of it
 
 
 def _lse3(a, b, c):
@@ -92,7 +99,24 @@ def ctc_beta_plain(lp, skip, sok, tlen, last, alpha, ll, g):
     return torch.stack(grads, dim=1)
 
 
+def pad_states(x: torch.Tensor, value) -> torch.Tensor:
+    """x (..., S) right-padded with `value` to S a multiple of STATE_ALIGN
+    (x itself when it is one)."""
+    pad = -x.shape[-1] % STATE_ALIGN
+    return F.pad(x, (0, pad), value=value) if pad else x
+
+
+def _aligned(name, nm, t, to):
+    """t, which the kernel reads by bulk copies: it must start on a `to`-byte
+    boundary."""
+    if t.data_ptr() % to:
+        raise ValueError(f"{name}: {nm} must start on a {to}-byte boundary")
+    return t
+
+
 def _kernel_args(name, lp, skip, sok, tlen, last):
+    """The kernel's arguments, S padded to STATE_ALIGN: (lp, skip, sok as
+    uint8, tlen, last as int32)."""
     if lp.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {lp.device}")
     if lp.dim() != 3 or lp.dtype != torch.float32:
@@ -106,19 +130,23 @@ def _kernel_args(name, lp, skip, sok, tlen, last):
                          ("tlen", tlen, (B,)), ("last", last, (B,))):
         if tuple(t.shape) != shape or t.device != lp.device:
             raise ValueError(f"{name}: {nm} must be {shape} on {lp.device}")
-    return (lp.contiguous(), skip.to(torch.uint8).contiguous(),
-            sok.to(torch.uint8).contiguous(),
+    # the flags as bytes: a bool tensor is read in place
+    return (_aligned(name, "lp", pad_states(lp, NEG_INF).contiguous(), 16),
+            *(pad_states(f.to(torch.bool).contiguous().view(torch.uint8), 0)
+              for f in (skip, sok)),
             tlen.to(torch.int32).contiguous(),
             last.to(torch.int32).contiguous())
 
 
 def ctc_alpha(lp, skip, sok, tlen, last):
     """(alpha (B, T, S), ll (B,)) of the lattice: the forward kernel on CUDA
-    tensors, `ctc_alpha_plain` on CPU tensors."""
+    tensors (S padded to STATE_ALIGN for it where it is not), `ctc_alpha_plain`
+    on CPU tensors."""
     if lp.device.type == "cpu":
         return ctc_alpha_plain(lp, skip, sok, tlen, last)
     from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
 
+    S_in = lp.shape[2]
     lp, skip8, sok8, tlen32, last32 = _kernel_args("ctc_alpha", lp, skip, sok,
                                                    tlen, last)
     B, T, S = lp.shape
@@ -132,7 +160,7 @@ def ctc_alpha(lp, skip, sok, tlen, last):
             torch.cuda.current_stream(lp.device).cuda_stream)
         _build.check(err, "ctc_alpha")
         ctc_alpha.launches += 1
-    return alpha, ll
+    return alpha[..., :S_in], ll
 
 
 ctc_alpha.launches = 0
@@ -140,17 +168,21 @@ ctc_alpha.launches = 0
 
 def ctc_beta(lp, skip, sok, tlen, last, alpha, ll, g):
     """grad (B, T, S) of sum(g * ll) wrt lp: the backward kernel on CUDA
-    tensors, `ctc_beta_plain` on CPU tensors."""
+    tensors (S padded to STATE_ALIGN for it where it is not), `ctc_beta_plain`
+    on CPU tensors."""
     if lp.device.type == "cpu":
         return ctc_beta_plain(lp, skip, sok, tlen, last, alpha, ll, g)
     from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
 
+    if alpha.shape != lp.shape or ll.shape != lp.shape[:1] \
+            or g.shape != lp.shape[:1]:
+        raise ValueError("ctc_beta: alpha must match lp, ll and g be (B,)")
+    S_in = lp.shape[2]
     lp, skip8, sok8, tlen32, last32 = _kernel_args("ctc_beta", lp, skip, sok,
                                                    tlen, last)
     B, T, S = lp.shape
-    if alpha.shape != lp.shape or ll.shape != (B,) or g.shape != (B,):
-        raise ValueError("ctc_beta: alpha must match lp, ll and g be (B,)")
-    alpha = alpha.float().contiguous()
+    alpha = _aligned("ctc_beta", "alpha",
+                     pad_states(alpha.float(), NEG_INF).contiguous(), 16)
     ll = ll.float().contiguous()
     g = g.float().contiguous()
     grad = torch.empty_like(lp)
@@ -162,7 +194,7 @@ def ctc_beta(lp, skip, sok, tlen, last, alpha, ll, g):
             torch.cuda.current_stream(lp.device).cuda_stream)
         _build.check(err, "ctc_beta")
         ctc_beta.launches += 1
-    return grad
+    return grad[..., :S_in]
 
 
 ctc_beta.launches = 0

@@ -154,7 +154,8 @@ def test_attention_bwd_kernel_matches_plain(dev, T, P, with_bias, H):
     assert torch.all(got[0][2] == 0) and torch.all(got[1][2] == 0)
 
 
-def test_ctc_kernels_match_plain_and_torch_ctc_loss(dev):
+@pytest.mark.parametrize("U", [64, 128, 200, 9])  # S 129, 257, 401, 19
+def test_ctc_kernels_match_plain_and_torch_ctc_loss(dev, U):
     import torch.nn.functional as F
 
     from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc import (
@@ -168,13 +169,15 @@ def test_ctc_kernels_match_plain_and_torch_ctc_loss(dev):
         ctc_beta_plain,
     )
 
-    rng = np.random.default_rng(0)
-    B, T, V, U = 6, 60, 12, 9
+    rng = np.random.default_rng(U)
+    B, T, V = 6, 60, 12
     logits = torch.from_numpy(rng.standard_normal((B, T, V)).astype(np.float32)).to(dev)
     labels = torch.from_numpy(rng.integers(1, V, (B, U))).to(dev)
     labels[0, :4] = torch.tensor([3, 3, 5, 5])           # repeats
-    label_lens = torch.tensor([U, 5, 1, U, 0, 7], device=dev)
-    logit_lens = torch.tensor([T, 41, T, 8, T, 0], device=dev)  # row 3 impossible
+    # row 2 has one frame, row 3 no path (U labels in 8 frames), row 4 no
+    # labels (a pad row) and row 5 no frames
+    label_lens = torch.tensor([min(U, 25), 5, 1, U, 0, 7], device=dev)
+    logit_lens = torch.tensor([T, 41, 1, 8, T, 0], device=dev)
     labels = labels * (torch.arange(U, device=dev)[None] < label_lens[:, None])
     lat, skip, sok = lattice_inputs(logits, labels, label_lens)
     alpha, ll = ctc_alpha(lat, skip, sok, logit_lens, 2 * label_lens)
@@ -190,6 +193,11 @@ def test_ctc_kernels_match_plain_and_torch_ctc_loss(dev):
     assert torch.allclose(ll, ll_ref, rtol=1e-5, atol=1e-4)
     assert torch.allclose(grad, g_ref, rtol=1e-4, atol=1e-5)
     assert float(ll[3]) <= -1e29 and torch.all(grad[3] == 0)
+    # no atomics: a second launch gives the same bits
+    alpha2, ll2 = ctc_alpha(lat, skip, sok, logit_lens, 2 * label_lens)
+    assert torch.equal(alpha2, alpha) and torch.equal(ll2, ll)
+    assert torch.equal(ctc_beta(lat, skip, sok, logit_lens, 2 * label_lens,
+                                alpha, ll, g), grad)
     # against torch's CTC on the rows a path can explain (not the pad rows
     # 4-5, nor the impossible row 3)
     x = logits.clone().requires_grad_()
