@@ -15,7 +15,11 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    frames read one hop late, one band's last bin left out of its range;
    two launches bit for bit; timed in turns with a library sequence of
    unfold, cuBLAS matmuls and log; float32 too), Toeplitz expand and
-   reduce, attention forward and backward
+   reduce ([3b]/[3d]: at the flagship's 12 x 4 blocks and rung 4's 16 x
+   8; the expand bit for bit, the reduce within T u sum|g|, two launches
+   bit for bit and blind to a random pad band; each timed in turns with its
+   library call and the parent kernel, `csrc/probe/toeplitz_parent.cu`,
+   built beside the library), attention forward and backward
    (also at rung 4's d512/H8 shape), the long-audio flash attention forward
    and backward (the bias as float32 diagonals; B=16 x T' 1,638, B=4 x T'
    3,000 and rung 5's width, B=8 x T 750, H16, D1024), CTC alpha and beta
@@ -121,10 +125,33 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    128; attention 12 + 12, FFN 12 + 12, Toeplitz 1 + 1, CTC 1 + 1) against
    plain torch with a control; five Solver steps; train throughput, peak
    memory.
+15. beam decode, ids level (joint CTC/attention, beam 10, 40 candidates,
+   ctc_weight 0.3), for wsj_las (B=32 x 8-16 s, the LSTM speller), rung 3
+   (inside [14]) and rung 4 with its 2 x 650 RnnLm at lm_weight 0.3
+   (inside [16]): the CTC prefix kernels (score, select) against their
+   plain versions at the model's lattice, within PREFIX_STEP_TOL T' (1 +
+   |plain|), two launches bit for bit, and a control (the blank term
+   dropped) that must fail; the decode through the kernels (one score and
+   one select launch a token step) against the same decode with the plain
+   prefix scorer, N-best tokens, lengths and finished flags equal on every
+   row; SYNC_EVERY token steps under torch.cuda.set_sync_debug_mode
+   ('error'), with a .item() as the control that must raise; decode
+   audio-s/s, device kernels and ms a token step and the idle
+   share. Each decode is capped at 12 token steps by max_decode_ratio
+   (random weights rarely choose eos); the widths are the presets';
+16. libri960_conformer (rung 4: 16-layer Conformer d512, H8, FFN 2,048,
+   subsampling channels 128, 6-layer decoder d512, vocab 1,024) at full
+   width on the B=32 x 30 s ragged batch: serving launch counts (logmel 1,
+   Toeplitz 1, attention 16; its FFN plain torch by the JAX gate), logits
+   against plain torch with a bias-zeroed control, throughput, peak memory
+   and a profile; [15]; one hybrid step at B=16 x 30 s (U <= 128) against
+   plain torch with [8]'s tolerances and a control, launch counts, the
+   step's peak memory and a profile.
 
-It then prints the `kernels` JSON line, the card's name and power limit, and
-last `{"ok": true, "device": {...}}`. Without a card it exits non-zero
-before printing any result. It imports only the port, never JAX.
+It then prints the total time, the `kernels` JSON line, the card's name and
+power limit, and last `{"ok": true, "device": {...}}`. Without a card it
+exits non-zero before printing any result. It imports only the port, never
+JAX.
 """
 
 from __future__ import annotations
@@ -281,6 +308,14 @@ FFN_SHAPES = (("flagship, R = 32 x 750", 24000, 256, 1024),
               ("ragged R", 23977, 256, 1024),
               ("rung 4's width", 11999, 512, 2048))
 U_RUNG3, V_RUNG3 = 128, 256  # rung 3's tokens per row and BPE vocabulary
+U_RUNG4, V_RUNG4 = 128, 1024  # rung 4's (its bpe1024 tokenizer path)
+# the prefix kernels against their plain versions ([15]): both run the same
+# float32 operations in the same order, so they differ only where CUDA's
+# expf/log1pf and torch's exp/log1p round differently (each within 2 ulp):
+# a log_add then moves by a few ulp of its result, and over T' frames the
+# carried columns by at most a few ulp a step, relative:
+#   |kernel - plain| <= PREFIX_STEP_TOL T' (1 + |plain|)
+PREFIX_STEP_TOL = 2.0 ** -22
 # [3g]: (tag, B, T', vocab, U) of the CTC lattice (S = 2U + 1) of every
 # training path beside the flagship's: rung 3, long audio, the an4_ctc
 # CTC-only step ([12]: 8 s rows, U_LAS padded tokens) and wsj_las after its
@@ -1944,7 +1979,7 @@ def flagship_ffn_phase(dev, card, kernels, counted, t_start, audio,
 
 
 def rung3_phase(dev, gen, card, kernels, counted, t_start, audio, audio_lens,
-                full_lens, spec_mask) -> None:
+                full_lens, spec_mask, peaks) -> None:
     """[14] libri100_transformer (rung 3: 12-layer Transformer encoder d256,
     H4, FFN 1,024, relative bias; 6-layer transformer decoder; vocab 256)
     at full width with ffn_impl=cuda on the ragged B=32 x 30 s batch:
@@ -2044,6 +2079,12 @@ def rung3_phase(dev, gen, card, kernels, counted, t_start, audio, audio_lens,
             lambda: serve(mk, audio, full_lens), ITERS)
     print_profile("[14] profile of one rung 3 forward", wall_ms, kernel_ms, n,
                   card)
+    # [15] rung 3's beam (no LM), the decode capped at 12 steps
+    dcfg = mk.cfg.decode
+    dcfg.max_decode_ratio = 12 / T_enc
+    beam_decode_phase("rung 3", mk, None, dcfg, audio, audio_lens,
+                      torch.Generator(device=dev).manual_seed(14), peaks, card,
+                      counted, t_start)
     del mk
 
     # one hybrid step, U <= 128 BPE tokens of 256, kernels vs plain torch
@@ -2139,6 +2180,650 @@ def rung3_phase(dev, gen, card, kernels, counted, t_start, audio, audio_lens,
     print_profile("[14] profile of one rung 3 train step", wall_ms, kernel_ms,
                   n, card)
     del solver
+
+
+def start_parent_build():
+    """Start nvcc on the parent Toeplitz kernels (the probe
+    `csrc/probe/toeplitz_parent.cu`), beside the library's own build:
+    (library path, process)."""
+    import subprocess
+    from pathlib import Path
+
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
+
+    src = Path(__file__).resolve().parent / PKG / "csrc" / "probe" / \
+        "toeplitz_parent.cu"
+    out = _build.BUILD_ROOT / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libtoeplitz_parent.so"
+    cmd = [_build._nvcc(), *_build.ARCH, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-o", str(lib), str(src)]
+    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+class ParentToeplitz:
+    """The parent Toeplitz kernels (before their redesign), for timing in
+    turns with the new ones; not counted, not on any path."""
+
+    def __init__(self, lib_path, proc):
+        import ctypes
+
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"the parent Toeplitz probe did not "
+              f"build:\n{out}")
+        self.lib = ctypes.CDLL(str(lib_path))
+        P_, I_ = ctypes.c_void_p, ctypes.c_int
+        self.lib.toeplitz_parent_launch.argtypes = [P_, P_, I_, I_, I_, I_, P_]
+        self.lib.toeplitz_parent_reduce_launch.argtypes = [
+            P_, P_, P_, I_, I_, I_, I_, P_]
+
+    def expand(self, diag, T, P):
+        out = torch.empty((diag.shape[0], P, P), dtype=torch.bfloat16,
+                          device=diag.device)
+        err = self.lib.toeplitz_parent_launch(
+            diag.data_ptr(), out.data_ptr(), 1, diag.shape[0], T, P,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"parent toeplitz expand: error {err}")
+        return out
+
+    def reduce(self, g, T):
+        N, P = g.shape[0], g.shape[1]
+        part = torch.empty((-(-T // 64), N, 2 * T - 1), device=g.device)
+        out = torch.empty((N, 2 * T - 1), device=g.device)
+        err = self.lib.toeplitz_parent_reduce_launch(
+            g.data_ptr(), part.data_ptr(), out.data_ptr(), 1, N, T, P,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"parent toeplitz reduce: error {err}")
+        return out
+
+
+def device_ms(fn, name: str) -> float:
+    """Device time per call of fn in kernels whose name holds `name`
+    (`kernel_split`)."""
+    return sum(t for k, t in kernel_split(fn).items() if name in k)
+
+
+def toeplitz_expand_phase(tag, diag, T_enc, P, parent, peaks, card) -> dict:
+    """[3b] the expand at one shape: bf16 and float32 bit for bit against
+    the plain expansion (a gather and a rounding), the bf16 kernel timed in
+    turns with the library gather and the parent kernel, its device time,
+    and its bound. Returns the kernels-line entry."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
+        toeplitz_expand,
+        toeplitz_fwd,
+    )
+
+    N, dev = diag.shape[0], diag.device
+    errs = []
+    for dt in (torch.bfloat16, torch.float32):
+        out = toeplitz_fwd(diag, T_enc, P, dt)
+        ref = toeplitz_expand(diag, P, P, T=T_enc).to(dt)
+        torch.cuda.synchronize()
+        n_bits = bits_differ((out,), (ref,))
+        err = (out.float() - ref.float()).abs().max().item()
+        errs.append(err)
+        print(f"[3b] toeplitz expand {tag} {str(dt)[6:]}: elements whose "
+              f"bits differ from the plain expansion {n_bits} of "
+              f"{out.numel()} (must be 0), max |kernel - plain| {err:.3e}",
+              flush=True)
+        check(n_bits == 0 and err <= TOL_TOEPLITZ,
+              f"toeplitz expand {tag} {dt} disagrees ({n_bits})")
+        del ref
+    dt = torch.bfloat16
+    out = toeplitz_fwd(diag, T_enc, P, dt)
+    check(torch.equal(parent.expand(diag, T_enc, P), out),
+          f"toeplitz expand {tag}: the parent kernel differs")
+    # the library yardstick: one advanced-indexing gather of the diagonals
+    # (rounded to bf16 beforehand, as rounding commutes with a gather) by a
+    # precomputed (P, P) index
+    ii = torch.arange(P, device=dev)
+    idx = torch.clamp((T_enc - 1) + ii[None, :] - ii[:, None], 0,
+                      2 * T_enc - 2)
+    diag_b = diag.to(dt)
+    check(torch.equal(diag_b[:, idx], out),
+          "toeplitz: the library gather differs from the kernel")
+    turns = turns_ms({"kernel": lambda: toeplitz_fwd(diag, T_enc, P, dt),
+                      "library": lambda: diag_b[:, idx],
+                      "parent": lambda: parent.expand(diag, T_enc, P)})
+    dev_ms = device_ms(lambda: toeplitz_fwd(diag, T_enc, P, dt),
+                       "toeplitz_expand")
+    b_ms, b_by = bound(nbytes(diag, out), 0.0, peaks)
+    print(f"[3b] toeplitz expand {tag} (N {N}, T {T_enc}, P {P}, bf16): "
+          f"kernel {turns['kernel']:.4f} ms (device {dev_ms:.4f}), library "
+          f"gather diag[:, idx] {turns['library']:.4f} ms, parent kernel "
+          f"{turns['parent']:.4f} ms (medians of 5 windows x 50 launches in "
+          f"turns), bound {b_ms:.4f} ms ({b_by}), bound / kernel "
+          f"{b_ms / turns['kernel']:.3f} (device {b_ms / dev_ms:.3f}); {card}",
+          flush=True)
+    return dict(
+        name="toeplitz", route="cuda", source=f"{PKG}/csrc/toeplitz.cu",
+        replaces="pytorch_end2end_speech_recognition_tpu/ops/"
+                 "attention_pallas.py:424",
+        max_abs_err=max(errs), ms=turns["kernel"],
+        plain_ms=cuda_ms(lambda: toeplitz_expand(diag, P, P, T=T_enc).to(dt)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=turns["library"])
+
+
+def toeplitz_reduce_phase(tag, core, P, pad_gen, parent, peaks, card) -> dict:
+    """[3d] the reduce at one shape: the cotangent (N, P, P) bf16 holds
+    `core` (N, T, T) and a zero pad band (as the attention backward leaves
+    it), and again a random pad band drawn from pad_gen (which the reduce
+    must not read): two launches bit for bit, every diagonal within T u
+    sum|g| of the plain sums; timed in turns with `index_add_` and the
+    parent kernel. Returns the kernels-line entry."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
+        toeplitz_reduce,
+        toeplitz_reduce_plain,
+    )
+
+    N, T_enc = core.shape[0], core.shape[1]
+    dev = core.device
+    g_bias = torch.zeros(N, P, P, device=dev, dtype=torch.bfloat16)
+    g_bias[:, :T_enc, :T_enc] = core.to(torch.bfloat16)
+    noisy = torch.randn(N, P, P, device=dev, generator=pad_gen).to(
+        torch.bfloat16)
+    noisy[:, :T_enc, :T_enc] = g_bias[:, :T_enc, :T_enc]
+    red = toeplitz_reduce(g_bias, T_enc)
+    n_diff = bits_differ((red,), (toeplitz_reduce(g_bias, T_enc),))
+    print(f"[3d] toeplitz reduce {tag} determinism: two launches differ in "
+          f"{n_diff} of {red.numel()} elements (must be 0)", flush=True)
+    check(n_diff == 0, "toeplitz reduce is not deterministic")
+    red_ref = toeplitz_reduce_plain(g_bias, T_enc)
+    red_tol = T_enc * 2.0 ** -24 * toeplitz_reduce_plain(g_bias.abs(), T_enc)
+    err = (red - red_ref).abs()
+    share = (err > red_tol).float().mean().item()
+    pad_share = ((toeplitz_reduce(noisy, T_enc) - red_ref).abs()
+                 > red_tol).float().mean().item()
+    print(f"[3d] toeplitz reduce {tag}: max |kernel - plain| = "
+          f"{err.max().item():.3e}, share beyond T u sum|g|: {share:.3e}; "
+          f"with a random pad band: {pad_share:.3e} (both must be 0)",
+          flush=True)
+    check(share == 0.0 and pad_share == 0.0,
+          f"toeplitz reduce {tag} disagrees ({share}, {pad_share})")
+    par_share = ((parent.reduce(g_bias, T_enc) - red_ref).abs()
+                 > red_tol).float().mean().item()
+    check(par_share == 0.0, f"toeplitz reduce {tag}: the parent kernel "
+          f"disagrees ({par_share})")
+    # the library yardstick: one index_add_ of the T x T core by the same
+    # precomputed diagonal index, into a zeroed output (index_add_ takes
+    # one dtype, so the core is a float32 copy made beforehand)
+    ii = torch.arange(T_enc, device=dev)
+    idx_r = ((T_enc - 1) + ii[None, :] - ii[:, None]).reshape(-1)
+    g32 = g_bias[:, :T_enc, :T_enc].float().reshape(N, -1).contiguous()
+
+    def reduce_library():
+        return torch.zeros(N, 2 * T_enc - 1, device=dev).index_add_(
+            1, idx_r, g32)
+
+    lib_share = ((reduce_library() - red_ref).abs() > red_tol).float() \
+        .mean().item()
+    check(lib_share == 0.0, "toeplitz reduce: the library index_add_ is "
+          f"beyond the bound ({lib_share})")
+    turns = turns_ms({"kernel": lambda: toeplitz_reduce(g_bias, T_enc),
+                      "library": reduce_library,
+                      "parent": lambda: parent.reduce(g_bias, T_enc)})
+    dev_ms = device_ms(lambda: toeplitz_reduce(g_bias, T_enc),
+                       "toeplitz_reduce")
+    b_ms, b_by = bound(N * T_enc * T_enc * 2 + nbytes(red), 0.0, peaks)
+    print(f"[3d] toeplitz reduce {tag} (N {N}, T {T_enc}, P {P}, bf16): kernel "
+          f"{turns['kernel']:.4f} ms (device {dev_ms:.4f}), library index_add_ "
+          f"(float32 core) {turns['library']:.4f} ms, parent kernels "
+          f"{turns['parent']:.4f} ms (medians of 5 windows x 50 launches in "
+          f"turns), bound {b_ms:.4f} ms ({b_by}), bound / kernel "
+          f"{b_ms / turns['kernel']:.3f} (device {b_ms / dev_ms:.3f}); {card}",
+          flush=True)
+    return dict(
+        name="toeplitz_reduce", route="cuda", source=f"{PKG}/csrc/toeplitz.cu",
+        replaces="pytorch_end2end_speech_recognition_tpu/ops/"
+                 "attention_pallas.py:458",
+        max_abs_err=err.max().item(), ms=turns["kernel"],
+        plain_ms=cuda_ms(lambda: toeplitz_reduce_plain(g_bias, T_enc)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=turns["library"])
+
+
+def prefix_tol(T: int) -> float:
+    """PREFIX_STEP_TOL over T frames (see PREFIX_STEP_TOL)."""
+    return T * PREFIX_STEP_TOL
+
+
+def prefix_excess(got, want, T) -> float:
+    """Largest |got - want| / (prefix_tol(T) (1 + |want|)): at most 1."""
+    return ((got - want).abs() / (prefix_tol(T) * (1 + want.abs()))).max() \
+        .item()
+
+
+def prefix_kernel_phase(tag, lp, K, Pk, gen, peaks, card):
+    """[15] the prefix kernels against their plain versions on the card, at
+    one model's lattice: lp (B, T', V) the CTC log-probs of its encoder
+    output with pad frames blank-certain, K hypotheses, Pk candidates each,
+    over two steps of made-up beam state: every hypothesis extended by one
+    of its candidates from the empty prefix (select), then Pk candidates of
+    each, one of them its last token, scored (score), then a mix of
+    extended and kept hypotheses from random parents (select). psi and the
+    columns within PREFIX_STEP_TOL T' (1 + |plain|); two launches bit for
+    bit; the control, the last select's plain version with the blank term
+    dropped (blank log-probs 0), must exceed the bound. Returns (score entry, select
+    entry) for the kernels line, and the largest excess."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc_prefix import (
+        NEG_INF,
+        ctc_prefix_score,
+        ctc_prefix_select,
+        prefix_recursion_plain,
+        prefix_select_plain,
+    )
+
+    B, T, V = lp.shape
+    dev = lp.device
+
+    def candidates():
+        return torch.rand(B, K, V - 2, device=dev, generator=gen).argsort(
+            -1)[..., :Pk] + 2
+
+    r0 = torch.stack([torch.full((B, T), NEG_INF, device=dev),
+                      torch.cumsum(lp[:, :, 0], 1)], -1)[:, None].repeat(
+                          1, K, 1, 1).contiguous()
+    last0 = torch.full((B, K), 1, device=dev, dtype=torch.long)
+    len0 = torch.zeros((B, K), device=dev, dtype=torch.long)
+    cand0 = candidates()
+    keep = torch.arange(K, device=dev)[None, :].expand(B, K).contiguous()
+    tok1 = cand0.gather(2, torch.randint(0, Pk, (B, K, 1), device=dev,
+                                         generator=gen))[..., 0]
+    ext = torch.ones((B, K), dtype=torch.bool, device=dev)
+    r1 = prefix_select_plain(lp, r0, last0, len0, keep, tok1, ext)
+    r1_k = ctc_prefix_select(lp, r0, last0, len0, keep, tok1, ext)
+    cand1 = candidates()
+    cand1[:, :, 0] = tok1                      # the last token again
+    len1 = torch.ones_like(len0)
+    psi = prefix_recursion_plain(lp, r1, cand1, tok1, len1)[0]
+    psi_k = ctc_prefix_score(lp, r1, tok1, len1, cand1)
+    parent2 = torch.randint(0, K, (B, K), device=dev, generator=gen)
+    ext2 = torch.rand(B, K, device=dev, generator=gen) < 0.7
+    tok2 = cand1.gather(1, parent2[..., None].expand(B, K, Pk)).gather(
+        2, torch.randint(0, Pk, (B, K, 1), device=dev, generator=gen))[..., 0]
+    r2 = prefix_select_plain(lp, r1, tok1, len1, parent2, tok2, ext2)
+    r2_k = ctc_prefix_select(lp, r1, tok1, len1, parent2, tok2, ext2)
+    torch.cuda.synchronize()
+    ex = {"select, from the empty prefix": prefix_excess(r1_k, r1, T),
+          "score": prefix_excess(psi_k, psi, T),
+          "select, mixed": prefix_excess(r2_k, r2, T)}
+    n_bits = bits_differ((psi_k, r2_k), (
+        ctc_prefix_score(lp, r1, tok1, len1, cand1),
+        ctc_prefix_select(lp, r1, tok1, len1, parent2, tok2, ext2)))
+    # psi reads the blank term only through the columns a select wrote
+    no_blank = lp.clone()
+    no_blank[:, :, 0] = 0.0
+    ctl = prefix_excess(r2_k, prefix_select_plain(no_blank, r1, tok1, len1,
+                                                  parent2, tok2, ext2), T)
+    err = max((psi_k - psi).abs().max().item(),
+              (r2_k - r2).abs().max().item())
+    print(f"[15] {tag} prefix kernels vs plain (B {B}, T' {T}, V {V}, K {K}, "
+          f"{Pk} candidates): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in ex.items())
+          + f" of the bound T' 2^-22 (1 + |plain|) (each must be <= 1); max "
+          f"|kernel - plain| {err:.3e}; two launches differ in {n_bits} "
+          f"elements (must be 0); control, the blank term dropped: "
+          f"{ctl:.3e} of the bound (must exceed 1)", flush=True)
+    check(all(v <= 1.0 for v in ex.values()) and n_bits == 0 and ctl > 1.0,
+          f"[15] {tag} prefix kernels disagree with plain ({ex}, {n_bits}, "
+          f"{ctl})")
+    # times and bounds: the bytes the chains need (r once; each row's lp
+    # columns of the tokens it scores and its blank column once; the
+    # outputs once) and their float32 operations (3 log_adds of ~8 and 3
+    # adds a chain step) at the float32 rate
+    uniq = sum(int(torch.unique(cand1[b]).numel()) + 1 for b in range(B))
+    s_ms = cuda_ms(lambda: ctc_prefix_score(lp, r1, tok1, len1, cand1))
+    s_plain = cuda_ms(lambda: prefix_recursion_plain(lp, r1, cand1, tok1,
+                                                     len1), iters=2, warmup=1)
+    s_b, s_by = bound(T * uniq * 4 + nbytes(r1, cand1, psi),
+                      27.0 * B * K * Pk * T / peaks["fp32_flops"], peaks)
+    n_ext = int(ext2.sum())
+    uniq2 = sum(int(torch.unique(tok2[b][ext2[b]]).numel()) + 1
+                for b in range(B))
+    x_ms = cuda_ms(lambda: ctc_prefix_select(lp, r1, tok1, len1, parent2,
+                                             tok2, ext2))
+    x_plain = cuda_ms(lambda: prefix_select_plain(
+        lp, r1, tok1, len1, parent2, tok2, ext2), iters=2, warmup=1)
+    x_b, x_by = bound(T * uniq2 * 4 + 2 * nbytes(r2),
+                      27.0 * n_ext * T / peaks["fp32_flops"], peaks)
+    print(f"[15] {tag} prefix score kernel {s_ms:.4f} ms (plain {s_plain:.3f}"
+          f" ms, bound {s_b:.4f} ms by {s_by}; {s_ms * 1e3 / T:.3f} us a "
+          f"dependent step); select kernel {x_ms:.4f} ms (plain "
+          f"{x_plain:.3f} ms, bound {x_b:.4f} ms by {x_by}; "
+          f"{x_ms * 1e3 / T:.3f} us a step); {card}", flush=True)
+    src = f"{PKG}/csrc/ctc_prefix.cu"
+    rep = "pytorch_end2end_speech_recognition_tpu/decode/beam.py:204"
+    return (dict(name="ctc_prefix_score", route="cuda", source=src,
+                 replaces=rep, max_abs_err=(psi_k - psi).abs().max().item(),
+                 ms=s_ms, plain_ms=s_plain, bound_ms=s_b, bound_by=s_by,
+                 library_ms=None),
+            dict(name="ctc_prefix_select", route="cuda", source=src,
+                 replaces=rep, max_abs_err=(r2_k - r2).abs().max().item(),
+                 ms=x_ms, plain_ms=x_plain, bound_ms=x_b, bound_by=x_by,
+                 library_ms=None), max(ex.values()))
+
+
+def beam_decode_phase(tag, model, lm, dcfg, audio, lens, gen, peaks, card,
+                      counted, t_start):
+    """[15] beam decode at one model's full width, ids level: encode, the
+    prefix kernels against their plain versions at its lattice
+    (`prefix_kernel_phase`), the decode through the kernels (launch counts:
+    one score and one select a token step) against the same decode with
+    the plain prefix scorer (tokens, lengths and finished flags equal on
+    every row, scores within ctc_weight T' 2^-22 (1 + |score|)), a search
+    of SYNC_EVERY steps with no host sync (under the sync debugger's error
+    mode, with a control that must raise), decode audio-s/s and launches per token step (torch.profiler). The decode
+    length is capped by `dcfg.max_decode_ratio` (random weights rarely
+    choose eos). Returns the prefix kernels' entries and the launch counts
+    of the counted decode."""
+    from pytorch_end2end_speech_recognition_tpu_torch.decode import beam as beam_mod
+    from pytorch_end2end_speech_recognition_tpu_torch.decode.beam import (
+        BeamSearchDecoder,
+        blank_padded,
+    )
+
+    bsd = BeamSearchDecoder(model, dcfg, lm=lm)
+    check(bsd.prefix_kernel, f"[15] {tag}: the prefix scorer is not on the "
+          "kernels")
+    enc, elens, logp = bsd.encode(audio, lens)
+    B_, T = enc.shape[:2]
+    V = logp.shape[-1]
+    K, Pk = dcfg.beam_size, min(dcfg.pre_beam_k, V - 2)
+    max_len = max(4, int(dcfg.max_decode_ratio * T))
+    entries = prefix_kernel_phase(tag, blank_padded(logp, elens), K, Pk, gen,
+                                  peaks, card)
+    for fn in counted:
+        fn.launches = 0
+    out = bsd.search_arrays(enc, elens, logp, max_len)
+    torch.cuda.synchronize()
+    counts = _launches(counted)
+    steps = out["steps"]
+    print(f"[15] {tag} beam decode launches (B {B_}, T' {T}, K {K}, {Pk} "
+          f"candidates, ctc_weight {dcfg.ctc_weight}, lm_weight "
+          f"{dcfg.lm_weight if lm is not None else 0}, max_len {max_len} = "
+          f"max(4, {dcfg.max_decode_ratio} T'), {steps} steps): {counts}",
+          flush=True)
+    want = ({"ctc_prefix_score": steps, "ctc_prefix_select": steps}
+            if dcfg.ctc_weight > 0 else {})
+    check(counts == want, f"[15] {tag} decode launch counts {counts}")
+    plain = BeamSearchDecoder(model, dcfg, lm=lm, prefix_impl="torch") \
+        .search_arrays(enc, elens, logp, max_len)
+    same = {k: int((out[k] == plain[k]).reshape(B_, -1).all(-1).sum())
+            for k in ("tokens", "lengths", "finished")}
+    d_score = (out["scores"] - plain["scores"]).abs()
+    s_exc = (d_score / (dcfg.ctc_weight * prefix_tol(T)
+                        * (1 + plain["scores"].abs()))).max().item()
+    print(f"[15] {tag} kernels vs plain prefix scorer, whole decode: rows of "
+          f"{B_} with equal N-best " + ", ".join(
+              f"{k} {v}" for k, v in same.items())
+          + f" (each must be {B_}); max |d score| "
+          f"{d_score.max().item():.3e}, {s_exc:.3e} of the bound ctc_weight "
+          f"T' 2^-22 (1 + |score|) (must be <= 1)", flush=True)
+    check(all(v == B_ for v in same.values()) and s_exc <= 1.0,
+          f"[15] {tag}: the decode on the kernels differs from the plain "
+          f"prefix scorer ({same}, {s_exc})")
+    # no host sync in the token loop: a search of SYNC_EVERY steps (which
+    # never tests "all finished") under the sync debugger's error mode; the
+    # control, a .item() under the same mode, must raise
+    n_sync = beam_mod.SYNC_EVERY
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:
+            torch.ones((), device=enc.device).item()
+            caught = False
+        except RuntimeError:
+            caught = True
+        quiet = bsd.search_arrays(enc, elens, logp, n_sync)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[15] {tag} {quiet['steps']} token steps under "
+          f"torch.cuda.set_sync_debug_mode('error'): no host sync; control, "
+          f"a .item() under the same mode raised: {caught} (must be True)",
+          flush=True)
+    check(caught and quiet["steps"] == n_sync,
+          f"[15] {tag}: the sync check is blind or the loop stopped early")
+    toks = out["tokens"][0, 0, :int(out["lengths"][0, 0])].tolist()
+    print(f"[15] {tag} row 0 best: {toks[:16]}"
+          f"{' ...' if len(toks) > 16 else ''}, score "
+          f"{float(out['scores'][0, 0]):.3f}", flush=True)
+    secs = float(lens.sum()) / SR
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e2, l2, p2 = bsd.encode(audio, lens)
+        bsd.search_arrays(e2, l2, p2, max_len)
+        torch.cuda.synchronize()
+        rates.append(secs / (time.perf_counter() - t0))
+    wall_ms, kernel_ms, n = profile_step(
+        lambda: bsd.search_arrays(enc, elens, logp, max_len), 1)
+    busy = sum(kernel_ms.values())
+    print(f"[15] {tag} decode (encode + {steps}-step beam search, B {B_}, "
+          f"{secs:.1f} audio-s): median {statistics.median(rates):.1f} "
+          f"audio-s/s of 3 (min {min(rates):.1f}, max {max(rates):.1f}); the "
+          f"search alone under torch.profiler: wall {wall_ms:.1f} ms, device "
+          f"busy {busy:.1f} ms (idle share {1 - busy / wall_ms:.3f}), "
+          f"{n / steps:.0f} device kernels a token step, "
+          f"{wall_ms / steps:.2f} ms a step; {card}; "
+          f"{time.perf_counter() - t_start:.0f} s since start", flush=True)
+    return entries, counts
+
+
+def beam_phase(dev, gen, peaks, card, counted, t_start):
+    """[15] beam decode for wsj_las (the LSTM speller, no LM) on a ragged
+    B=32 batch of 8-16 s rows (T' 50), its decode capped at 12 steps."""
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        wsj_las,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
+
+    cfg = wsj_las()
+    check(cfg.decode.mode == "beam" and cfg.decode.beam_size == 10,
+          "wsj_las does not decode with beam 10")
+    model = AsrModel(cfg, device=dev, seed=0).eval()
+    Ts = LAS_SECONDS * SR
+    audio = speechlike(B, Ts, gen, dev)
+    lens = torch.randint(LAS_SECONDS // 2 * SR, Ts + 1, (B,), device=dev,
+                         generator=gen)
+    lens[0] = Ts
+    audio = audio * (torch.arange(Ts, device=dev)[None, :] < lens[:, None])
+    cfg.decode.max_decode_ratio = 12 / 50
+    beam_decode_phase("wsj_las", model, None, cfg.decode, audio, lens, gen,
+                      peaks, card, counted, t_start)
+
+
+def rung4_phase(dev, gen, peaks, card, kernels, counted, t_start, audio,
+                audio_lens, full_lens, spec_mask) -> None:
+    """[16] libri960_conformer (rung 4: 16-layer Conformer d512, H8, FFN
+    2,048, subsampling channels 128; 6-layer transformer decoder d512;
+    vocab 1,024) at full width on the ragged B=32 x 30 s batch: serving
+    launch counts, logits against plain torch with a bias-zeroed control,
+    throughput and a profile; [15] its beam decode with the RnnLm (2 x 650)
+    at lm_weight 0.3; one hybrid step at B=16 x 30 s (U <= 128) against
+    plain torch with [8]'s tolerances and a control, launch counts, peak
+    memory and a profile."""
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        libri960_conformer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import Batch
+    from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
+    from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
+        ConformerEncoder,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.models.lm import (
+        RnnLm,
+        build_lm,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+
+    def cfg(impl: str, dropout: float | None = None):
+        c = libri960_conformer()
+        c.model.vocab_size = V_RUNG4
+        if impl == "torch":
+            c.frontend.impl = "torch"
+            c.model.attn_impl = c.model.ctc_impl = "torch"
+        if dropout is not None:
+            c.model.encoder_dropout = c.model.decoder_dropout = dropout
+        return c
+
+    m0 = cfg("cuda").model
+    L, H, V = m0.encoder_layers, m0.encoder_heads, V_RUNG4
+    table = torch.randn(L, H, 64, device=dev, generator=gen) * BIAS_STD
+    mk = _with_table(AsrModel(cfg("cuda"), device=dev, seed=0).eval(), table)
+    mp = _with_table(AsrModel(cfg("torch"), device=dev, seed=0).eval(), table)
+    mc = mk.cfg.model
+    check(isinstance(mk.encoder, ConformerEncoder) and mc.encoder_dim == 512
+          and H == 8 and L == 16 and mc.subsample_channels == 128
+          and mc.attn_impl == "cuda" and mc.dtype == "bfloat16"
+          and len(mk.decoder.blocks) == 6 and mc.decoder_dim == 512,
+          "rung 4 did not build as shipped")
+    n_par = sum(p.numel() for p in mk.parameters())
+    print(f"[16] rung 4: {n_par / 1e6:.1f} M parameters; FFN path: "
+          f"{ffn_path(mk)}", flush=True)
+    for fn in counted:
+        fn.launches = 0
+    with torch.inference_mode():
+        enc, elens, logits, tokens, tlens = serve(mk, audio, audio_lens)
+    torch.cuda.synchronize()
+    counts = _launches(counted)
+    print(f"[16] rung 4 serving launches: {counts}", flush=True)
+    check(counts == {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L},
+          f"[16] serving launch counts {counts}")
+    T_enc = enc.shape[1]
+    check(tuple(logits.shape) == (B, T_enc, V) and T_enc <= 768
+          and bool(torch.isfinite(logits).all()),
+          f"[16] logits {tuple(logits.shape)}")
+    with torch.inference_mode():
+        p_logits = serve(mp, audio, audio_lens)[2]
+    compare(f"[16] rung 4 kernels vs plain torch (bf16, {L} L d512 H8, "
+            f"ragged B={B} x {SECONDS:.0f} s, T' {T_enc})", logits, p_logits,
+            elens, need_sure=True)
+    with torch.no_grad():
+        mp.encoder.rel.table.zero_()
+    with torch.inference_mode():
+        ctl_logits = serve(mp, audio, audio_lens)[2]
+    valid = torch.arange(T_enc, device=dev)[None, :] < elens[:, None]
+    ctl = (logits - ctl_logits).abs().amax(-1)[valid].max().item()
+    print(f"[16] control, plain model with the relative bias zeroed: max "
+          f"|dlogit| {ctl:.4f} (must exceed {TOL_LOGITS})", flush=True)
+    check(ctl > TOL_LOGITS, "[16] the logit tolerance cannot see the bias")
+    del mp, p_logits, ctl_logits, enc, logits
+    rates = []
+    with torch.inference_mode():
+        serve(mk, audio, full_lens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                serve(mk, audio, full_lens)
+            torch.cuda.synchronize()
+            rates.append(B * SECONDS * ITERS / (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall_ms, kernel_ms, n = profile_step(
+            lambda: serve(mk, audio, full_lens), ITERS)
+    print(f"[16] rung 4 serving throughput: median "
+          f"{statistics.median(rates):.1f} audio-s/s over 3 windows of "
+          f"{ITERS} x (B={B} x {SECONDS:.0f} s) (min {min(rates):.1f}, max "
+          f"{max(rates):.1f}); peak memory {peak:.2f} GiB; {card}", flush=True)
+    print_profile("[16] profile of one rung 4 forward", wall_ms, kernel_ms, n,
+                  card)
+
+    # [15] rung 4's beam with its RnnLm, the decode capped at 12 steps
+    lm = build_lm(mk.cfg.model, device=dev, seed=1).eval()
+    check(isinstance(lm, RnnLm) and mk.cfg.decode.lm_weight == 0.3
+          and mk.cfg.model.lm_dim == 650 and len(lm.cells) == 2,
+          "rung 4's LM is not the 2 x 650 RnnLm at lm_weight 0.3")
+    dcfg = mk.cfg.decode
+    dcfg.max_decode_ratio = 12 / T_enc
+    entries, launches = beam_decode_phase(
+        "rung 4 (RnnLm)", mk, lm, dcfg, audio, audio_lens, gen, peaks, card,
+        counted, t_start)
+    for e in entries[:2]:
+        e["launches"] = launches.get(e["name"], 0)
+        kernels[e["name"]] = e
+    del mk, lm
+
+    # one hybrid step at B=16 x 30 s, U <= 128, kernels vs plain torch
+    Bt = B // 2
+    nf = (audio_lens[:Bt] - WIN) // HOP + 1
+    enc_lens = ((nf + 1) // 2 + 1) // 2
+    tok = 1 + torch.cumsum(torch.randint(1, V - 1, (Bt, U_RUNG4), device=dev,
+                                         generator=gen), 1) % (V - 1)
+    tok_lens = torch.minimum(
+        torch.randint(U_RUNG4 // 2, U_RUNG4 + 1, (Bt,), device=dev,
+                      generator=gen), enc_lens // 2)
+    tok = tok * (torch.arange(U_RUNG4, device=dev)[None, :]
+                 < tok_lens[:, None])
+    host = lambda t: t.cpu().numpy().astype(np.int32)  # noqa: E731
+    batch = Batch(audio[:Bt].cpu().numpy(), host(audio_lens[:Bt]), host(tok),
+                  host(tok_lens))
+    mask = spec_mask[:Bt]
+    ks = Solver(cfg("cuda", 0.0), V, device=dev)
+    _with_table(ks.model, table)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    km, kg = ks.grads(batch, spec_mask=mask)
+    torch.cuda.synchronize()
+    k_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    counts = _launches(counted)
+    print(f"[16] rung 4 hybrid step launches: {counts}", flush=True)
+    check(counts == {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
+                     "attention_bwd": L, "toeplitz_reduce": 1, "ctc_alpha": 1,
+                     "ctc_beta": 1}, f"[16] step launch counts {counts}")
+    kg = {n_: g.detach() for n_, g in zip(ks.names, kg)}
+    wall_ms, kernel_ms, n = profile_step(lambda: ks.grads(batch,
+                                                          spec_mask=mask), 1)
+    del ks
+    ps = Solver(cfg("torch", 0.0), V, device=dev)
+    _with_table(ps.model, table)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pm, pg = ps.grads(batch, spec_mask=mask)
+    torch.cuda.synchronize()
+    p_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    pg = {n_: g.detach() for n_, g in zip(ps.names, pg)}
+    d_loss = abs(float(km["loss"]) - float(pm["loss"])) / float(pm["loss"])
+    cmin, rmax, cmed, n_cmp = grad_stats(kg, pg)
+    print(f"[16] rung 4 kernels vs plain torch, one hybrid step (B={Bt} x "
+          f"{SECONDS:.0f} s ragged, U<={U_RUNG4}, vocab {V}, bf16, {L} L + "
+          f"6-layer decoder; step peak memory {k_peak:.2f} GiB with the "
+          f"kernels, {p_peak:.2f} GiB plain): loss {float(km['loss']):.5f} vs "
+          f"{float(pm['loss']):.5f} (ctc {float(km['ctc_loss']):.4f} vs "
+          f"{float(pm['ctc_loss']):.4f}, att {float(km['att_loss']):.4f} vs "
+          f"{float(pm['att_loss']):.4f}), relative |d loss| {d_loss:.2e} (tol "
+          f"{TOL_TRAIN_LOSS}); gradients of {n_cmp} parameters: cosine min "
+          f"{cmin:.5f} median {cmed:.5f} (tol {TRAIN_MIN_COS}), relative "
+          f"error max {rmax:.4f} (tol {TRAIN_MAX_REL})", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in kg.values())
+          and d_loss <= TOL_TRAIN_LOSS and cmin >= TRAIN_MIN_COS
+          and rmax <= TRAIN_MAX_REL, "[16] kernel step disagrees with plain")
+    with torch.no_grad():
+        ps.model.encoder.rel.table.zero_()
+    cm, cg = ps.grads(batch, spec_mask=mask)
+    cg = {n_: g.detach() for n_, g in zip(ps.names, cg)}
+    c_loss = abs(float(cm["loss"]) - float(km["loss"])) / float(cm["loss"])
+    cmin_c, rmax_c, cmed_c, _ = grad_stats(kg, cg)
+    print(f"[16] control, plain model with the relative bias zeroed: "
+          f"relative |d loss| {c_loss:.2e}, cosine min {cmin_c:.5f} median "
+          f"{cmed_c:.5f}, relative error max {rmax_c:.4f} (must fail)",
+          flush=True)
+    check(c_loss > TOL_TRAIN_LOSS or cmin_c < TRAIN_MIN_COS
+          or rmax_c > TRAIN_MAX_REL, "[16] the train-step tolerance cannot "
+          "see the bias")
+    del ps, pg, cg, kg
+    print_profile(f"[16] profile of one rung 4 hybrid step (B={Bt}, forward "
+                  "and backward)", wall_ms, kernel_ms, n, card)
+    print(f"[16] done; {time.perf_counter() - t_start:.0f} s since start",
+          flush=True)
 
 
 def train_seed_sweep(seeds: list[int]) -> int:
@@ -2304,9 +2989,15 @@ def main() -> int:
         lstm_fwd,
     )
 
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc_prefix import (
+        ctc_prefix_score,
+        ctc_prefix_select,
+    )
+
     COUNTED = (logmel, toeplitz_fwd, attention_fwd, attention_bwd,
                toeplitz_reduce, ctc_alpha, ctc_beta, flash_fwd, flash_bwd,
-               lstm_fwd, lstm_bwd, ffn_fwd, ffn_bwd)
+               lstm_fwd, lstm_bwd, ffn_fwd, ffn_bwd, ctc_prefix_score,
+               ctc_prefix_select)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     dv.set_tf32(False)
@@ -2317,8 +3008,11 @@ def main() -> int:
           f"cuda {torch.version.cuda} card '{name}' ({card})", flush=True)
 
     t0 = time.perf_counter()
+    parent_build = start_parent_build()
     lib_path, log = _build.build()
-    print(f"[2] built {lib_path} in {time.perf_counter() - t0:.1f} s", flush=True)
+    parent = ParentToeplitz(*parent_build)
+    print(f"[2] built {lib_path} and the parent Toeplitz probe in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     lines = log.splitlines()
     for line in lines:
         if any(w in line for w in ("registers", "Compiling entry", "spill",
@@ -2418,7 +3112,8 @@ def main() -> int:
     logmel_kernel_phase(dev, front, audio, audio_lens, full_lens, n_frames,
                         peaks, card, kernels)
 
-    # ---- [3b] Toeplitz expansion of all 12 layers x 4 heads
+    # ---- [3b] Toeplitz expansion of all 12 layers x 4 heads, and of rung
+    # 4's 16 layers x 8 heads at the same frames
     T_enc = ((n_frames + 1) // 2 + 1) // 2
     P = -(-T_enc // 128) * 128
     table = torch.randn(mcfg.encoder_layers, mcfg.encoder_heads, 64,
@@ -2427,44 +3122,16 @@ def main() -> int:
     with torch.no_grad():
         rel.table.copy_(table)
         diag = rel.diags(T_enc).reshape(-1, 2 * T_enc - 1).contiguous()
-    for dt in (torch.bfloat16, torch.float32):
-        out = toeplitz_fwd(diag, T_enc, P, dt)
-        ref = toeplitz_expand(diag, P, P, T=T_enc).to(dt)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        print(f"[3] toeplitz {str(dt)[6:]}: max |kernel - plain| = {err:.3e} "
-              f"(tol {TOL_TOEPLITZ})", flush=True)
-        check(err <= TOL_TOEPLITZ, f"toeplitz {dt} disagrees ({err})")
-        if dt == torch.bfloat16:
-            # the library yardstick: one advanced-indexing gather of the
-            # diagonals (rounded to bf16 beforehand, as rounding commutes
-            # with a gather) by a precomputed (P, P) index
-            ii = torch.arange(P, device=dev)
-            idx = torch.clamp((T_enc - 1) + ii[None, :] - ii[:, None], 0,
-                              2 * T_enc - 2)
-            diag_b = diag.to(dt)
-            check(torch.equal(diag_b[:, idx], out),
-                  "toeplitz: the library gather differs from the kernel")
-            turns = turns_ms({
-                "kernel": lambda: toeplitz_fwd(diag, T_enc, P, dt),
-                "library": lambda: diag_b[:, idx]})
-            b_ms, b_by = bound(nbytes(diag, out), 0.0, peaks)
-            kernels["toeplitz"] = dict(
-                name="toeplitz", route="cuda",
-                source=f"{PKG}/csrc/toeplitz.cu",
-                replaces="pytorch_end2end_speech_recognition_tpu/ops/"
-                         "attention_pallas.py:424",
-                max_abs_err=err, ms=turns["kernel"],
-                plain_ms=cuda_ms(
-                    lambda: toeplitz_expand(diag, P, P, T=T_enc).to(dt)),
-                bound_ms=b_ms, bound_by=b_by, library_ms=turns["library"])
-            print(f"[3] toeplitz expand (N {diag.shape[0]}, P {P}, bf16): "
-                  f"kernel {turns['kernel']:.4f} ms, library gather "
-                  f"diag[:, idx] {turns['library']:.4f} ms (medians of 5 "
-                  f"windows x 50 launches in turns), bound {b_ms:.4f} ms "
-                  f"({b_by}); {card}", flush=True)
-            del idx, diag_b
-        del out, ref
+    kernels["toeplitz"] = toeplitz_expand_phase("flagship", diag, T_enc, P,
+                                                parent, peaks, card)
+    gen4 = torch.Generator(device=dev).manual_seed(4)
+    rel4 = RelPosBias(16, 8).to(dev)
+    with torch.no_grad():
+        rel4.table.copy_(torch.randn(16, 8, 64, device=dev, generator=gen4)
+                         * BIAS_STD)
+        diag4 = rel4.diags(T_enc).reshape(-1, 2 * T_enc - 1).contiguous()
+    toeplitz_expand_phase("rung 4", diag4, T_enc, P, parent, peaks, card)
+    del rel4, diag4
     # the first layer's (H, P, P) bias, std BIAS_STD
     bias = toeplitz_fwd(diag, T_enc, P, torch.bfloat16)[:mcfg.encoder_heads]
 
@@ -2542,54 +3209,15 @@ def main() -> int:
     del qh, kh, vh, sdpa_mask, bcast
 
     # ---- [3d] Toeplitz reduce: the cotangent of every layer's bias block,
-    # bf16 with a zero pad band (as the attention backward leaves it)
+    # bf16 with a zero pad band (as the attention backward leaves it), at
+    # the flagship's 12 x 4 blocks and rung 4's 16 x 8
     N = mcfg.encoder_layers * H
-    g_bias = torch.zeros(N, P, P, device=dev, dtype=torch.bfloat16)
-    g_bias[:, :T_enc, :T_enc] = torch.randn(N, T_enc, T_enc, device=dev,
-                                            generator=gen).to(torch.bfloat16)
-    red = toeplitz_reduce(g_bias, T_enc)
-    n_diff = bits_differ((red,), (toeplitz_reduce(g_bias, T_enc),))
-    print(f"[3] toeplitz reduce determinism: two launches differ in {n_diff}"
-          f" of {red.numel()} elements (must be 0)", flush=True)
-    check(n_diff == 0, "toeplitz reduce is not deterministic")
-    red_ref = toeplitz_reduce_plain(g_bias, T_enc)
-    red_tol = T_enc * 2.0 ** -24 * toeplitz_reduce_plain(g_bias.abs(), T_enc)
-    torch.cuda.synchronize()
-    err = (red - red_ref).abs()
-    share = (err > red_tol).float().mean().item()
-    print(f"[3] toeplitz reduce: max |kernel - plain| = {err.max().item():.3e}"
-          f", share beyond T u sum|g|: {share:.3e}", flush=True)
-    check(share == 0.0, f"toeplitz reduce disagrees ({share})")
-    # the library yardstick: one index_add_ of the T x T core by the same
-    # precomputed diagonal index, into a zeroed output (index_add_ takes
-    # one dtype, so the core is a float32 copy made beforehand)
-    ii = torch.arange(T_enc, device=dev)
-    idx_r = ((T_enc - 1) + ii[None, :] - ii[:, None]).reshape(-1)
-    g32 = g_bias[:, :T_enc, :T_enc].float().reshape(N, -1).contiguous()
-
-    def reduce_library():
-        return torch.zeros(N, 2 * T_enc - 1, device=dev).index_add_(
-            1, idx_r, g32)
-
-    lib_share = ((reduce_library() - red_ref).abs() > red_tol).float() \
-        .mean().item()
-    check(lib_share == 0.0, "toeplitz reduce: the library index_add_ is "
-          f"beyond the bound ({lib_share})")
-    turns = turns_ms({"kernel": lambda: toeplitz_reduce(g_bias, T_enc),
-                      "library": reduce_library})
-    b_ms, b_by = bound(N * T_enc * T_enc * 2 + nbytes(red), 0.0, peaks)
-    kernels["toeplitz_reduce"] = dict(
-        name="toeplitz_reduce", route="cuda", source=f"{PKG}/csrc/toeplitz.cu",
-        replaces="pytorch_end2end_speech_recognition_tpu/ops/"
-                 "attention_pallas.py:458",
-        max_abs_err=err.max().item(), ms=turns["kernel"],
-        plain_ms=cuda_ms(lambda: toeplitz_reduce_plain(g_bias, T_enc)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=turns["library"])
-    print(f"[3] toeplitz reduce (N {N}, T {T_enc}, bf16): kernel "
-          f"{turns['kernel']:.4f} ms, library index_add_ (float32 core) "
-          f"{turns['library']:.4f} ms (medians of 5 windows x 50 launches in "
-          f"turns), bound {b_ms:.4f} ms ({b_by}); {card}", flush=True)
-    del g_bias, red, red_ref, red_tol, err, g32, idx_r
+    core = torch.randn(N, T_enc, T_enc, device=dev, generator=gen)
+    kernels["toeplitz_reduce"] = toeplitz_reduce_phase(
+        "flagship", core, P, gen4, parent, peaks, card)
+    core4 = torch.randn(128, T_enc, T_enc, device=dev, generator=gen4)
+    toeplitz_reduce_phase("rung 4", core4, P, gen4, parent, peaks, card)
+    del core, core4
 
     # ---- [3e] attention backward at the main path's shape: ragged lens
     # with a pad row (lens 0) and full lens; the cotangent is zero past each
@@ -3356,7 +3984,8 @@ def main() -> int:
                           "ctc_alpha": 0, "ctc_beta": 0,
                           "flash_fwd": mcfg.encoder_layers, "flash_bwd": 0,
                           "lstm_fwd": 0, "lstm_bwd": 0,
-                          "ffn_fwd": 0, "ffn_bwd": 0},
+                          "ffn_fwd": 0, "ffn_bwd": 0,
+                          "ctc_prefix_score": 0, "ctc_prefix_select": 0},
           f"long-audio forward launch counts {long_counts}")
     kernels["flash_attention"]["launches"] = long_counts["flash_fwd"]
     check(tuple(enc.shape) == (Bl, T_long, D) and bool(
@@ -3510,7 +4139,8 @@ def main() -> int:
                      "attention_bwd": 0, "toeplitz_reduce": 0,
                      "ctc_alpha": 1, "ctc_beta": 1, "flash_fwd": L,
                      "flash_bwd": L, "lstm_fwd": 0, "lstm_bwd": 0,
-                     "ffn_fwd": 0, "ffn_bwd": 0},
+                     "ffn_fwd": 0, "ffn_bwd": 0, "ctc_prefix_score": 0,
+                     "ctc_prefix_select": 0},
           f"long train step launch counts {step_l}")
     check(math.isfinite(float(metrics["loss"])), "long train step not finite")
     kernels["flash_attention_bwd"]["launches"] = step_l["flash_bwd"]
@@ -3544,12 +4174,20 @@ def main() -> int:
     flagship_ffn_phase(dev, card, kernels, COUNTED, t_start, audio,
                        audio_lens, full_lens, table, batch, spec_mask)
     rung3_phase(dev, gen, card, kernels, COUNTED, t_start, audio, audio_lens,
-                full_lens, spec_mask)
+                full_lens, spec_mask, peaks)
+    # ---- [15] beam decode (wsj_las here; rung 3 in [14], rung 4 in [16])
+    beam_phase(dev, torch.Generator(device=dev).manual_seed(15), peaks, card,
+               COUNTED, t_start)
+    # ---- [16] rung 4 (libri960_conformer) at full width
+    rung4_phase(dev, torch.Generator(device=dev).manual_seed(16), peaks, card,
+                kernels, COUNTED, t_start, audio, audio_lens, full_lens,
+                spec_mask)
 
     order = ("logmel", "toeplitz", "attention", "attention_bwd",
              "toeplitz_reduce", "flash_attention", "flash_attention_bwd",
              "ctc_alpha", "ctc_beta", "lstm_fwd", "lstm_bwd", "ffn_fwd",
-             "ffn_bwd")
+             "ffn_bwd", "ctc_prefix_score", "ctc_prefix_select")
+    print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -94,7 +94,9 @@ class AttentionDecoder(nn.Module):
     def precompute(self, enc: torch.Tensor) -> torch.Tensor:
         return self.att.precompute(enc)
 
-    def init_state(self, B: int, T: int, device=None) -> dict:
+    def init_state(self, B: int, T: int, max_len: int | None = None,
+                   device=None) -> dict:
+        del max_len  # the recurrent state is O(1) in the decode length
         L = len(self.cells)
         z = lambda *s: torch.zeros(*s, device=device)  # noqa: E731
         return {"h": z(B, L, self.H), "c": z(B, L, self.H), "attn": z(B, T),
@@ -136,7 +138,7 @@ class AttentionDecoder(nn.Module):
         dev = enc.device
         keys = self.precompute(enc)
         mask = torch.arange(T, device=dev)[None, :] < enc_lens[:, None]
-        state = self.init_state(B, T, dev)
+        state = self.init_state(B, T, device=dev)
         sos = torch.full((B, 1), SOS_EOS_ID, dtype=torch.long, device=dev)
         inputs = torch.cat([sos, tokens.long()], dim=1)
         if not (train and scheduled_sampling > 0.0):

@@ -3,11 +3,13 @@
 blocks of (causal self-attention, cross-attention over the encoder frames,
 FFN), log-softmax over the vocabulary.
 
-This slice ports the teacher-forced training pass: one parallel pass over
-all label positions. The KV-cache `precompute`/`init_state`/`step` interface
-comes with beam search. There is no Pallas kernel here: attention is plain
-torch in float32, as the reference computes it; the projections run in
-`cfg.dtype`.
+`forward` is the teacher-forced training pass, one parallel pass over all
+label positions. `precompute`/`init_state`/`step` is the beam search's
+interface, the same as the LSTM speller's: the cross-attention K/V are
+computed once per utterance, and each step writes its self-attention K/V
+in place into fixed-shape (B, max_len, L, D) float32 caches. There is no
+Pallas kernel here: attention is plain torch in float32, as the reference
+computes it; the projections run in `cfg.dtype`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
     _layer_norm,
     _linear,
     dropout,
-    sinusoidal_pe,
+    pe_table,
+    sinusoidal_pe,  # noqa: F401 (the decoder's table, re-exported)
 )
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import ModelConfig
 
@@ -47,6 +50,24 @@ def mha(q, k, v, mask, heads: int):
     w = torch.softmax(s, dim=-1)
     out = w @ vh
     return out.transpose(1, 2).reshape(B, Tq, D), w
+
+
+def mha_grouped(q, k, v, mask, heads: int):
+    """`mha` for G query rows of each key row: q (B*G, 1, D) against k, v
+    (B, Tk, D) and mask (B, 1, 1, Tk), rows b*G .. b*G + G-1 of q on row b
+    of k and v, without repeating the keys G times. -> (out (B*G, 1, D),
+    weights (B*G, H, 1, Tk))."""
+    B, Tk, D = k.shape
+    G = q.shape[0] // B
+    dh = D // heads
+    qh = q.reshape(B, G, heads, dh).transpose(1, 2)          # (B, H, G, dh)
+    kh = k.reshape(B, Tk, heads, dh).transpose(1, 2)
+    vh = v.reshape(B, Tk, heads, dh).transpose(1, 2)
+    s = (qh @ kh.transpose(-1, -2)) / math.sqrt(dh)          # (B, H, G, Tk)
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+    w = torch.softmax(s, dim=-1)
+    out = (w @ vh).permute(0, 2, 1, 3).reshape(B * G, 1, D)
+    return out, w.permute(0, 2, 1, 3).reshape(B * G, heads, 1, Tk)
 
 
 class TransformerDecoderBlock(nn.Module):
@@ -75,18 +96,34 @@ class TransformerDecoderBlock(nn.Module):
     def _proj(self, x, layer):
         return _linear(x, layer, self.dt).float()
 
-    def forward(self, x, enc, self_mask, cross_mask, train=False, gen=None):
+    def self_qkv(self, x):
+        """x (B, Tq, D) float32 -> q, k, v (B, Tq, D) float32 from the
+        pre-LN input."""
         h = _layer_norm(x, self.ln1)
-        y, _ = mha(self._proj(h, self.wq1), self._proj(h, self.wk1),
-                   self._proj(h, self.wv1), self_mask, self.heads)
+        return (self._proj(h, self.wq1), self._proj(h, self.wk1),
+                self._proj(h, self.wv1))
+
+    def cross_kv(self, enc):
+        """enc (B, T, d_enc) -> (k, v), each (B, T, D) float32; once per
+        utterance."""
+        return self._proj(enc, self.wk2), self._proj(enc, self.wv2)
+
+    def run(self, x, q, k, v, self_mask, ck, cv, cross_mask, train=False,
+            gen=None):
+        """The residual body given the attention inputs -> (x, cross
+        weights (B, H, Tq, T)). When ck/cv hold fewer rows than x (beam
+        search: x has K hypotheses of each utterance, in row-major order),
+        each query row attends to its utterance's keys."""
+        y, _ = mha(q, k, v, self_mask, self.heads)
         x = x + dropout(self._proj(y, self.wo1), self.rate, gen, train)
         q2 = self._proj(_layer_norm(x, self.ln2), self.wq2)
-        y2, _ = mha(q2, self._proj(enc, self.wk2), self._proj(enc, self.wv2),
-                    cross_mask, self.heads)
+        y2, w = (mha(q2, ck, cv, cross_mask, self.heads)
+                 if ck.shape[0] == q2.shape[0]
+                 else mha_grouped(q2, ck, cv, cross_mask, self.heads))
         x = x + dropout(self._proj(y2, self.wo2), self.rate, gen, train)
         f = F.relu(_linear(_layer_norm(x, self.ln3), self.fc1, self.dt))
         f = _linear(f, self.fc2, self.dt).float()
-        return x + dropout(f, self.rate, gen, train)
+        return x + dropout(f, self.rate, gen, train), w
 
 
 class TransformerDecoder(nn.Module):
@@ -113,14 +150,74 @@ class TransformerDecoder(nn.Module):
         sos = torch.full((B, 1), SOS_EOS_ID, dtype=torch.long,
                          device=enc.device)
         inputs = torch.cat([sos, tokens.long()], dim=1)
-        pe = torch.from_numpy(sinusoidal_pe(U1, self.D)).to(enc.device)
-        x = self.embed(inputs).float() * math.sqrt(self.D) + pe
+        x = (self.embed(inputs).float() * math.sqrt(self.D)
+             + pe_table(U1, self.D, enc.device))
         x = dropout(x, self.rate, generator, train)
         self_mask = torch.tril(torch.ones((U1, U1), dtype=torch.bool,
                                           device=enc.device))[None, None]
         cross_mask = (torch.arange(T, device=enc.device)[None, :]
                       < enc_lens[:, None])[:, None, None, :]
         for blk in self.blocks:
-            x = blk(x, enc, self_mask, cross_mask, train, generator)
-        logits = _linear(_layer_norm(x, self.ln_out), self.proj, self.dt)
-        return F.log_softmax(logits.float(), dim=-1)
+            q, sk, sv = blk.self_qkv(x)
+            ck, cv = blk.cross_kv(enc)
+            x, _ = blk.run(x, q, sk, sv, self_mask, ck, cv, cross_mask, train,
+                           generator)
+        return F.log_softmax(self._logits(x), dim=-1)
+
+    def _logits(self, x):
+        return _linear(_layer_norm(x, self.ln_out), self.proj, self.dt).float()
+
+    # ---- the beam search's interface (decode/beam.py) --------------------
+    def precompute(self, enc: torch.Tensor) -> torch.Tensor:
+        """(B, T, d_enc) -> every layer's cross K/V, packed (B, T, L, 2, D)
+        float32."""
+        return torch.stack([torch.stack(blk.cross_kv(enc), dim=2)
+                            for blk in self.blocks], dim=2)
+
+    def init_state(self, B: int, T: int, max_len: int | None = None,
+                   device=None) -> dict:
+        """Fixed-shape incremental state; `max_len` (the decode-step budget)
+        sizes the K/V caches. Builds the PE table on the caches' device, so
+        `step` reads it there."""
+        if max_len is None:
+            raise ValueError("TransformerDecoder.init_state needs max_len")
+        L = len(self.blocks)
+        kc = torch.zeros(B, max_len, L, self.D, device=device)
+        pe_table(max_len, self.D, kc.device)
+        return {"k_cache": kc,
+                "v_cache": torch.zeros(B, max_len, L, self.D, device=device),
+                "pos": torch.zeros(B, dtype=torch.long, device=device)}
+
+    def step(self, token, state, keys, values, mask, per_row_pos=False):
+        """One decode step -> (log-probs (B, V), new state, attention (B,
+        T)), the last block's cross-attention weights averaged over heads.
+
+        `keys` is the packed cross K/V from `precompute`; `values` (the
+        encoder output) is unused, kept for the speller's signature. keys
+        and mask (B', T) may hold one row per utterance for B = G B' token
+        rows (G hypotheses an utterance). The caches are written in place:
+        at one position for every row (`per_row_pos=False`, the full-pass
+        beam, whose rows step in lockstep), or at each row's own
+        (`per_row_pos=True`, the streaming beam, whose rows fall out of
+        lockstep), with the PE rows and causal masks per row to match."""
+        del values
+        B = token.shape[0]
+        kc, vc, pos_v = state["k_cache"], state["v_cache"], state["pos"]
+        U, dev = kc.shape[1], kc.device
+        rows = torch.arange(B, device=dev)
+        pos = pos_v if per_row_pos else pos_v[:1].expand(B)
+        x = (self.embed(token.long()).float() * math.sqrt(self.D)
+             + pe_table(U, self.D, dev)[pos])[:, None, :]
+        self_mask = (torch.arange(U, device=dev)[None, :]
+                     <= pos[:, None])[:, None, None, :]
+        cross_mask = mask[:, None, None, :]
+        attn = None
+        for li, blk in enumerate(self.blocks):
+            q, k_new, v_new = blk.self_qkv(x)
+            kc[rows, pos, li] = k_new[:, 0]
+            vc[rows, pos, li] = v_new[:, 0]
+            x, w = blk.run(x, q, kc[:, :, li], vc[:, :, li], self_mask,
+                           keys[:, :, li, 0], keys[:, :, li, 1], cross_mask)
+            attn = w.mean(dim=1)[:, 0]
+        logp = F.log_softmax(self._logits(x)[:, 0], dim=-1)
+        return logp, {"k_cache": kc, "v_cache": vc, "pos": pos_v + 1}, attn

@@ -261,6 +261,24 @@ def sinusoidal_pe(T: int, D: int) -> np.ndarray:
     return pe
 
 
+_PE_TABLES: dict = {}
+
+
+def pe_table(T: int, D: int, device) -> torch.Tensor:
+    """`sinusoidal_pe(T, D)` as a float32 tensor on `device`: the first T
+    rows of a table kept per (D, device) and rebuilt only when a longer one
+    is asked for (a row depends on its position alone), so the decoders'
+    token steps copy nothing from the host once `init_state` has built
+    it."""
+    key = (D, torch.device(device))
+    table = _PE_TABLES.get(key)
+    if table is None or table.shape[0] < T:
+        with torch.inference_mode(False):
+            table = torch.from_numpy(sinusoidal_pe(T, D)).to(device)
+        _PE_TABLES[key] = table
+    return table[:T]
+
+
 class RelPosBias(nn.Module):
     """Bucketed relative position bias: a learned (layers, heads, n_buckets)
     table. The 2T-1 relative offsets are bucketed (a small gather) into

@@ -40,8 +40,8 @@ SIGNATURES = {
     "logmel_smem_bytes": [],
     # diag, out, out_is_bf16, N, T, P, stream
     "toeplitz_launch": [_P, _P, _I, _I, _I, _I, _P],
-    # g, part, out, in_is_bf16, N, T, P, stream
-    "toeplitz_reduce_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # g, out, in_is_bf16, N, T, P, stream
+    "toeplitz_reduce_launch": [_P, _P, _I, _I, _I, _I, _P],
     # q, k, v, bias, bias_ld, lens, out, lse, B, T, H, Dh, sm_scale, stream
     "attention_launch": [_P, _P, _P, _P, _I, _P, _P, _P,
                          _I, _I, _I, _I, _F, _P],
@@ -60,6 +60,12 @@ SIGNATURES = {
     # lp, skip, sok, tlen, last, alpha, ll, g, grad, B, T, S, stream
     "ctc_beta_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _P],
+    # lp, r_state, last, lengths, cand, psi, B, K, C, T, V, stream
+    "ctc_prefix_score_launch": [_P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _P],
+    # lp, r_state, last, lengths, parent, tok, is_ext, out, B, K, T, V,
+    # stream
+    "ctc_prefix_select_launch": [_P] * 8 + [_I, _I, _I, _I, _P],
     # bwd, D, B, H, out (int[7]): the LSTM kernels' cluster plan
     "lstm_plan": [_I, _I, _I, _I, _P],
     # xg, whh, lens, h_all, c_all, D, B, T, H, stream

@@ -93,21 +93,13 @@ def toeplitz_reduce_plain(g: torch.Tensor, T: int) -> torch.Tensor:
     return flat[:, :T * (2 * T - 1)].reshape(N, T, 2 * T - 1).sum(dim=1)
 
 
-REDUCE_ROWS = 64  # rows per partial sum of the reduce kernel
-
-
-def toeplitz_reduce_scratch(N: int, T: int) -> tuple[int, int, int]:
-    """Shape of the reduce kernel's float32 partial buffer: one (N, 2T-1)
-    plane per chunk of REDUCE_ROWS rows, summed in chunk order."""
-    return (-(-T // REDUCE_ROWS), N, 2 * T - 1)
-
-
 def toeplitz_reduce(g: torch.Tensor, T: int) -> torch.Tensor:
     """The transpose of the expansion: (N, P, P) cotangent -> (N, 2T-1)
     float32 per-diagonal sums of its T x T core (the pad band, zero on the
-    training path, is not read). The reduce kernel on CUDA tensors (row
-    chunks' partials, then their sum in a fixed order: the same bits on
-    every run), `toeplitz_reduce_plain` on CPU tensors."""
+    training path, is not read). The reduce kernel on CUDA tensors (each
+    diagonal summed in one fixed order in one launch: the same bits on
+    every run), `toeplitz_reduce_plain` on CPU
+    tensors."""
     if g.device.type == "cpu":
         return toeplitz_reduce_plain(g, T)
     from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
@@ -123,11 +115,9 @@ def toeplitz_reduce(g: torch.Tensor, T: int) -> torch.Tensor:
     if N == 0:
         return out
     g = g.contiguous()
-    part = torch.empty(toeplitz_reduce_scratch(N, T), dtype=torch.float32,
-                       device=g.device)
     err = _build.load().toeplitz_reduce_launch(
-        g.data_ptr(), part.data_ptr(), out.data_ptr(),
-        int(g.dtype == torch.bfloat16), N, T, P, _stream(g))
+        g.data_ptr(), out.data_ptr(), int(g.dtype == torch.bfloat16), N, T, P,
+        _stream(g))
     _build.check(err, "toeplitz_reduce")
     toeplitz_reduce.launches += 1
     return out

@@ -693,3 +693,188 @@ def test_gradient_sums_are_deterministic(dev, kind):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert int((_bits(a) != _bits(b)).sum()) == 0
+
+
+@pytest.mark.parametrize("N,T,P", [(48, 750, 768), (128, 750, 768),
+                                   (5, 99, 128), (6, 37, 41), (3, 100, 1100)])
+def test_toeplitz_expand_is_bit_identical(dev, N, T, P):
+    """The redesigned expand (shifted copies in shared memory, 16-byte
+    stores) at the flagship's N 48 and rung 4's N 128, an odd T with a pad
+    band, a P that is no multiple of 8 (the element-wise store path) and a
+    P past one 1,024-column item: the plain expansion's bits, bf16 and
+    float32, pad band included."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
+        toeplitz_expand,
+        toeplitz_fwd,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(N + T)
+    diag = (torch.randn(N, 2 * T - 1, generator=g) * 4).to(dev)
+    for dt in (torch.bfloat16, torch.float32):
+        out = toeplitz_fwd(diag, T, P, dt)
+        ref = toeplitz_expand(diag, P, P, T=T).to(dt)
+        torch.cuda.synchronize()
+        assert int((_bits(out) != _bits(ref)).sum()) == 0, dt
+
+
+@pytest.mark.parametrize("N,T,P", [(48, 750, 768), (128, 750, 768),
+                                   (5, 99, 128), (6, 37, 41), (2, 1, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_toeplitz_reduce_repeats_and_ignores_the_pad_band(dev, N, T, P,
+                                                           dtype):
+    """The redesigned reduce (a band of diagonals a two-block cluster, each
+    block half its rows by cp.async tiles; the element-wise kernel where P
+    makes rows unaligned): within T u sum|g| of the plain sums, two
+    launches bit for bit, and the same bits with a random pad band as with
+    a zero one."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
+        toeplitz_reduce,
+        toeplitz_reduce_plain,
+    )
+
+    g_ = torch.Generator(device="cpu").manual_seed(N * T)
+    noisy = torch.randn(N, P, P, generator=g_).to(dev, dtype)
+    g = torch.zeros_like(noisy)
+    g[:, :T, :T] = noisy[:, :T, :T]
+    out = toeplitz_reduce(g, T)
+    again = toeplitz_reduce(g, T)
+    padded = toeplitz_reduce(noisy, T)
+    ref = toeplitz_reduce_plain(g, T)
+    torch.cuda.synchronize()
+    bound = T * 2.0 ** -24 * toeplitz_reduce_plain(g.abs(), T) + 1e-30
+    assert bool(((out - ref).abs() <= bound).all())
+    assert int((_bits(out) != _bits(again)).sum()) == 0
+    assert int((_bits(out) != _bits(padded)).sum()) == 0
+
+
+@pytest.mark.parametrize("B,T,V,K,C", [(3, 750, 1024, 10, 40),
+                                       (4, 50, 32, 10, 30), (2, 7, 12, 3, 5)])
+def test_prefix_kernels_match_plain(dev, B, T, V, K, C):
+    """The CTC prefix kernels against their plain versions on rows of T,
+    1 and 0 frames (pad frames blank-certain), a dead hypothesis and a
+    candidate repeating the last token: psi and the kept columns within T'
+    2^-22 (1 + |plain|) (see chip_smoke.py PREFIX_STEP_TOL), two launches
+    bit for bit."""
+    from pytorch_end2end_speech_recognition_tpu_torch.decode.beam import (
+        blank_padded,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import ctc_prefix as cp
+
+    g = torch.Generator(device="cpu").manual_seed(T)
+    logp = torch.log_softmax(torch.randn(B, T, V, generator=g) * 2, -1)
+    lens = torch.tensor([T, 1, 0, T // 2][:B])
+    lp = blank_padded(logp, lens).to(dev)
+    r = (torch.randn(B, K, T, 2, generator=g).cumsum(2) - 5.0)
+    r[0, K - 1] = cp.NEG_INF
+    last = torch.randint(2, V, (B, K), generator=g)
+    lengths = torch.randint(0, 3, (B, K), generator=g)
+    last[lengths == 0] = 1
+    cand = torch.stack([torch.randperm(V - 2, generator=g)[:C] + 2
+                        for _ in range(B * K)]).reshape(B, K, C)
+    cand[:, :, 0] = torch.where(lengths > 0, last, cand[:, :, 0])
+    parent = torch.randint(0, K, (B, K), generator=g)
+    is_ext = torch.rand(B, K, generator=g) < 0.7
+    tok = cand.gather(1, parent[..., None].expand(B, K, C))[:, :, 1]
+    r, last, lengths, cand, parent, is_ext, tok = (
+        t.to(dev) for t in (r, last, lengths, cand, parent, is_ext, tok))
+    tol = T * 2.0 ** -22
+    psi = cp.ctc_prefix_score(lp, r, last, lengths, cand)
+    want = cp.prefix_recursion_plain(lp, r, cand, last, lengths)[0]
+    cols = cp.ctc_prefix_select(lp, r, last, lengths, parent, tok, is_ext)
+    want_cols = cp.prefix_select_plain(lp, r, last, lengths, parent, tok,
+                                       is_ext)
+    torch.cuda.synchronize()
+    assert bool(((psi - want).abs() <= tol * (1 + want.abs())).all())
+    assert bool(((cols - want_cols).abs() <= tol * (1 + want_cols.abs())).all())
+    assert torch.equal(psi, cp.ctc_prefix_score(lp, r, last, lengths, cand))
+    assert torch.equal(cols, cp.ctc_prefix_select(lp, r, last, lengths,
+                                                  parent, tok, is_ext))
+
+
+def _small_beam_model(dev, decoder="transformer", lm_type="lstm"):
+    """A 2-layer conformer with a 2-layer `decoder` and a small LM of
+    `lm_type` (None: no LM) on the card, from seeds."""
+    from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
+    from pytorch_end2end_speech_recognition_tpu_torch.models.lm import build_lm
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        AsrConfig,
+    )
+
+    cfg = AsrConfig()
+    m = cfg.model
+    m.encoder, m.encoder_layers, m.encoder_dim, m.encoder_heads = (
+        "conformer", 2, 128, 2)
+    m.encoder_ffn_dim, m.subsample_channels = 256, 32
+    m.decoder, m.decoder_layers, m.decoder_dim, m.decoder_heads = (
+        decoder, 2, 128, 2)
+    m.vocab_size, m.lm_dim, m.lm_embed_dim = 40, 64, 32
+    m.lm_type, m.lm_heads = lm_type or "lstm", 2
+    model = AsrModel(cfg, device=dev, seed=0).eval()
+    lm = (build_lm(model.cfg.model, device=dev, seed=1).eval()
+          if lm_type else None)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    audio = (torch.randn(3, 48000, generator=g) * 0.1).to(dev)
+    lens = torch.tensor([48000, 20000, 9000], device=dev)
+    return model, lm, audio, lens
+
+
+def test_beam_decode_on_the_kernels_matches_the_plain_prefix_scorer(dev):
+    """A small transformer-decoder model with an RnnLm on the card: the beam
+    search with the prefix kernels and with the plain recursion give the
+    same N-best, and the kernels launch once each a token step."""
+    from pytorch_end2end_speech_recognition_tpu_torch.decode.beam import (
+        BeamSearchDecoder,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import ctc_prefix as cp
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        DecodeConfig,
+    )
+
+    model, lm, audio, lens = _small_beam_model(dev)
+    dcfg = DecodeConfig(beam_size=4, pre_beam_k=8, lm_weight=0.3,
+                        max_decode_ratio=0.2)
+    kern = BeamSearchDecoder(model, dcfg, lm=lm)
+    enc, elens, logp = kern.encode(audio, lens)
+    max_len = max(4, int(0.2 * enc.shape[1]))
+    before = (cp.ctc_prefix_score.launches, cp.ctc_prefix_select.launches)
+    out = kern.search_arrays(enc, elens, logp, max_len)
+    torch.cuda.synchronize()
+    n = out["steps"]
+    assert (cp.ctc_prefix_score.launches - before[0],
+            cp.ctc_prefix_select.launches - before[1]) == (n, n)
+    ref = BeamSearchDecoder(model, dcfg, lm=lm, prefix_impl="torch") \
+        .search_arrays(enc, elens, logp, max_len)
+    for key in ("tokens", "lengths", "finished"):
+        assert torch.equal(out[key], ref[key]), key
+    assert torch.allclose(out["scores"], ref["scores"], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("decoder,lm_type", [("transformer", "lstm"),
+                                             ("transformer", "transformer"),
+                                             ("lstm", None)])
+def test_beam_token_loop_never_syncs_the_host(dev, decoder, lm_type):
+    """SYNC_EVERY token steps (the loop's first test of "all finished"
+    comes after them) under the sync debugger's error mode: any host sync
+    in a step, a blocking copy from the host included, raises. The first
+    search builds what a process builds once (the PE tables, the kernel
+    library); a .item() under the same mode must raise."""
+    from pytorch_end2end_speech_recognition_tpu_torch.decode import beam
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        DecodeConfig,
+    )
+
+    model, lm, audio, lens = _small_beam_model(dev, decoder, lm_type)
+    bsd = beam.BeamSearchDecoder(model, DecodeConfig(
+        beam_size=4, pre_beam_k=8, lm_weight=0.3 if lm else 0.0,
+        coverage_penalty=0.1), lm=lm)
+    enc, elens, logp = bsd.encode(audio, lens)
+    bsd.search_arrays(enc, elens, logp, beam.SYNC_EVERY)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.ones((), device=dev).item()
+        out = bsd.search_arrays(enc, elens, logp, beam.SYNC_EVERY)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out["steps"] == beam.SYNC_EVERY

@@ -6,6 +6,9 @@ model and hybrid train step past 768 encoder frames with bridged weights
 (the JAX model with attn_impl='pallas', which on the CPU runs its chunked
 flash path). float32; inputs made with numpy from a seed."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -314,22 +317,61 @@ def test_bwd_work_words(B, T, H):
                          (16, 1638, 4): 354_418_688}.get((B, T, H), words * 4)
 
 
+def _reduce_plan(T):
+    """The reduce kernel's walk of one T x T core (`toeplitz_reduce_kernel`
+    in csrc/toeplitz.cu, its constants read from that file): a cluster of
+    RED_SEGS blocks for each band of RED_DIAGS diagonals, each block one
+    segment of the band's rows in whole tiles of RED_ROWS rows ->
+    (constants, [(d0, [(lo, hi) of each segment])])."""
+    src = (Path(ak.__file__).parent.parent / "csrc" / "toeplitz.cu").read_text()
+    c = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+         for k in ("RED_DIAGS", "RED_ROWS", "RED_SEGS")}
+    W, R, S = 2 * T - 1, c["RED_ROWS"], c["RED_SEGS"]
+    bands = []
+    for d0 in range(0, W, c["RED_DIAGS"]):
+        # band_rows(T, d0, d1): diagonal d has rows 0 <= i + d - (T-1) < T
+        lo, hi = max(0, T - min(d0 + c["RED_DIAGS"], W)), min(T, W - d0)
+        all_tiles = -(-(hi - lo) // R) if hi > lo else 0
+        per_seg = -(-all_tiles // S)
+        segs = []
+        for seg in range(S):
+            n_tiles = max(0, min(per_seg, all_tiles - seg * per_seg))
+            first = lo + seg * per_seg * R
+            segs.append((min(first, hi), min(first + n_tiles * R, hi)))
+        bands.append((d0, segs))
+    return c, bands
+
+
 @pytest.mark.parametrize("N,T,P", [(3, 70, 72), (2, 129, 256), (1, 750, 768)])
 def test_toeplitz_reduce_partials_layout_sums_to_plain(N, T, P):
-    """The Toeplitz reduce's partial buffer (`toeplitz_reduce_scratch`), as
-    its kernels fill and sum it: plane c holds, per diagonal, the sum over
-    the rows of chunk c (REDUCE_ROWS rows; the last chunk ragged), and the
-    second launch adds the planes in chunk order: the plain per-diagonal
-    sums of the T x T core."""
+    """The Toeplitz reduce's plan (`_reduce_plan`, from the kernel's
+    source), as its kernel walks it: the bands of RED_DIAGS diagonals cover
+    every diagonal once, their RED_SEGS row segments cover each diagonal's
+    core elements once, and summing each diagonal over each segment's rows
+    in row order, with the elements outside the T x T core read as zeros
+    (the pad band included), then adding the segments' partial sums in
+    segment order, gives the plain per-diagonal sums."""
     rng = np.random.default_rng(N + T)
     g = rng.standard_normal((N, P, P))
-    n_chunks, n, W = ak.toeplitz_reduce_scratch(N, T)
-    assert (n, W) == (N, 2 * T - 1) and n_chunks * ak.REDUCE_ROWS >= T
-    part = np.zeros((n_chunks, N, W))
-    for c in range(n_chunks):
-        for i in range(c * ak.REDUCE_ROWS, min(c * ak.REDUCE_ROWS
-                                               + ak.REDUCE_ROWS, T)):
-            # row i's core elements j lie on diagonals (T-1) + j - i
-            part[c, :, T - 1 - i:2 * T - 1 - i] += g[:, i, :T]
+    W = 2 * T - 1
+    got = np.full((N, W), np.nan)
+    c, bands = _reduce_plan(T)
+    for d0, segs in bands:
+        assert len(segs) == c["RED_SEGS"]
+        for d in range(d0, min(d0 + c["RED_DIAGS"], W)):
+            rows = [i for lo, hi in segs for i in range(lo, hi)]
+            core = [i for i in range(T) if 0 <= i + d - (T - 1) < T]
+            assert sorted(set(core) - set(rows)) == [] and \
+                len(rows) == len(set(rows)), d
+            total = np.zeros(N)
+            for lo, hi in segs:
+                acc = np.zeros(N)
+                for i in range(lo, hi):
+                    j = i + d - (T - 1)
+                    if 0 <= j < T:
+                        acc = acc + g[:, i, j]
+                total = total + acc
+            assert np.isnan(got[:, d]).all()
+            got[:, d] = total
     want = ak.toeplitz_reduce_plain(torch.from_numpy(g), T).numpy()
-    np.testing.assert_allclose(part.sum(0), want, rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)

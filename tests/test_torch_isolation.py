@@ -69,6 +69,19 @@ def test_training_slice_modules_stand_alone(module):
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", [
+    "decode.beam", "decode.oracle", "models.lm", "ops.ctc_prefix"])
+def test_beam_slice_modules_stand_alone(module):
+    """The beam-search slice's modules exist, are among those imported with
+    JAX blocked below, and import neither JAX nor the JAX package (the
+    oracle keeps its own copy of the sos/eos id)."""
+    name = f"{PKG.name}.{module}"
+    assert name in MODULES
+    path = PKG.joinpath(*module.split(".")).with_suffix(".py")
+    bad = [n for n in _imported(path) if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
 def test_every_module_imports_with_jax_blocked():
     blocked = "; ".join(f"sys.modules[{n!r}] = None" for n in FORBIDDEN)
     code = (f"import sys; {blocked}; import importlib; "
