@@ -146,7 +146,23 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    against plain torch with a bias-zeroed control, throughput, peak memory
    and a profile; [15]; one hybrid step at B=16 x 30 s (U <= 128) against
    plain torch with [8]'s tolerances and a control, launch counts, the
-   step's peak memory and a profile.
+   step's peak memory and a profile;
+17. the trainer from a manifest: `cli.train.main` in process on the
+   flagship at full width (bf16, the kernels, SpecAugment and dropout on)
+   over a generated phrases corpus (512 train and 64 dev utterances of
+   2.1-3.9 s, B=32), 20 steps with dev evaluations at 10 and 20 and a
+   plateau schedule, then `--resume` to 30: the launches of every train
+   step (as [8]'s) and dev forward, none of the plain versions; the
+   checkpoint directory's files and the metrics records; the plateau
+   decay replayed on the dev records; the resumed step 21 against the
+   uninterrupted run's (utterance ids, SpecAugment mask bits, loss within
+   [8]'s tolerance; a fresh-generator control must fail); a checkpoint
+   round trip bit for bit; the vocabulary guard; dev logits against plain
+   torch and both WERs; pinned batch copies in profiles of two fit steps,
+   in turns with the same batches copied pageable (which must fail), the
+   copied batches equal to the loader's; audio-s/s of fit, idle share,
+   the copy's share of busy time and the host syncs of a step (printed,
+   not gated); time warp on the card against the CPU.
 
 It then prints the total time, the `kernels` JSON line, the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Without a card it
@@ -163,6 +179,7 @@ import re
 import statistics
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -467,6 +484,42 @@ def speechlike(n_rows: int, n_samples: int, gen, dev) -> torch.Tensor:
     x = tone * torch.sin(2 * math.pi * pitch * t) + noise * torch.randn(
         n_rows, n_seg, seg, device=dev, generator=gen)
     return 0.3 * x.reshape(n_rows, -1)[:, :n_samples].contiguous()
+
+
+def tokenizer_of(V: int):
+    """A character tokenizer of V ids: the Solver takes its vocabulary from
+    a tokenizer."""
+    from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
+        N_SPECIAL,
+        CharTokenizer,
+    )
+
+    return CharTokenizer(charset="".join(
+        chr(0x100 + i) for i in range(V - N_SPECIAL - 1)))
+
+
+def make_solver(cfg, V: int, dev):
+    """A Solver for `cfg` with a vocabulary of V ids, writing no metrics
+    file."""
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+
+    cfg.train.metrics_path = ""
+    return Solver(cfg, tokenizer_of(V), device=dev)
+
+
+class OneBatch:
+    """A loader for `Solver.fit` that yields one fixed batch at every
+    cursor."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def repeat(self, epoch: int = 0, batch: int = 0, with_cursor=False):
+        while True:
+            yield (epoch, batch, self.batch) if with_cursor else self.batch
+            batch += 1
 
 
 def n_frames_of(n: int) -> int:
@@ -1590,9 +1643,6 @@ def las_train_phase(dev, gen, card, kernels, counted, t_start) -> None:
     from pytorch_end2end_speech_recognition_tpu_torch.ops.specaugment import (
         spec_augment_mask,
     )
-    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
-        Solver,
-    )
     from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
         resolve_device,
     )
@@ -1628,7 +1678,7 @@ def las_train_phase(dev, gen, card, kernels, counted, t_start) -> None:
         if impl == "torch":
             c.frontend.impl = "torch"
             c.model.lstm_impl = c.model.ctc_impl = "torch"
-        return Solver(c, V, device=dev)
+        return make_solver(c, V, dev)
 
     ks = las_solver("cuda")
     mc = ks.cfg.model
@@ -1683,13 +1733,13 @@ def las_train_phase(dev, gen, card, kernels, counted, t_start) -> None:
           "recurrence")
     del ps, pg, cg, kg
 
-    solver = Solver(wsj_las(), V, device=dev)
+    solver = make_solver(wsj_las(), V, dev)
     check(solver.cfg.model.encoder_dropout > 0
           and solver.cfg.frontend.spec_augment
           and solver.cfg.train.scheduled_sampling > 0,
           "wsj_las training draws are off")
     solver.cfg.train.log_every = 1
-    solver.fit([batch] * 5, steps=5)
+    solver.fit(OneBatch(batch), steps=5)
     losses = [r["loss"] for r in solver.log]
     print(f"[12] 5 wsj_las Solver steps (dropout 0.1, SpecAugment, scheduled"
           f" sampling 0.1): loss {[round(x, 4) for x in losses]}, grad_norm "
@@ -1730,7 +1780,7 @@ def las_train_phase(dev, gen, card, kernels, counted, t_start) -> None:
     a_tok_lens = torch.minimum(tok_lens, ((a_lens - WIN) // HOP + 1) // 2)
     a_batch = Batch(batch.audio[:, :Ta], host(a_lens), batch.tokens,
                     host(a_tok_lens))
-    an4 = Solver(an4_ctc(), V, device=dev)
+    an4 = make_solver(an4_ctc(), V, dev)
     for fn in counted:
         fn.launches = 0
     m = an4.train_step(a_batch)
@@ -1805,9 +1855,6 @@ def flagship_ffn_phase(dev, card, kernels, counted, t_start, audio,
     from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
     from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
         FfnBlock,
-    )
-    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
-        Solver,
     )
 
     def cfg(ffn: str, impl: str = "cuda", dropout: float | None = None):
@@ -1891,7 +1938,7 @@ def flagship_ffn_phase(dev, card, kernels, counted, t_start, audio,
     del mk, mt
 
     # one hybrid step at dropout 0, kernels (FFN included) vs plain torch
-    ks = Solver(cfg("cuda", dropout=0.0), V, device=dev)
+    ks = make_solver(cfg("cuda", dropout=0.0), V, dev)
     _with_table(ks.model, table)
     for fn in counted:
         fn.launches = 0
@@ -1907,7 +1954,7 @@ def flagship_ffn_phase(dev, card, kernels, counted, t_start, audio,
     kernels["ffn_bwd"]["launches"] = counts["ffn_bwd"]
     kg = {n_: g.detach() for n_, g in zip(ks.names, kg)}
     del ks
-    ps = Solver(cfg("torch", "torch", 0.0), V, device=dev)
+    ps = make_solver(cfg("torch", "torch", 0.0), V, dev)
     _with_table(ps.model, table)
     pm, pg = ps.grads(batch, spec_mask=spec_mask)
     pg = {n_: g.detach() for n_, g in zip(ps.names, pg)}
@@ -1940,11 +1987,11 @@ def flagship_ffn_phase(dev, card, kernels, counted, t_start, audio,
 
     # five Solver steps with dropout 0.1 and SpecAugment, then throughput
     # of ffn_impl=cuda and torch in turns on full rows
-    sk = Solver(cfg("cuda"), V, device=dev)
+    sk = make_solver(cfg("cuda"), V, dev)
     check(sk.cfg.model.encoder_dropout > 0 and sk.cfg.frontend.spec_augment,
           "[13] training draws are off")
     sk.cfg.train.log_every = 1
-    sk.fit([batch] * 5, steps=5)
+    sk.fit(OneBatch(batch), steps=5)
     losses = [r["loss"] for r in sk.log]
     print(f"[13] 5 Solver steps, ffn_impl=cuda (dropout 0.1, SpecAugment): "
           f"loss {[round(v, 4) for v in losses]}, grad_norm "
@@ -1952,7 +1999,7 @@ def flagship_ffn_phase(dev, card, kernels, counted, t_start, audio,
     check(len(losses) == 5 and all(math.isfinite(v) for v in losses)
           and all(bool(torch.isfinite(p).all())
                   for p in sk.model.parameters()), "[13] Solver steps")
-    st = Solver(cfg("torch"), V, device=dev)
+    st = make_solver(cfg("torch"), V, dev)
     full_batch = Batch(batch.audio, np.full(B, batch.audio.shape[1], np.int32),
                        batch.tokens, batch.token_lens)
 
@@ -1994,9 +2041,6 @@ def rung3_phase(dev, gen, card, kernels, counted, t_start, audio, audio_lens,
     from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
     from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
         TransformerEncoder,
-    )
-    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
-        Solver,
     )
 
     def cfg(impl: str, dropout: float | None = None):
@@ -2098,7 +2142,7 @@ def rung3_phase(dev, gen, card, kernels, counted, t_start, audio, audio_lens,
     host = lambda t: t.cpu().numpy().astype(np.int32)  # noqa: E731
     batch = Batch(audio.cpu().numpy(), host(audio_lens), host(tok),
                   host(tok_lens))
-    ks = Solver(cfg("cuda", 0.0), V, device=dev)
+    ks = make_solver(cfg("cuda", 0.0), V, dev)
     _with_table(ks.model, table)
     for fn in counted:
         fn.launches = 0
@@ -2112,7 +2156,7 @@ def rung3_phase(dev, gen, card, kernels, counted, t_start, audio, audio_lens,
           f"[14] step launch counts {counts}")
     kg = {n_: g.detach() for n_, g in zip(ks.names, kg)}
     del ks
-    ps = Solver(cfg("torch", 0.0), V, device=dev)
+    ps = make_solver(cfg("torch", 0.0), V, dev)
     _with_table(ps.model, table)
     pm, pg = ps.grads(batch, spec_mask=spec_mask)
     pg = {n_: g.detach() for n_, g in zip(ps.names, pg)}
@@ -2146,10 +2190,10 @@ def rung3_phase(dev, gen, card, kernels, counted, t_start, audio, audio_lens,
           "see the bias")
     del ps, pg, cg, kg
 
-    solver = Solver(cfg("cuda"), V, device=dev)
+    solver = make_solver(cfg("cuda"), V, dev)
     check(solver.cfg.model.encoder_dropout > 0, "[14] dropout is off")
     solver.cfg.train.log_every = 1
-    solver.fit([batch] * 5, steps=5)
+    solver.fit(OneBatch(batch), steps=5)
     losses = [r["loss"] for r in solver.log]
     print(f"[14] 5 rung 3 Solver steps (dropout 0.1, SpecAugment): loss "
           f"{[round(v, 4) for v in losses]}, grad_norm "
@@ -2240,8 +2284,14 @@ class ParentToeplitz:
 
 def device_ms(fn, name: str) -> float:
     """Device time per call of fn in kernels whose name holds `name`
-    (`kernel_split`)."""
-    return sum(t for k, t in kernel_split(fn).items() if name in k)
+    (`kernel_split`); where the profiler recorded none of them (it has
+    dropped a call's device activity), fn's time by CUDA events, said so."""
+    t = sum(t for k, t in kernel_split(fn).items() if name in k)
+    if t > 0:
+        return t
+    print(f"    the profiler recorded no {name} kernel: its device time by "
+          f"CUDA events instead", flush=True)
+    return cuda_ms(fn)
 
 
 def toeplitz_expand_phase(tag, diag, T_enc, P, parent, peaks, card) -> dict:
@@ -2656,9 +2706,6 @@ def rung4_phase(dev, gen, peaks, card, kernels, counted, t_start, audio,
         RnnLm,
         build_lm,
     )
-    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
-        Solver,
-    )
 
     def cfg(impl: str, dropout: float | None = None):
         c = libri960_conformer()
@@ -2763,7 +2810,7 @@ def rung4_phase(dev, gen, peaks, card, kernels, counted, t_start, audio,
     batch = Batch(audio[:Bt].cpu().numpy(), host(audio_lens[:Bt]), host(tok),
                   host(tok_lens))
     mask = spec_mask[:Bt]
-    ks = Solver(cfg("cuda", 0.0), V, device=dev)
+    ks = make_solver(cfg("cuda", 0.0), V, dev)
     _with_table(ks.model, table)
     for fn in counted:
         fn.launches = 0
@@ -2782,7 +2829,7 @@ def rung4_phase(dev, gen, peaks, card, kernels, counted, t_start, audio,
     wall_ms, kernel_ms, n = profile_step(lambda: ks.grads(batch,
                                                           spec_mask=mask), 1)
     del ks
-    ps = Solver(cfg("torch", 0.0), V, device=dev)
+    ps = make_solver(cfg("torch", 0.0), V, dev)
     _with_table(ps.model, table)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2826,6 +2873,465 @@ def rung4_phase(dev, gen, peaks, card, kernels, counted, t_start, audio,
           flush=True)
 
 
+def trainer_phase(dev, card, counted, t_start) -> None:
+    """[17] the trainer from a manifest: `cli.train.main` in process on the
+    flagship at full width (bf16, the kernels, SpecAugment and dropout on),
+    the phrases corpus (512 train and 64 dev utterances of 2.1-3.9 s), 20
+    steps with dev evaluations at 10 and 20, then `--resume` to 30. Checks:
+    launch counts of every train step and dev forward, none of the plain
+    versions; every array that `_put` copies in two fit steps is pinned
+    (the profiler's memcpy kinds a second witness), with a pageable
+    control that must fail, and the copied batches equal to the loader's; a checkpoint round trip bit for bit; the resumed run's first
+    batch, SpecAugment mask and loss against the uninterrupted run's step
+    21, with a fresh-generator control that must fail; the checkpoint
+    directory's files; the plateau decay against the dev records; the
+    vocabulary guard; dev logits of the kernels against plain torch, and
+    both WERs; time warp on the card against the CPU. Printed, not gated:
+    audio-s/s of fit against a plain pageable loop (5 pairs of turns in
+    alternating order), idle share, the batch copy's share of busy time
+    pinned and pageable, and the host syncs of one step."""
+    import itertools
+    import shutil
+    import tempfile
+    import warnings
+
+    from pytorch_end2end_speech_recognition_tpu_torch.cli import train as cli
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import (
+        BucketedLoader,
+        pin_batch,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.manifest import (
+        read_manifest,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.synthetic import (
+        make_phrases_corpus,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
+        CharTokenizer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.models import (
+        encoders as tenc,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import ctc as tctc
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import frontend as fe
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        specaugment as sa,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        resolve_device,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.metrics_log import (
+        MetricsLogger,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_17_"))
+    corpus = make_phrases_corpus(tmp / "corpus", n_train=512, n_dev=64,
+                                 n_test=1, seed=0)
+    ckpt = tmp / "ckpt"
+    args = ["--config", "flagship_conformer",
+            "--set", f"data.train_manifest={corpus['train']}",
+            "--set", f"data.dev_manifest={corpus['dev']}",
+            "--set", "data.batch_size=32",
+            "--set", "data.batch_frames=15360000",
+            "--set", "train.eval_every=10", "--set", "train.log_every=5",
+            "--set", "train.keep_checkpoints=2",
+            "--set", "train.schedule=plateau",
+            "--set", "train.plateau_patience=1",
+            "--set", f"train.checkpoint_dir={ckpt}",
+            "--set", f"train.metrics_path={ckpt / 'metrics.jsonl'}"]
+    print(f"[17] phrases corpus of 512 + 64 utterances written in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # every train step's and dev forward's launches, from the kernels'
+    # counters and from counters put on the plain versions the path would
+    # take off the card; the mask and loss of each step 21
+    plain = {"logmel_plain": (fe, "logmel_plain"),
+             "attention_plain": (tenc, "attention_plain"),
+             "toeplitz_expand": (tenc, "toeplitz_expand"),
+             "ctc_alpha_plain": (tctc, "ctc_alpha_plain")}
+    plain_calls = dict.fromkeys(plain, 0)
+    saved = {k: getattr(m, a) for k, (m, a) in plain.items()}
+
+    def counting(key):
+        def call(*a, **kw):
+            plain_calls[key] += 1
+            return saved[key](*a, **kw)
+        return call
+
+    def snap():
+        return {**{f.__name__: f.launches for f in counted}, **plain_calls}
+
+    per_step, per_dev, step21 = [], [], []
+    last_mask = []
+    orig_step, orig_greedy = Solver.train_step, Solver.greedy_ids
+    orig_mask = sa.spec_augment_mask
+
+    def mask_rec(*a, **kw):
+        m = orig_mask(*a, **kw)
+        last_mask[:] = [m]
+        return m
+
+    def step_rec(self, batch, *a, **kw):
+        before = snap()
+        m = orig_step(self, batch, *a, **kw)
+        after = snap()
+        per_step.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+        if self.step == 21:
+            step21.append((self, list(batch.ids), last_mask[0].clone(),
+                           float(m["loss"])))
+        return m
+
+    def greedy_rec(self, batch):
+        before = snap()
+        out = orig_greedy(self, batch)
+        after = snap()
+        per_dev.append({k: after[k] - before[k] for k in after
+                        if after[k] != before[k]})
+        return out
+
+    for key, (mod, attr) in plain.items():
+        setattr(mod, attr, counting(key))
+    sa.spec_augment_mask = mask_rec
+    Solver.train_step, Solver.greedy_ids = step_rec, greedy_rec
+    try:
+        t0 = time.perf_counter()
+        run1 = cli.main(args + ["--set", "train.steps=20"])
+        t_run1 = time.perf_counter() - t0
+        n_step1, n_dev1 = len(per_step), len(per_dev)
+        # the uninterrupted run goes on to step 21, logging nowhere (the
+        # CLI closed its file); other Solvers below write no metrics file
+        tok = run1.tokenizer
+        cfg = resolve_device(run1.cfg, dev)
+        cfg.train.metrics_path = ""
+        run1.logger = MetricsLogger(None, echo=False)
+        train_loader = BucketedLoader(read_manifest(corpus["train"]), tok,
+                                      cfg.data)
+        dev_loader = BucketedLoader(read_manifest(corpus["dev"]), tok,
+                                    cfg.data, train=False)
+        run1.fit(train_loader, steps=21)
+        t0 = time.perf_counter()
+        run2 = cli.main(args + ["--set", "train.steps=30", "--resume"])
+        t_run2 = time.perf_counter() - t0
+        # control: resumed from the same checkpoint with a fresh generator
+        ctl = Solver(cfg, tok, device=dev)
+        ctl.load_checkpoint("step_00000020")
+        ctl.generator.manual_seed(cfg.train.seed)
+        ctl.fit(train_loader, steps=21)
+    finally:
+        for key, (mod, attr) in plain.items():
+            setattr(mod, attr, saved[key])
+        sa.spec_augment_mask = orig_mask
+        Solver.train_step, Solver.greedy_ids = orig_step, orig_greedy
+    L = cfg.model.encoder_layers
+    want_step = {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
+                 "attention_bwd": L, "toeplitz_reduce": 1, "ctc_alpha": 1,
+                 "ctc_beta": 1}
+    want_dev = {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L}
+    n_dev_batches = len(dev_loader)
+    print(f"[17] cli.train to step 20 in {t_run1:.1f} s ({n_step1} train "
+          f"steps, {n_dev1} dev forwards = 2 evaluations x {n_dev_batches} "
+          f"dev batches, shapes {dev_loader.shape_set}); --resume to 30 in "
+          f"{t_run2:.1f} s; train shapes {train_loader.shape_set}",
+          flush=True)
+    bad_steps = [c for c in per_step if c != want_step]
+    bad_dev = [c for c in per_dev if c != want_dev]
+    print(f"[17] launches of each of {len(per_step)} train steps: "
+          f"{per_step[0]}; of each of {len(per_dev)} dev forwards: "
+          f"{per_dev[0]}; {len(bad_steps)} steps and {len(bad_dev)} "
+          f"forwards differ {(bad_steps + bad_dev)[:3]}; plain versions "
+          f"called: {plain_calls}",
+          flush=True)
+    check(n_step1 == 20 and n_dev1 == 2 * n_dev_batches
+          and len(per_step) == 20 + 1 + 10 + 1
+          and len(per_dev) == 3 * n_dev_batches,
+          "[17] wrong number of train steps or dev forwards")
+    check(not bad_steps and not bad_dev
+          and not any(plain_calls.values()),
+          "[17] launch counts differ from [8]'s or a plain version ran")
+
+    # files, the dev records and the plateau decay
+    names = sorted(p.name for p in ckpt.iterdir())
+    want_names = sorted(["tokenizer.json", "metrics.jsonl", "last",
+                         "last.config.json", "best", "best.config.json",
+                         "step_00000020", "step_00000020.config.json",
+                         "step_00000030", "step_00000030.config.json"])
+    rows = [json.loads(r) for r in open(ckpt / "metrics.jsonl")]
+    trains = [r for r in rows if r["tag"] == "train"]
+    devs = [r for r in rows if r["tag"] == "dev"]
+    print(f"[17] checkpoint directory: {names}; train records at steps "
+          f"{[r['step'] for r in trains]}, loss "
+          f"{[round(r['loss'], 4) for r in trains]}; dev records "
+          f"{[(r['step'], round(r['wer'], 4), r['lr_scale']) for r in devs]}",
+          flush=True)
+    check(names == want_names, f"[17] checkpoint files {names}")
+    check([r["step"] for r in trains] == [5, 10, 15, 20, 25, 30]
+          and [r["step"] for r in devs] == [10, 20, 30]
+          and all(math.isfinite(r["loss"]) for r in trains),
+          "[17] metrics.jsonl records")
+    scale, best, since = 1.0, float("inf"), 0
+    for r in devs:      # the reference's rule, replayed on the records
+        check(r["lr_scale"] == scale, f"[17] lr_scale at {r['step']}")
+        if r["wer"] < best:
+            best, since = r["wer"], 0
+        else:
+            since += 1
+            if since >= 1:
+                scale, since = scale * 0.5, 0
+    check(run2.lr_scale == scale and run2.best_wer == best,
+          f"[17] plateau: lr_scale {run2.lr_scale} (want {scale}), best "
+          f"{run2.best_wer} (want {best})")
+    print(f"[17] plateau: lr_scale {run2.lr_scale} after the dev WERs "
+          f"{[r['wer'] for r in devs]} (patience 1, factor 0.5)", flush=True)
+
+    # resume: step 21 of the resumed run against the uninterrupted run's
+    (s_a, ids_a, mask_a, loss_a), (s_b, ids_b, mask_b, loss_b), (
+        s_c, ids_c, mask_c, _) = step21
+    check(s_a is run1 and s_b is run2 and s_c is ctl, "[17] step 21 order")
+    d_loss = abs(loss_b - loss_a) / abs(loss_a)
+    mask_same = torch.equal(mask_a, mask_b)
+    ctl_same = ids_c == ids_a and torch.equal(mask_c, mask_a)
+    print(f"[17] resume: step 21 ids equal {ids_a == ids_b} ({len(ids_a)} "
+          f"rows), SpecAugment mask bits equal {mask_same}, loss "
+          f"{loss_a:.6f} vs {loss_b:.6f} (relative {d_loss:.2e}, tol "
+          f"{TOL_TRAIN_LOSS}); control, a fresh generator: ids equal "
+          f"{ids_c == ids_a}, mask equal {torch.equal(mask_c, mask_a)} "
+          f"(must differ)", flush=True)
+    check(ids_a == ids_b and mask_same and d_loss <= TOL_TRAIN_LOSS,
+          "[17] the resumed step 21 differs from the uninterrupted one")
+    check(not ctl_same, "[17] the mask check cannot see the generator")
+    del ctl, run1
+
+    # checkpoint round trip: what run 2 saved as 'last', loaded anew
+    rt = Solver(cfg, tok, device=dev)
+    rt.load_checkpoint("last")
+    got, want = rt.opt.state_dict(), run2.opt.state_dict()
+    pairs = (list(zip(rt.params, run2.params))
+             + list(zip(got["m1"] + got["m2"], want["m1"] + want["m2"]))
+             + [(rt.generator.get_state(), run2.generator.get_state())])
+    n_diff = sum(int((a != b).sum()) for a, b in pairs)
+    print(f"[17] checkpoint round trip: {len(pairs)} tensors (parameters, "
+          f"optimizer moments, generator state), elements that differ: "
+          f"{n_diff}; count {got['count']} vs {want['count']}, step "
+          f"{rt.step}, cursor ({rt.cursor_epoch}, {rt.cursor_batch})",
+          flush=True)
+    check(n_diff == 0 and got["count"] == want["count"] and rt.step == 30
+          and (rt.cursor_epoch, rt.cursor_batch) == (run2.cursor_epoch,
+                                                     run2.cursor_batch),
+          "[17] checkpoint round trip not bit for bit")
+    # the vocabulary guard: a same-sized vocabulary of other symbols
+    other = CharTokenizer(charset="".join(
+        chr(0x100 + i) for i in range(tok.vocab_size - 4)))
+    rt.tokenizer = other
+    try:
+        rt.load_checkpoint("last")
+        guarded = False
+    except ValueError:
+        guarded = True
+    rt.tokenizer = tok
+    rt.load_checkpoint("last")
+    print(f"[17] vocab guard: another vocabulary of {other.vocab_size} ids "
+          f"raises ValueError: {guarded}; the same one loads", flush=True)
+    check(guarded, "[17] a checkpoint loaded with another vocabulary")
+
+    # dev parity: kernels against plain torch on the same weights
+    pcfg = resolve_device(cfg, dev)
+    pcfg.frontend.impl = "torch"
+    pcfg.model.attn_impl = pcfg.model.ctc_impl = "torch"
+    ps = Solver(pcfg, tok, device=dev)
+    ps.model.load_state_dict(run2.model.state_dict())
+    worst = 0.0
+    with torch.inference_mode():
+        for batch in dev_loader.epoch(0):
+            a = torch.as_tensor(batch.audio, device=dev)
+            al = torch.as_tensor(batch.audio_lens, device=dev)
+            enc, el = run2.model.encode(a, al)
+            penc, _ = ps.model.encode(a, al)
+            worst = max(worst, compare(
+                f"[17] dev batch {tuple(batch.audio.shape)}, kernels vs "
+                f"plain torch", run2.model.ctc_logits(enc),
+                ps.model.ctc_logits(penc), el))
+    wer_k, wer_p = run2.evaluate(dev_loader), ps.evaluate(dev_loader)
+    print(f"[17] dev logits max |d| {worst:.4f} (tol {TOL_LOGITS}); greedy "
+          f"dev WER kernels {wer_k:.4f}, plain torch {wer_p:.4f}", flush=True)
+    check(worst <= TOL_LOGITS, "[17] dev logits of the kernels disagree")
+    del ps, rt
+
+    # pinned copies: two fit steps under the profiler; the control is the
+    # same two batches through the pageable copy. In turns: pinned and
+    # pageable on the batches at one cursor, then pageable and pinned on
+    # the next two
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 2
+        kernel_ms, kinds = {}, {}
+        for ev in prof.key_averages():
+            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                t = getattr(ev, "self_device_time_total", None)
+                if t is None:
+                    t = ev.self_cuda_time_total
+                kernel_ms[ev.key] = t / 1e3 / 2
+                if "HtoD" in ev.key:
+                    kinds[ev.key] = kinds.get(ev.key, 0) + ev.count
+        busy = max(sum(kernel_ms.values()), 1e-9)
+        share = sum(t for k, t in kernel_ms.items() if "HtoD" in k) / busy
+        return kinds, share, busy, wall
+
+    def memcpys(kinds, what):
+        return sum(n for k, n in kinds.items() if what in k)
+
+    run2.logger = MetricsLogger(None, echo=False)
+    seen, put_log = [], []
+    orig_put = run2._put
+
+    def put_rec(batch):
+        # the exact check: is each of the 4 arrays `_put` copies pinned?
+        arrays = (batch.audio, batch.audio_lens, batch.tokens,
+                  batch.token_lens)
+        put_log.append(tuple(isinstance(a, torch.Tensor) and a.is_pinned()
+                             for a in arrays))
+        out = orig_put(batch)
+        if record_copies:
+            seen.append(tuple(t.clone() for t in out))
+        return out
+
+    def turn(kind, fn):
+        put_log.clear()
+        return kind, fn(), list(put_log)
+
+    def pinned_turn(cursor):
+        run2.cursor_epoch, run2.cursor_batch = cursor
+        return profiled(lambda: run2.fit(train_loader, steps=run2.step + 2))
+
+    def pageable_turn(batches):
+        return profiled(lambda: [run2.train_step(b) for b in batches])
+
+    c0 = (run2.cursor_epoch, run2.cursor_batch)
+    rep = train_loader.repeat(*c0)
+    first, second = [next(rep), next(rep)], [next(rep), next(rep)]
+    c1 = (c0[0], c0[1] + 2)
+    run2._put = put_rec
+    record_copies = True
+    turns = [turn("pinned", lambda: pinned_turn(c0))]
+    record_copies = False
+    turns += [turn("pageable", lambda: pageable_turn(first)),
+              turn("pageable", lambda: pageable_turn(second)),
+              turn("pinned", lambda: pinned_turn(c1))]
+    del run2._put
+    n_bad = sum(int((a.cpu() != torch.as_tensor(b)).sum())
+                for got_b, want_b in zip(seen, first)
+                for a, b in zip(got_b, (want_b.audio, want_b.audio_lens,
+                                        want_b.tokens, want_b.token_lens)))
+    for kind, (kinds, share, busy, wall), flags in turns:
+        print(f"[17] two steps, {kind} batches: arrays pinned at _put "
+              f"{[sum(f) for f in flags]} of 4 a step; the profiler's "
+              f"host-to-device copies {kinds}; copy share of busy time "
+              f"{share:.4f}, busy {busy:.3f} ms a step, wall {wall:.3f} ms "
+              f"(idle share {1 - busy / wall:.3f}); {card}", flush=True)
+    print(f"[17] the fit steps' copied batches: elements that differ from "
+          f"the loader's {n_bad}; the pageable turns must fail the pinned "
+          f"check", flush=True)
+    # gated: every array pinned at `_put` (exact), and no pageable copy
+    # in the profile of a pinned turn; the profiler's counts are a second
+    # witness only, as it has listed 2 of a step's 4 copies and, in one
+    # call, no device activity at all
+    check(all(len(flags) == 2 and all(all(f) for f in flags)
+              and memcpys(kinds, "Pageable") == 0
+              for kind, (kinds, *_), flags in turns if kind == "pinned")
+          and n_bad == 0,
+          "[17] the batch copies are not all pinned, or differ from the "
+          "loader")
+    check(all(len(flags) == 2 and not any(any(f) for f in flags)
+              for kind, _, flags in turns if kind == "pageable"),
+          "[17] the pinned check cannot see a pageable copy")
+    # fit's throughput over 10 steps (loader, prefetch and pinning
+    # included) against the same 10 batches loaded and copied pageable in
+    # a plain loop, without the profiler: 5 pairs of turns from one
+    # cursor, the order alternating
+    c2 = (run2.cursor_epoch, run2.cursor_batch)
+
+    def fit_turn():
+        run2.cursor_epoch, run2.cursor_batch = c2
+        run2.fit(train_loader, steps=run2.step + 10)
+
+    def loop_turn():
+        rep = train_loader.repeat(*c2)
+        for _ in range(10):
+            run2.train_step(next(rep))
+
+    secs = sum(float(b.audio_lens.sum()) for b in
+               itertools.islice(train_loader.repeat(*c2), 10)) / SR
+    rates = {"fit": [], "loop": []}
+    for i in range(10):
+        kind = ("fit", "loop")[(i + i // 2) % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (fit_turn if kind == "fit" else loop_turn)()
+        torch.cuda.synchronize()
+        rates[kind].append(secs / (time.perf_counter() - t0))
+    for kind, name in (("fit", "fit (prefetch, pinned)"),
+                       ("loop", "a loop loading each batch and copying it "
+                                "pageable")):
+        r = sorted(rates[kind])
+        print(f"[17] audio-s/s over 10 steps ({secs:.1f} audio-s), {name}: "
+              f"median {statistics.median(r):.1f} of 5 turns (min "
+              f"{r[0]:.1f}, max {r[-1]:.1f}); {card}", flush=True)
+    print(f"[17] fit's last train record in cli.train (evaluations and "
+          f"checkpoints included): {trains[-1]['audio_s_per_s']:.1f} "
+          f"audio-s/s; {card}", flush=True)
+
+    # host syncs of one train step, on a pinned batch and on the same
+    # batch pageable
+    batch = next(rep)
+    for kind, b in (("pinned", pin_batch(batch)), ("pageable", batch)):
+        run2.train_step(b)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run2.train_step(b)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = [f"{Path(w.filename).name}:{w.lineno} ({w.message})"
+                 for w in caught if "synchronizing" in str(w.message)]
+        print(f"[17] host syncs in one train step on a {kind} batch: "
+              f"{len(syncs)}", flush=True)
+        for line in syncs:
+            print(f"    {line[:160]}")
+
+    # time warp on the card against the CPU, the same injected draws
+    g = torch.Generator().manual_seed(17)
+    feats = torch.randn(4, 300, 80, generator=g)
+    flens = torch.tensor([300, 250, 120, 0])
+    draws = (20 + torch.randint(0, 200, (4, 1), generator=g),
+             torch.randint(-20, 21, (4, 1), generator=g))
+    w_cpu = sa.time_warp(feats, flens, 20, draws=draws)
+    w_gpu = sa.time_warp(feats.to(dev), flens.to(dev), 20,
+                         draws=tuple(d.to(dev) for d in draws))
+    d_warp = float((w_gpu.cpu() - w_cpu).abs().max())
+    print(f"[17] time warp (W 20) on the card vs the CPU: max |d| "
+          f"{d_warp:.2e} (tol 1e-6); {time.perf_counter() - t_phase:.1f} s "
+          f"for [17], {time.perf_counter() - t_start:.0f} s since start",
+          flush=True)
+    check(d_warp <= 1e-6 and not torch.equal(w_cpu, feats),
+          "[17] time warp differs on the card")
+    del run2
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def train_seed_sweep(seeds: list[int]) -> int:
     """`python3 chip_smoke.py --train-seeds 0,1,2`: the train-step
     comparisons of [8] (the kernels, ffn_impl=torch) and [13]
@@ -2845,9 +3351,6 @@ def train_seed_sweep(seeds: list[int]) -> int:
     from pytorch_end2end_speech_recognition_tpu_torch.ops import frontend as fe
     from pytorch_end2end_speech_recognition_tpu_torch.ops.specaugment import (
         spec_augment_mask,
-    )
-    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
-        Solver,
     )
     from pytorch_end2end_speech_recognition_tpu_torch.utils import device as dv
     from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
@@ -2902,7 +3405,7 @@ def train_seed_sweep(seeds: list[int]) -> int:
         for tag, c in (("plain", cfg("torch", "torch")),
                        ("[8]", cfg("cuda", "torch")),
                        ("[13]", cfg("cuda", "cuda"))):
-            sv = Solver(c, V, device=dev)
+            sv = make_solver(c, V, dev)
             with torch.no_grad():
                 sv.model.encoder.rel.table.copy_(table)
             m, g = sv.grads(batch, spec_mask=spec_mask)
@@ -3787,9 +4290,6 @@ def main() -> int:
     from pytorch_end2end_speech_recognition_tpu_torch.ops.specaugment import (
         spec_augment_mask,
     )
-    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
-        Solver,
-    )
 
     tok = 1 + torch.cumsum(torch.randint(1, V - 1, (B, U_TOKENS), device=dev,
                                          generator=gen), 1) % (V - 1)
@@ -3815,7 +4315,7 @@ def main() -> int:
     def solver_with_table(impl: str, tbl, remat: bool = False) -> "Solver":
         c = train_cfg(impl, 0.0)
         c.model.remat = remat
-        sv = Solver(c, V, device=dev)
+        sv = make_solver(c, V, dev)
         with torch.no_grad():
             sv.model.encoder.rel.table.copy_(tbl)
         return sv
@@ -3917,11 +4417,11 @@ def main() -> int:
 
     # five Solver steps on the kernels, dropout 0.1 and SpecAugment drawn
     # from the Solver's generator on the card
-    solver = Solver(flagship_conformer(), V, device=dev)
+    solver = make_solver(flagship_conformer(), V, dev)
     check(solver.cfg.model.encoder_dropout > 0
           and solver.cfg.frontend.spec_augment, "training draws are off")
     solver.cfg.train.log_every = 1
-    solver.fit([batch] * 5, steps=5)
+    solver.fit(OneBatch(batch), steps=5)
     losses = [r["loss"] for r in solver.log]
     print(f"[8] 5 Solver steps (dropout 0.1, SpecAugment on): loss "
           f"{[round(x, 4) for x in losses]}, grad_norm "
@@ -4182,6 +4682,9 @@ def main() -> int:
     rung4_phase(dev, torch.Generator(device=dev).manual_seed(16), peaks, card,
                 kernels, COUNTED, t_start, audio, audio_lens, full_lens,
                 spec_mask)
+
+    # ---- [17] the trainer from a manifest: cli.train and --resume
+    trainer_phase(dev, card, COUNTED, t_start)
 
     order = ("logmel", "toeplitz", "attention", "attention_bwd",
              "toeplitz_reduce", "flash_attention", "flash_attention_bwd",

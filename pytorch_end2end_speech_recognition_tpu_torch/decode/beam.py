@@ -24,9 +24,9 @@ SYNC_EVERY steps to leave the loop. The decoder's and LM's K/V caches
 are gathered only over the positions written so far: the rest are zero in
 every row.
 
-`decode_batch` of the reference also turns ids into text, which needs a
-tokenizer; the port has the id-level path (`decode_ids`) until the
-tokenizer is ported. Decoding over a device mesh is not ported yet.
+`decode_batch` runs the whole pipeline on a loader's batch and turns the
+N-best ids into text with the tokenizer; `decode_ids` stops at the ids.
+Decoding over a device mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -130,6 +130,28 @@ class BeamSearchDecoder:
         min_lens = (enc_lens.float() * self.cfg.min_decode_ratio).to(
             torch.int32)
         return self.search_arrays(enc, enc_lens, ctc_logp, max_len, min_lens)
+
+    def decode_batch(self, batch, tokenizer) -> list[list[dict]]:
+        """A bucketed batch -> per-utterance N-best dicts {'text', 'tokens',
+        'score'}, best first (`cfg.nbest` of them; [] for pad rows)."""
+        dev = next(self.model.parameters()).device
+        out = self.decode_ids(torch.as_tensor(batch.audio, device=dev),
+                              torch.as_tensor(batch.audio_lens, device=dev))
+        tokens = out["tokens"].cpu().numpy()
+        lengths = out["lengths"].cpu().numpy()
+        scores = out["scores"].cpu().numpy()
+        results = []
+        for b in range(tokens.shape[0]):
+            if batch.audio_lens[b] == 0:
+                results.append([])
+                continue
+            nbest = []
+            for k in range(min(self.cfg.nbest, tokens.shape[1])):
+                toks = tokens[b, k, :lengths[b, k]].tolist()
+                nbest.append({"text": tokenizer.decode(toks), "tokens": toks,
+                              "score": float(scores[b, k])})
+            results.append(nbest)
+        return results
 
     def _prefix(self, lp, r_state, last, lengths, cand):
         if self.prefix_kernel:

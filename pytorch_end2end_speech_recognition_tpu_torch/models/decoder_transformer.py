@@ -141,10 +141,12 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, enc: torch.Tensor, enc_lens: torch.Tensor,
                 tokens: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                return_attn: bool = False):
         """Teacher-forced log-probs (B, U+1, V) for targets [tokens, eos]
         from inputs [sos, tokens], causal self-attention, cross-attention to
-        the frames t < enc_lens[b]."""
+        the frames t < enc_lens[b]; with `return_attn` also the last
+        block's cross-attention weights averaged over heads (B, U+1, T)."""
         B, T, _ = enc.shape
         U1 = tokens.shape[1] + 1
         sos = torch.full((B, 1), SOS_EOS_ID, dtype=torch.long,
@@ -160,9 +162,12 @@ class TransformerDecoder(nn.Module):
         for blk in self.blocks:
             q, sk, sv = blk.self_qkv(x)
             ck, cv = blk.cross_kv(enc)
-            x, _ = blk.run(x, q, sk, sv, self_mask, ck, cv, cross_mask, train,
+            x, w = blk.run(x, q, sk, sv, self_mask, ck, cv, cross_mask, train,
                            generator)
-        return F.log_softmax(self._logits(x), dim=-1)
+        logps = F.log_softmax(self._logits(x), dim=-1)
+        if return_attn:
+            return logps, w.mean(dim=1)
+        return logps
 
     def _logits(self, x):
         return _linear(_layer_norm(x, self.ln_out), self.proj, self.dt).float()

@@ -6,7 +6,8 @@ folded in, the mel projection another product. `Frontend` keeps the bases
 as buffers and runs the fused kernel (`ops/frontend_kernel.py`) when its
 implementation is 'cuda', the same arithmetic in plain torch when 'torch'.
 HTK mel scale, triangular filters, no normalization. `logmel_np` is the
-numpy oracle for tests.
+numpy oracle for tests, and `compute_global_cmvn` runs it over a manifest
+to write the statistics that `cmvn='global'` reads.
 """
 
 from __future__ import annotations
@@ -176,6 +177,35 @@ class Frontend(nn.Module):
             feats = (feats - self.global_mean) / self.global_std
             feats = torch.where(mask, feats, torch.zeros((), device=feats.device))
         return feats, flens
+
+
+def compute_global_cmvn(manifest_path: str, cfg: FrontendConfig,
+                        out_path: str, max_utts: int = 2000) -> dict:
+    """Log-mel mean and std over the frames of a manifest's first
+    `max_utts` utterances, computed on the host with `logmel_np`, written
+    as the JSON {mean, std, frames} that `cmvn='global'` reads."""
+    from pytorch_end2end_speech_recognition_tpu_torch.data.audio import (
+        load_audio,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.manifest import (
+        read_manifest,
+    )
+
+    s0, s1, s2 = 0, None, None
+    for u in read_manifest(manifest_path)[:max_utts]:
+        f = logmel_np(load_audio(u.audio, cfg.sample_rate), cfg)
+        if s1 is None:
+            s1 = f.sum(axis=0)
+            s2 = (f ** 2).sum(axis=0)
+        else:
+            s1 += f.sum(axis=0)
+            s2 += (f ** 2).sum(axis=0)
+        s0 += f.shape[0]
+    mean = s1 / max(s0, 1)
+    std = np.sqrt(np.maximum(s2 / max(s0, 1) - mean ** 2, 1e-8))
+    stats = {"mean": mean.tolist(), "std": std.tolist(), "frames": int(s0)}
+    Path(out_path).write_text(json.dumps(stats))
+    return stats
 
 
 def cmvn_utt(feats: torch.Tensor, frame_lens: torch.Tensor) -> torch.Tensor:

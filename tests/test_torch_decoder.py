@@ -73,6 +73,26 @@ def test_teacher_forced_pass_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+def test_return_attn_matches_jax():
+    """`return_attn`: the last block's cross-attention weights averaged
+    over heads (B, U+1, T), which the Solver's attention image reads; the
+    same log-probs as without it."""
+    rng = np.random.default_rng(1)
+    jd, td = _pair()
+    enc, enc_lens, tokens, token_lens = _batch(rng)
+    jlp, jw = jd(jnp.asarray(enc), jnp.asarray(enc_lens), jnp.asarray(tokens),
+                 jnp.asarray(token_lens), return_attn=True)
+    args = (torch.from_numpy(enc), torch.from_numpy(enc_lens),
+            torch.from_numpy(tokens))
+    lp, w = td(*args, return_attn=True)
+    assert w.shape == (4, 7, 17)
+    assert torch.equal(lp, td(*args))
+    np.testing.assert_allclose(w.detach().numpy(), np.asarray(jw), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(lp.detach().numpy(), np.asarray(jlp),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("ls", [0.0, 0.1])
 def test_attention_ce_and_hybrid_loss_match_jax(ls):
     """EOS at token_lens, label smoothing, pad rows excluded; the hybrid

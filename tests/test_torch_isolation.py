@@ -82,6 +82,24 @@ def test_beam_slice_modules_stand_alone(module):
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", [
+    "data.manifest", "data.audio", "data.flac", "data.tokenizer",
+    "data.synthetic", "data.dataset", "metrics.wer", "utils.metrics_log",
+    "training.checkpoint", "training.schedules", "ops.specaugment",
+    "ops.frontend", "training.solver", "decode.beam", "cli.train",
+    "cli.score", "cli.average_ckpts"])
+def test_trainer_host_modules_stand_alone(module):
+    """The trainer's host side (its sixteen modules and the beam's text
+    path) exists, is among the modules imported with JAX blocked below,
+    and imports neither JAX nor the JAX package, not even the JAX
+    package's jax-free modules: the port keeps its own copies."""
+    name = f"{PKG.name}.{module}"
+    assert name in MODULES
+    path = PKG.joinpath(*module.split(".")).with_suffix(".py")
+    bad = [n for n in _imported(path) if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
 def test_every_module_imports_with_jax_blocked():
     blocked = "; ".join(f"sys.modules[{n!r}] = None" for n in FORBIDDEN)
     code = (f"import sys; {blocked}; import importlib; "

@@ -253,7 +253,8 @@ def train_case(tmp_path_factory):
     new_params, _, _, jm = js._train_step(
         js.params, js.opt_state, js.rest, *arrays, key,
         jnp.asarray(1.0, jnp.float32))
-    ts = Solver(tcfg, VOCAB, device="cpu")
+    tcfg.train.metrics_path = ""
+    ts = Solver(tcfg, case_mod.tokenizer_of(VOCAB), device="cpu")
     missing, unexpected = ts.model.load_state_dict(
         bridge.state_dict_from_jax(flat0), strict=False)
     assert not unexpected and all(k.startswith("frontend.") for k in missing)

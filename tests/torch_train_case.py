@@ -112,13 +112,27 @@ def build(tmp_dir, layers: int = 4, Ts: int = 20480, ragged: int = 12000,
                 mask=torch.from_numpy(mask))
 
 
+def tokenizer_of(vocab_size: int):
+    """A character tokenizer of `vocab_size` ids (the Solver's vocabulary
+    comes from its tokenizer)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
+        N_SPECIAL,
+        CharTokenizer,
+    )
+
+    return CharTokenizer(charset="".join(
+        chr(0x100 + i) for i in range(vocab_size - N_SPECIAL - 1)))
+
+
 def port_solver(case):
-    """The port's Solver on the CPU with the JAX weights bridged in."""
+    """The port's Solver on the CPU with the JAX weights bridged in (no
+    metrics file)."""
     from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
         Solver,
     )
 
-    solver = Solver(case["tcfg"], VOCAB, device="cpu")
+    case["tcfg"].train.metrics_path = ""
+    solver = Solver(case["tcfg"], tokenizer_of(VOCAB), device="cpu")
     missing, unexpected = solver.model.load_state_dict(
         bridge.state_dict_from_jax(case["flat0"]), strict=False)
     assert not unexpected and all(k.startswith("frontend.") for k in missing)
