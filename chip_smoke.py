@@ -162,7 +162,32 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    in turns with the same batches copied pageable (which must fail), the
    copied batches equal to the loader's; audio-s/s of fit, idle share,
    the copy's share of busy time and the host syncs of a step (printed,
-   not gated); time warp on the card against the CPU.
+   not gated); time warp on the card against the CPU;
+18. streaming: rung 4 with its RnnLm at 0.3 streams one 60 s speech-like
+   recording fed in 0.5 s pieces with the reference's defaults (chunk 8 s,
+   overlap 2 s, 64-frame beam chunks, a 256-frame window, 256 tokens, 16
+   steps a chunk, wait threshold -2.5): the launches of each encode window
+   (logmel 1, Toeplitz 1, attention 16, no plain version); the emitted
+   frames within 2 of the full-pass encode (the flash path); the streamed
+   logits against the same windows on the plain model, with a bias-zeroed
+   control; an4_ctc's StreamingTranscriber against plain torch (the LSTM
+   kernel through streaming) with a W_hh-zeroed control; the prefix
+   kernels at the window with a random pre-window column (r_init) against
+   their plain versions, with a control that drops it; after every beam
+   advance, the beam on the kernels against the same feeds with the plain
+   prefix scorer (tokens, lengths, finished flags equal; scores within
+   ctc_weight W 2^-22 (1 + |score|)); one score and one select launch a
+   token step; a feed of SYNC_EVERY token steps under
+   torch.cuda.set_sync_debug_mode('error') with a .item() control; the
+   carry's bytes and the peak memory equal after 20 s and 59.5 s;
+   `cli.train_lm` for 50 steps on [17]'s corpus, then
+   `cli.transcribe --streaming` greedy and beam with that LM on [17]'s
+   checkpoint (one JSON line a WAV, only the kernels launched). Printed,
+   not gated: the error against the full pass at overlaps 0.5 s and 3 s,
+   streaming audio-s/s greedy and beam, the latency of each 0.5 s feed,
+   advances and token steps, ms and kernels a token step and the idle
+   share under torch.profiler, lat_step's launches, and the prefix pair's
+   times at the window against their bound.
 
 It then prints the total time, the `kernels` JSON line, the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Without a card it
@@ -2873,7 +2898,7 @@ def rung4_phase(dev, gen, peaks, card, kernels, counted, t_start, audio,
           flush=True)
 
 
-def trainer_phase(dev, card, counted, t_start) -> None:
+def trainer_phase(dev, card, counted, t_start):
     """[17] the trainer from a manifest: `cli.train.main` in process on the
     flagship at full width (bf16, the kernels, SpecAugment and dropout on),
     the phrases corpus (512 train and 64 dev utterances of 2.1-3.9 s), 20
@@ -2891,7 +2916,6 @@ def trainer_phase(dev, card, counted, t_start) -> None:
     alternating order), idle share, the batch copy's share of busy time
     pinned and pageable, and the host syncs of one step."""
     import itertools
-    import shutil
     import tempfile
     import warnings
 
@@ -3329,7 +3353,550 @@ def trainer_phase(dev, card, counted, t_start) -> None:
     check(d_warp <= 1e-6 and not torch.equal(w_cpu, feats),
           "[17] time warp differs on the card")
     del run2
-    shutil.rmtree(tmp, ignore_errors=True)
+    # [18] trains an LM on the corpus and transcribes with the checkpoint
+    return tmp, corpus, ckpt
+
+
+STREAM_SECONDS, STREAM_FEED = 60, 0.5   # [18]: one stream, fed in 0.5 s
+AN4_STREAM_SECONDS = 20
+
+
+def _carry_bytes(carry) -> int:
+    """Bytes of every tensor a chunk-beam carry holds (nested states too)."""
+    n = 0
+    for v in carry.values():
+        if isinstance(v, dict):
+            n += nbytes(*v.values())
+        elif v is not None:
+            n += nbytes(v)
+    return n
+
+
+def _pieces(audio, seconds: float):
+    step = int(seconds * SR)
+    return [audio[i:i + step] for i in range(0, audio.shape[0], step)]
+
+
+def _stream_frames(enc_model, pieces, chunk_s=8.0, overlap_s=2.0):
+    """A StreamingEncoder over the pieces: (emitted enc frames, their CTC
+    logits, windows encoded)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.models.streaming import (
+        StreamingEncoder,
+    )
+
+    se = StreamingEncoder(enc_model, chunk_s, overlap_s)
+    runs = [0]
+    orig = se._run_window
+
+    def run(window):
+        runs[0] += 1
+        return orig(window)
+    se._run_window = run
+    state, outs_e, outs_l = se.init_stream(), [], []
+    for i, p in enumerate(pieces):
+        state, e, lg = se.process(state, p, final=i == len(pieces) - 1)
+        if len(e):
+            outs_e.append(e)
+            outs_l.append(lg)
+    return torch.cat(outs_e), torch.cat(outs_l), runs[0]
+
+
+def _rel_err(a, b) -> float:
+    n = min(len(a), len(b))
+    return float((a[:n].float() - b[:n].float()).abs().mean()
+                 / (b[:n].float().abs().mean() + 1e-6))
+
+
+def stream_phase(dev, gen, peaks, card, counted, t_start, trained) -> None:
+    """[18] streaming on the card. Rung 4 (`libri960_conformer`, bf16,
+    random weights, the bias table at std 4, its 2 x 650 RnnLm at 0.3,
+    beam 10, 40 candidates, ctc_weight 0.3) streams one 60 s speech-like
+    recording fed in 0.5 s pieces, with the reference's defaults (chunk
+    8 s, overlap 2 s, 64-frame beam chunks, a 256-frame window, 256
+    tokens, 16 steps a chunk, wait threshold -2.5). Checks: the launches of
+    each window (logmel 1, Toeplitz 1, attention 16, no plain version); the
+    emitted frames' count within 2 of the full-pass encode (flash path);
+    the streamed logits against the same windows on the plain model, with
+    a bias-zeroed control; an4_ctc's StreamingTranscriber against plain
+    torch (the LSTM kernel through streaming), with a W_hh-zeroed control;
+    the prefix kernels at the window with a non-trivial r_init against
+    their plain versions, with a control that drops it; after every beam
+    advance, the beam on the kernels against the same feeds with the plain
+    prefix scorer; one score and one select launch a token step; a feed of
+    SYNC_EVERY steps under the sync debugger; the carry's bytes and the
+    peak memory after 20 s and after 59.5 s; `cli.train_lm` on [17]'s
+    corpus, then `cli.transcribe --streaming` greedy and beam with the LM
+    on [17]'s checkpoint. Printed, not gated: the error against the full
+    pass at overlaps 0.5 and 3 s, streaming audio-s/s greedy and beam, the
+    latency of each 0.5 s feed, advances and token steps, ms and kernels a
+    token step and the idle share, lat_step's launches, and the prefix
+    pair's times against their bound."""
+    import contextlib
+    import io
+    import shutil
+
+    from pytorch_end2end_speech_recognition_tpu_torch.cli import train_lm
+    from pytorch_end2end_speech_recognition_tpu_torch.cli import transcribe
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        an4_ctc,
+        libri960_conformer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.audio import (
+        load_audio,
+        write_wav,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.manifest import (
+        read_manifest,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.decode import chunk_beam
+    from pytorch_end2end_speech_recognition_tpu_torch.decode.beam import (
+        SYNC_EVERY,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.decode.chunk_beam import (
+        ChunkBeamDecoder,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.models import (
+        encoders as tenc,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
+    from pytorch_end2end_speech_recognition_tpu_torch.models.lm import build_lm
+    from pytorch_end2end_speech_recognition_tpu_torch.models.streaming import (
+        StreamingBeamTranscriber,
+        StreamingTranscriber,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import ctc_prefix as cp
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import frontend as fe
+
+    t_phase = time.perf_counter()
+    tmp, corpus, ckpt = trained
+    # the plain versions the path would take off the card, counted
+    plain = {"logmel_plain": (fe, "logmel_plain"),
+             "attention_plain": (tenc, "attention_plain"),
+             "toeplitz_expand": (tenc, "toeplitz_expand"),
+             "prefix_recursion_plain": (chunk_beam, "prefix_recursion_plain"),
+             "prefix_select_plain": (chunk_beam, "prefix_select_plain")}
+    plain_calls = dict.fromkeys(plain, 0)
+    saved = {k: getattr(m, a) for k, (m, a) in plain.items()}
+
+    def counting(key):
+        def call(*a, **kw):
+            plain_calls[key] += 1
+            return saved[key](*a, **kw)
+        return call
+
+    def zero():
+        for fn in counted:
+            fn.launches = 0
+        for k in plain_calls:
+            plain_calls[k] = 0
+
+    def launches():
+        torch.cuda.synchronize()
+        return {**_launches(counted),
+                **{k: v for k, v in plain_calls.items() if v}}
+
+    def cfg(impl: str):
+        c = libri960_conformer()
+        c.model.vocab_size = V_RUNG4
+        if impl == "torch":
+            c.frontend.impl = "torch"
+            c.model.attn_impl = c.model.ctc_impl = "torch"
+        return c
+
+    L = 16
+    table = torch.randn(L, 8, 64, device=dev, generator=gen) * BIAS_STD
+    mk = _with_table(AsrModel(cfg("cuda"), device=dev, seed=0).eval(), table)
+    audio = speechlike(1, STREAM_SECONDS * SR, gen, dev)[0]
+    pieces = _pieces(audio, STREAM_FEED)
+    for key, (mod, attr) in plain.items():
+        setattr(mod, attr, counting(key))
+    try:
+        # ---- the encoder: launches per window, tiling, kernels vs plain
+        zero()
+        enc_k, log_k, windows = _stream_frames(mk, pieces)
+        counts = launches()
+        per_window = {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L}
+        print(f"[18] rung 4 streaming encode of {STREAM_SECONDS} s in "
+              f"{len(pieces)} feeds of {STREAM_FEED} s (chunk 8 s, overlap "
+              f"2 s): {windows} windows, launches {counts}", flush=True)
+        check(counts == {k: v * windows for k, v in per_window.items()},
+              f"[18] streaming encoder launches {counts} for {windows} "
+              "windows")
+        with torch.inference_mode():
+            full_lens = torch.tensor([STREAM_SECONDS * SR], device=dev)
+            zero()
+            enc_f, fl = mk.encode(audio[None], full_lens)
+            full_counts = launches()
+            full = enc_f[0, :int(fl[0])]
+        print(f"[18] emitted {len(enc_k)} frames; full-pass encode "
+              f"{len(full)} frames (T' {len(full)} > FLASH_T: {full_counts})"
+              f"; streamed vs full relative error {_rel_err(enc_k, full):.4f}"
+              f" at overlap 2 s", flush=True)
+        check(abs(len(enc_k) - len(full)) <= 2 and full_counts.get(
+            "flash_fwd", 0) == L, "[18] the emitted frames do not tile the "
+              "stream, or the full pass missed the flash path")
+        mp = _with_table(AsrModel(cfg("torch"), device=dev, seed=0).eval(),
+                         table)
+        _, log_p, _ = _stream_frames(mp, pieces)
+        n_t = torch.tensor([len(log_k)], device=dev)
+        compare(f"[18] rung 4 streamed logits, kernels vs plain torch on the "
+                f"same {windows} windows (bf16)", log_k[None], log_p[None],
+                n_t, need_sure=True)
+        with torch.no_grad():
+            mp.encoder.rel.table.zero_()
+        _, log_c, _ = _stream_frames(mp, pieces)
+        ctl = (log_k - log_c).abs().amax(-1).max().item()
+        print(f"[18] control, plain model with the relative bias zeroed: max "
+              f"|dlogit| {ctl:.4f} (must exceed {TOL_LOGITS})", flush=True)
+        check(ctl > TOL_LOGITS, "[18] the streamed-logit tolerance cannot "
+              "see the bias")
+        del mp, log_p, log_c
+        errs = {ov: _rel_err(_stream_frames(mk, pieces, 8.0, ov)[0], full)
+                for ov in (0.5, 3.0)}
+        print(f"[18] streamed vs full-pass encoder output, relative error: "
+              + ", ".join(f"overlap {k} s {v:.4f}" for k, v in errs.items()),
+              flush=True)
+
+        # ---- an4_ctc: the LSTM kernel through streaming
+        an4 = AsrModel(an4_ctc(), device=dev, seed=0).eval()
+        ref_cfg = an4_ctc()
+        ref_cfg.frontend.impl = "torch"
+        ref_cfg.model.lstm_impl = "torch"
+        an4_p = AsrModel(ref_cfg, device=dev, seed=0).eval()
+        a4 = speechlike(1, AN4_STREAM_SECONDS * SR, gen, dev)[0]
+        p4 = _pieces(a4, STREAM_FEED)
+        zero()
+        _, l4k, w4 = _stream_frames(an4, p4)
+        c4 = launches()
+        n_l = an4.cfg.model.encoder_layers
+        print(f"[18] an4_ctc streaming of {AN4_STREAM_SECONDS} s: {w4} "
+              f"windows, launches {c4}", flush=True)
+        check(c4 == {"logmel": w4, "lstm_fwd": n_l * w4},
+              f"[18] an4_ctc streaming launches {c4}")
+        _, l4p, _ = _stream_frames(an4_p, p4)
+        compare("[18] an4_ctc streamed logits, kernels vs plain torch",
+                l4k[None], l4p[None], torch.tensor([len(l4k)], device=dev),
+                need_sure=True, tol=TOL_AN4_LOGITS)
+        tok4 = tokenizer_of(an4.cfg.model.vocab_size)
+        st4 = StreamingTranscriber(an4, tok4)
+        st4p = StreamingTranscriber(an4_p, tok4)
+        t4k = st4.transcribe_stream(p4)
+        t4p = st4p.transcribe_stream(p4)
+        _zero_first_recurrence(an4_p)
+        _, l4c, _ = _stream_frames(an4_p, p4)
+        ctl4 = (l4k - l4c).abs().amax(-1).max().item()
+        print(f"[18] an4_ctc greedy streamed text equal to plain torch's: "
+              f"{t4k == t4p} ({len(t4k)} characters); control, layer 0's "
+              f"W_hh zeroed: max |dlogit| {ctl4:.4f} (must exceed "
+              f"{TOL_AN4_LOGITS})", flush=True)
+        check(ctl4 > TOL_AN4_LOGITS, "[18] the an4_ctc streaming tolerance "
+              "cannot see the recurrence")
+        del an4, an4_p
+
+        # ---- the prefix kernels at the window, with a pre-window column
+        lm = build_lm(mk.cfg.model, device=dev, seed=1).eval()
+        dcfg = mk.cfg.decode
+        K, Pk, Wn = dcfg.beam_size, dcfg.pre_beam_k, 256
+        lp_win = torch.log_softmax(log_k[:Wn].float(), -1)[None].contiguous()
+        r = (torch.randn(1, K, Wn, 2, device=dev, generator=gen).cumsum(2)
+             - 5.0)
+        r_init = torch.log_softmax(
+            torch.randn(1, K, 2, device=dev, generator=gen), -1) - 1.0
+        last = torch.randint(2, V_RUNG4, (1, K), device=dev, generator=gen)
+        lengths = torch.randint(1, 20, (1, K), device=dev, generator=gen)
+        cand = torch.rand(1, K, V_RUNG4 - 2, device=dev,
+                          generator=gen).argsort(-1)[..., :Pk] + 2
+        cand[:, :, 0] = last
+        parent = torch.randint(0, K, (1, K), device=dev, generator=gen)
+        is_ext = torch.rand(1, K, device=dev, generator=gen) < 0.7
+        tok = cand.gather(1, parent[..., None].expand(1, K, Pk))[:, :, 1]
+        psi_k = cp.ctc_prefix_score(lp_win, r, last, lengths, cand, r_init)
+        psi_p = cp.prefix_recursion_plain(lp_win, r, cand, last, lengths,
+                                          r_init=r_init)[0]
+        sel_k = cp.ctc_prefix_select(lp_win, r, last, lengths, parent, tok,
+                                     is_ext, r_init)
+        sel_p = cp.prefix_select_plain(lp_win, r, last, lengths, parent, tok,
+                                       is_ext, r_init=r_init)
+        ex = {"score": prefix_excess(psi_k, psi_p, Wn),
+              "select": prefix_excess(sel_k, sel_p, Wn)}
+        ctl_p = {"score": prefix_excess(cp.ctc_prefix_score(
+            lp_win, r, last, lengths, cand), psi_p, Wn),
+            "select": prefix_excess(cp.ctc_prefix_select(
+                lp_win, r, last, lengths, parent, tok, is_ext), sel_p, Wn)}
+        s_ms = cuda_ms(lambda: cp.ctc_prefix_score(lp_win, r, last, lengths,
+                                                   cand, r_init))
+        x_ms = cuda_ms(lambda: cp.ctc_prefix_select(
+            lp_win, r, last, lengths, parent, tok, is_ext, r_init))
+        s_plain = cuda_ms(lambda: cp.prefix_recursion_plain(
+            lp_win, r, cand, last, lengths, r_init=r_init), iters=2, warmup=1)
+        x_plain = cuda_ms(lambda: cp.prefix_select_plain(
+            lp_win, r, last, lengths, parent, tok, is_ext, r_init=r_init),
+            iters=2, warmup=1)
+        uniq = int(torch.unique(cand).numel()) + 1
+        s_b, s_by = bound(Wn * uniq * 4 + nbytes(r, r_init, cand, psi_k),
+                          27.0 * K * Pk * Wn / peaks["fp32_flops"], peaks)
+        n_ext = int(is_ext.sum())
+        x_b, x_by = bound(Wn * (n_ext + 1) * 4 + 2 * nbytes(sel_k)
+                          + nbytes(r_init),
+                          27.0 * n_ext * Wn / peaks["fp32_flops"], peaks)
+        print(f"[18] prefix kernels at the window (B 1, W {Wn}, V {V_RUNG4},"
+              f" K {K}, {Pk} candidates, a random pre-window column): "
+              f"score {ex['score']:.3e}, select {ex['select']:.3e} of the "
+              f"bound W 2^-22 (1 + |plain|) (each must be <= 1); control, "
+              f"r_init dropped: score {ctl_p['score']:.3e}, select "
+              f"{ctl_p['select']:.3e} (each must exceed 1); score kernel "
+              f"{s_ms:.4f} ms (plain {s_plain:.3f} ms, bound {s_b:.6f} ms by "
+              f"{s_by}), select kernel {x_ms:.4f} ms (plain {x_plain:.3f} "
+              f"ms, bound {x_b:.6f} ms by {x_by}); {card}", flush=True)
+        check(all(v <= 1.0 for v in ex.values())
+              and all(v > 1.0 for v in ctl_p.values()),
+              f"[18] windowed prefix kernels: {ex}, control {ctl_p}")
+
+        # ---- the chunk beam: kernels vs the plain scorer after every
+        # advance, launches, carry bytes and peak memory
+        tok_r4 = tokenizer_of(V_RUNG4)
+        sbt = StreamingBeamTranscriber(mk, tok_r4, dcfg, lm=lm)
+        check(sbt.cb.prefix_kernel and (sbt.cb.C, sbt.cb.W, sbt.cb.U,
+                                        sbt.cb.S, sbt.cb.tau)
+              == (64, 256, 256, 16, -2.5), "[18] chunk beam settings")
+        ref = ChunkBeamDecoder(mk, dcfg, lm=lm, prefix_impl="torch")
+        ref_carry = [ref.init(1)]
+        orig_feed = sbt.cb.feed
+        adv = []            # (steps, compared ok, max |d score| excess)
+
+        def feed_both(carry, e, lp, n, final=False, min_tokens=None):
+            carry, beam = orig_feed(carry, e, lp, n, final=final,
+                                    min_tokens=min_tokens)
+            before = dict(plain_calls)
+            ref_carry[0], rb = ref.feed(ref_carry[0], e, lp, n, final=final,
+                                        min_tokens=min_tokens)
+            plain_calls.update(before)  # the reference's calls: not counted
+            same = all(torch.equal(beam[k], rb[k])
+                       for k in ("tokens", "lengths", "finished"))
+            exc = ((beam["scores"] - rb["scores"]).abs()
+                   / (dcfg.ctc_weight * prefix_tol(sbt.cb.W)
+                      * (1 + rb["scores"].abs()))).max().item()
+            adv.append((beam["steps"], same, exc))
+            return carry, beam
+
+        sbt.cb.feed = feed_both
+        zero()
+        stream = sbt.init_stream()
+        carry_at, peak_at = {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, p in enumerate(pieces):
+            final = i == len(pieces) - 1
+            stream = sbt.feed(stream, p, final=final)
+            t_fed = (i + 1) * STREAM_FEED
+            if t_fed in (20.0, STREAM_SECONDS - STREAM_FEED):
+                torch.cuda.synchronize()
+                carry_at[t_fed] = _carry_bytes(stream.carry)
+                peak_at[t_fed] = torch.cuda.max_memory_allocated()
+        counts = launches()
+        sbt.cb.feed = orig_feed
+        steps = sum(a[0] for a in adv)
+        n_adv = len(adv)
+        bad = [i for i, a in enumerate(adv) if not a[1] or a[2] > 1.0]
+        print(f"[18] rung 4 chunk beam over {STREAM_SECONDS} s: {n_adv} "
+              f"advances, {steps} token steps ({steps / n_adv:.1f} an "
+              f"advance; the last, final one {adv[-1][0]}); launches "
+              f"{counts}; after every advance vs the plain prefix scorer: "
+              f"{n_adv - len(bad)} of {n_adv} with equal tokens, lengths "
+              f"and finished flags and scores within ctc_weight W 2^-22 (1 "
+              f"+ |score|) (largest {max(a[2] for a in adv):.3e})",
+              flush=True)
+        want = {k: v * windows for k, v in per_window.items()}
+        want.update(ctc_prefix_score=steps, ctc_prefix_select=steps)
+        check(not bad, f"[18] the chunk beam on the kernels differs from the "
+              f"plain scorer at advances {bad[:5]}")
+        check(counts == want, f"[18] chunk-beam stream launches {counts}, "
+              f"want {want}")
+        nb = sbt.final_nbest(stream)
+        print(f"[18] final best: {len(nb[0]['tokens']) if nb else 0} tokens,"
+              f" score {nb[0]['score'] if nb else float('nan'):.3f}; carry "
+              f"bytes after 20 s {carry_at[20.0]} and after "
+              f"{STREAM_SECONDS - STREAM_FEED} s "
+              f"{carry_at[STREAM_SECONDS - STREAM_FEED]}; peak memory "
+              f"{peak_at[20.0] / 2**20:.1f} MiB and "
+              f"{peak_at[STREAM_SECONDS - STREAM_FEED] / 2**20:.1f} MiB",
+              flush=True)
+        check(len(set(carry_at.values())) == 1
+              and peak_at[STREAM_SECONDS - STREAM_FEED]
+              <= peak_at[20.0] + 2 ** 20, "[18] the carry or the peak "
+              "memory grows with the stream")
+
+        # no host sync in a feed's token loop: SYNC_EVERY steps a chunk
+        cb8 = ChunkBeamDecoder(mk, dcfg, lm=lm, steps_per_chunk=SYNC_EVERY)
+        C = cb8.C
+        blocks = [(enc_k[s:s + C].float()[None],
+                   torch.log_softmax(log_k[s:s + C].float(), -1)[None])
+                  for s in (0, C)]
+        n_c = torch.full((1,), C, device=dev)
+        c8, _ = cb8.feed(cb8.init(1), *blocks[0], n_c)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            try:
+                torch.ones((), device=dev).item()
+                caught = False
+            except RuntimeError:
+                caught = True
+            c8, b8 = cb8.feed(c8, *blocks[1], n_c)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"[18] a chunk-beam feed of {b8['steps']} token steps under "
+              f"torch.cuda.set_sync_debug_mode('error'): no host sync; "
+              f"control, a .item() under the same mode raised: {caught} "
+              "(must be True)", flush=True)
+        check(caught and b8["steps"] == SYNC_EVERY,
+              "[18] the sync check is blind or the feed stopped early")
+        del cb8, c8, ref, ref_carry
+
+        # ---- printed: throughput, feed latency, the token step's profile
+        greedy = StreamingTranscriber(mk, tok_r4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy.transcribe_stream(pieces)
+        torch.cuda.synchronize()
+        g_rate = STREAM_SECONDS / (time.perf_counter() - t0)
+        stream, lat = sbt.init_stream(), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, p in enumerate(pieces):
+            t1 = time.perf_counter()
+            stream = sbt.feed(stream, p, final=i == len(pieces) - 1)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+        b_rate = STREAM_SECONDS / (time.perf_counter() - t0)
+        lat_s = sorted(lat)
+        print(f"[18] streaming throughput over {STREAM_SECONDS} s: greedy "
+              f"{g_rate:.1f} audio-s/s, beam (LM 0.3) {b_rate:.1f} audio-s/s"
+              f"; latency of a {STREAM_FEED} s feed, beam: median "
+              f"{statistics.median(lat):.1f} ms, p95 "
+              f"{lat_s[int(0.95 * (len(lat_s) - 1))]:.1f} ms, max "
+              f"{lat_s[-1]:.1f} ms (the final feed {lat[-1]:.1f} ms); "
+              f"{card}", flush=True)
+        prof_pieces = pieces[:int(20 / STREAM_FEED)]
+        run_steps = []
+        orig_cb = sbt.cb.feed
+
+        def feed_rec(*a, **kw):
+            out = orig_cb(*a, **kw)
+            run_steps.append(out[1]["steps"])
+            return out
+
+        def twenty():
+            run_steps.clear()
+            s = sbt.init_stream()
+            for p in prof_pieces:
+                s = sbt.feed(s, p)
+
+        sbt.cb.feed = feed_rec
+        wall_ms, kernel_ms, n = profile_step(twenty, 1)
+        sbt.cb.feed = orig_cb
+        busy = sum(kernel_ms.values())
+        n_steps = sum(run_steps)
+        print(f"[18] profile of 20 s of the beam stream ({len(run_steps)} "
+              f"advances, {n_steps} token steps): wall {wall_ms:.1f} ms, "
+              f"device busy {busy:.1f} ms (idle share "
+              f"{1 - busy / wall_ms:.3f}); {n:.0f} device kernels, "
+              f"{n / max(n_steps, 1):.0f} a token step on average (the "
+              f"encoder's included), {wall_ms / max(n_steps, 1):.2f} ms a "
+              f"token step; {card}", flush=True)
+        print_profile("[18] the same profile by group", wall_ms, kernel_ms, n,
+                      card)
+        # the GEMMs of one advance by input dtype: the decoder's projections
+        # run in the model's dtype on the float32 window, the LM and the
+        # attention products in float32
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class GemmDtypes(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.seen = {}
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.overloadpacket.__name__
+                # under inference mode `linear` and `matmul` arrive whole
+                if name in ("linear", "matmul", "mm", "addmm", "bmm"):
+                    dt = str(args[0].dtype).replace("torch.", "")
+                    key = f"{name} {dt}"
+                    self.seen[key] = self.seen.get(key, 0) + 1
+                return func(*args, **(kwargs or {}))
+
+        cb1 = ChunkBeamDecoder(mk, dcfg, lm=lm)
+        with GemmDtypes() as gd:
+            cb1.feed(cb1.init(1), *blocks[0], n_c)
+        print(f"[18] GEMM ops of one advance by input dtype: {gd.seen}",
+              flush=True)
+        check(any("bfloat16" in k for k in gd.seen),
+              "[18] the decoder's GEMMs are not in bf16")
+        del cb1
+        r_col = torch.zeros((1, K, 2), device=dev)
+        lp_last = lp_win[:, :64, :K].transpose(1, 2).contiguous()
+        lt_wall, lt_ms, lt_n = profile_step(
+            lambda: ChunkBeamDecoder.lat_step(r_col, lp_last,
+                                              lp_win[:, :64, 0]), 3)
+        print(f"[18] lat_step over a 64-frame chunk: {lt_n:.0f} kernel "
+              f"launches, device {sum(lt_ms.values()):.3f} ms, wall "
+              f"{lt_wall:.2f} ms an advance (an advance's wall "
+              f"{wall_ms / max(len(run_steps), 1):.1f} ms); {card}",
+              flush=True)
+
+        # ---- the CLIs on [17]'s checkpoint: train_lm, then transcribe
+        cfg_path = str(ckpt / "last.config.json")
+        lm_dir = str(tmp / "lm")
+        t0 = time.perf_counter()
+        _, ppl = train_lm.main(["--config", cfg_path, "--out", lm_dir,
+                                "--steps", "50", "--device", "cuda"])
+        t_lm = time.perf_counter() - t0
+        dev_utts = read_manifest(corpus["dev"])[:2]
+        wavs = [u.audio for u in dev_utts]
+        long_wav = str(tmp / "long.wav")
+        write_wav(long_wav, np.concatenate(
+            [load_audio(u.audio, SR) for u in read_manifest(corpus["dev"])
+             [:8]]), SR)
+        wavs.append(long_wav)
+        outs = {}
+        for mode, extra in (("greedy", []),
+                            ("beam", ["--mode", "beam", "--lm-checkpoint",
+                                      lm_dir, "--lm-weight", "0.3"])):
+            zero()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                transcribe.main(["--config", cfg_path, "--checkpoint-tag",
+                                 "last", "--streaming", "--device", "cuda"]
+                                + extra + wavs)
+            secs = time.perf_counter() - t0
+            lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+            outs[mode] = (lines, launches(), secs)
+        for mode, (lines, c, secs) in outs.items():
+            print(f"[18] cli.transcribe --streaming {mode}: {len(lines)} "
+                  f"lines for {len(wavs)} WAVs in {secs:.1f} s; launches "
+                  f"{c}; " + "; ".join(
+                      f"{Path(x['file']).name}: {x['text'][:40]!r}"
+                      for x in lines), flush=True)
+        gl, gc, _ = outs["greedy"]
+        bl, bc, _ = outs["beam"]
+        kern_only = all(k in ("logmel", "toeplitz_fwd", "attention_fwd",
+                              "ctc_prefix_score", "ctc_prefix_select")
+                        for c in (gc, bc) for k in c)
+        check([x["file"] for x in gl] == wavs and [x["file"] for x in bl]
+              == wavs and kern_only and gc.get("attention_fwd", 0) > 0
+              and bc.get("ctc_prefix_score", 0) > 0
+              and bc.get("ctc_prefix_score") == bc.get("ctc_prefix_select"),
+              "[18] cli.transcribe --streaming output or launches")
+        print(f"[18] cli.train_lm 50 steps on [17]'s corpus in {t_lm:.1f} s,"
+              f" dev perplexity {ppl:.2f}; {time.perf_counter() - t_phase:.1f}"
+              f" s for [18], {time.perf_counter() - t_start:.0f} s since "
+              "start", flush=True)
+    finally:
+        for key, (mod, attr) in plain.items():
+            setattr(mod, attr, saved[key])
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def train_seed_sweep(seeds: list[int]) -> int:
@@ -4684,7 +5251,10 @@ def main() -> int:
                 spec_mask)
 
     # ---- [17] the trainer from a manifest: cli.train and --resume
-    trainer_phase(dev, card, COUNTED, t_start)
+    trained = trainer_phase(dev, card, COUNTED, t_start)
+    # ---- [18] streaming: rung 4's encoder and chunk beam, an4_ctc, the CLIs
+    stream_phase(dev, torch.Generator(device=dev).manual_seed(18), peaks,
+                 card, COUNTED, t_start, trained)
 
     order = ("logmel", "toeplitz", "attention", "attention_bwd",
              "toeplitz_reduce", "flash_attention", "flash_attention_bwd",

@@ -1,7 +1,9 @@
 // The CTC prefix scorer of joint CTC/attention beam search.
 //
 // Replaces: pytorch_end2end_speech_recognition_tpu/decode/beam.py
-//   ctc_prefix_scores (:162), the lax.scan over the encoder frames at :204.
+//   ctc_prefix_scores (:162), the lax.scan over the encoder frames at :204;
+//   with r_init, decode/chunk_beam.py ctc_prefix_scores (:277), the scan at
+//   :293-315.
 //   It is no pl.pallas_call: on the TPU the scan compiles into the decode
 //   program, where PyTorch would run a Python loop of ~12 launches a frame.
 //
@@ -13,6 +15,10 @@
 // with r[-1] = (NEG_INF, empty ? 0 : NEG_INF) and log_add(a, b) = m +
 // log1pf(expf(-|a - b|)) for m = max(a, b) > NEG_INF / 2, else m: the
 // reference's arithmetic, with the accurate expf/log1pf (no fast-math).
+// With r_init (B, K, 2), r[-1] is the hypothesis's pre-window column
+// instead: the streaming beam (decode/chunk_beam.py:277-319 of the JAX
+// package) runs the same recursion over a sliding window of frames, chained
+// through the column carried from before the window.
 //
 // Bound on the H100: latency. Each chain is T dependent steps of three
 // log_adds (two expf + two log1pf on its critical path); at the widest
@@ -38,15 +44,23 @@ __device__ __forceinline__ float log_add(float a, float b) {
   return m > NEG_INF * 0.5f ? s : m;
 }
 
+// r[-1] of hypothesis bk: its pre-window column where r_init is given, else
+// (NEG_INF, 0) for the empty prefix and (NEG_INF, NEG_INF) otherwise.
+__device__ __forceinline__ float2 col_before(const float* __restrict__ r_init,
+                                             int bk, bool empty) {
+  if (r_init) return make_float2(r_init[2 * bk], r_init[2 * bk + 1]);
+  return make_float2(NEG_INF, empty ? 0.f : NEG_INF);
+}
+
 // One chain: prefix columns rp (T, 2) of a hypothesis whose last token is
-// `last` (empty: no tokens), extended by `tok`. With STORE, the extended
+// `last`, with r[-1] = r0, extended by `tok`. With STORE, the extended
 // prefix's columns go to out (T, 2). Returns psi.
 template <bool STORE>
 __device__ __forceinline__ float chain(const float* __restrict__ lpb,
                                        const float* __restrict__ rp,
-                                       int tok, bool same, bool empty, int T,
+                                       int tok, bool same, float2 r0, int T,
                                        int V, float2* __restrict__ out) {
-  float pn = NEG_INF, pb = empty ? 0.f : NEG_INF;  // r at t = -1
+  float pn = r0.x, pb = r0.y;  // r at t = -1
   float n = NEG_INF, b = NEG_INF, psi = NEG_INF;
   float lc = __ldg(lpb + tok), lbl = __ldg(lpb + BLANK);
   for (int t = 0; t < T; ++t) {
@@ -81,6 +95,7 @@ __global__ void ctc_prefix_score_kernel(const float* __restrict__ lp,
                                         const int* __restrict__ last,
                                         const int* __restrict__ lengths,
                                         const int* __restrict__ cand,
+                                        const float* __restrict__ r_init,
                                         float* __restrict__ psi, int K, int C,
                                         int T, int V) {
   const int bk = blockIdx.x;
@@ -90,7 +105,8 @@ __global__ void ctc_prefix_score_kernel(const float* __restrict__ lp,
   const int tok = cand[(size_t)bk * C + c];
   psi[(size_t)bk * C + c] = chain<false>(
       lp + (size_t)b * T * V, r_state + (size_t)bk * T * 2, tok,
-      tok == last[bk], lengths[bk] == 0, T, V, nullptr);
+      tok == last[bk], col_before(r_init, bk, lengths[bk] == 0), T, V,
+      nullptr);
 }
 
 // one thread per kept hypothesis (b, k): the recursion for (parent, tok)
@@ -102,6 +118,7 @@ __global__ void ctc_prefix_select_kernel(const float* __restrict__ lp,
                                          const int* __restrict__ parent,
                                          const int* __restrict__ tok,
                                          const uint8_t* __restrict__ is_ext,
+                                         const float* __restrict__ r_init,
                                          float* __restrict__ out, int B, int K,
                                          int T, int V) {
   const int bk = blockIdx.x * blockDim.x + threadIdx.x;
@@ -113,7 +130,7 @@ __global__ void ctc_prefix_select_kernel(const float* __restrict__ lp,
   if (is_ext[bk]) {
     const int c = tok[bk];
     chain<true>(lp + (size_t)b * T * V, rp, c, c == last[src],
-                lengths[src] == 0, T, V, dst);
+                col_before(r_init, src, lengths[src] == 0), T, V, dst);
   } else {
     const float2* s = reinterpret_cast<const float2*>(rp);
     for (int t = 0; t < T; ++t) dst[t] = s[t];
@@ -125,11 +142,12 @@ __global__ void ctc_prefix_select_kernel(const float* __restrict__ lp,
 extern "C" {
 
 // lp (B, T, V) float32; r_state (B, K, T, 2) float32; last, lengths (B, K)
-// int32; cand (B, K, C) int32 -> psi (B, K, C) float32. C <= 1024.
+// int32; cand (B, K, C) int32; r_init (B, K, 2) float32 or null -> psi (B,
+// K, C) float32. C <= 1024.
 int ctc_prefix_score_launch(const void* lp, const void* r_state,
                             const void* last, const void* lengths,
-                            const void* cand, void* psi, int B, int K, int C,
-                            int T, int V, void* stream) {
+                            const void* cand, const void* r_init, void* psi,
+                            int B, int K, int C, int T, int V, void* stream) {
   if (B < 1 || K < 1 || C < 1 || C > 1024 || T < 1 || V < 1)
     return (int)cudaErrorInvalidValue;
   const int threads = (C + 31) / 32 * 32;
@@ -137,17 +155,20 @@ int ctc_prefix_score_launch(const void* lp, const void* r_state,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(lp), static_cast<const float*>(r_state),
       static_cast<const int*>(last), static_cast<const int*>(lengths),
-      static_cast<const int*>(cand), static_cast<float*>(psi), K, C, T, V);
+      static_cast<const int*>(cand), static_cast<const float*>(r_init),
+      static_cast<float*>(psi), K, C, T, V);
   return static_cast<int>(cudaGetLastError());
 }
 
-// as above; parent, tok (B, K) int32, is_ext (B, K) bytes -> out (B, K, T,
-// 2) float32, the kept hypotheses' columns
+// as above; parent, tok (B, K) int32, is_ext (B, K) bytes, r_init (B, K, 2)
+// float32 or null (read at the parent) -> out (B, K, T, 2) float32, the kept
+// hypotheses' columns
 int ctc_prefix_select_launch(const void* lp, const void* r_state,
                              const void* last, const void* lengths,
                              const void* parent, const void* tok,
-                             const void* is_ext, void* out, int B, int K,
-                             int T, int V, void* stream) {
+                             const void* is_ext, const void* r_init,
+                             void* out, int B, int K, int T, int V,
+                             void* stream) {
   if (B < 1 || K < 1 || T < 1 || V < 1) return (int)cudaErrorInvalidValue;
   const int threads = 64;
   ctc_prefix_select_kernel<<<(B * K + threads - 1) / threads, threads, 0,
@@ -155,8 +176,8 @@ int ctc_prefix_select_launch(const void* lp, const void* r_state,
       static_cast<const float*>(lp), static_cast<const float*>(r_state),
       static_cast<const int*>(last), static_cast<const int*>(lengths),
       static_cast<const int*>(parent), static_cast<const int*>(tok),
-      static_cast<const uint8_t*>(is_ext), static_cast<float*>(out), B, K, T,
-      V);
+      static_cast<const uint8_t*>(is_ext), static_cast<const float*>(r_init),
+      static_cast<float*>(out), B, K, T, V);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -140,14 +140,22 @@ class TransformerLm(nn.Module):
         U, dev = kc.shape[1], kc.device
         rows = torch.arange(B, device=dev)
         pos = pos_v if per_row_pos else pos_v[:1].expand(B)
+        # per row, a position past the cache reads the last PE row and its
+        # write is dropped, as the reference's gather and scatter do (only
+        # rows out of lockstep get there: the streaming beam's dead ones)
+        pos_w = pos.clamp(max=U - 1) if per_row_pos else pos
         x = (self.embed(token.long()) * math.sqrt(self.D)
-             + pe_table(U, self.D, dev)[pos])[:, None, :]
+             + pe_table(U, self.D, dev)[pos_w])[:, None, :]
         self_mask = (torch.arange(U, device=dev)[None, :]
                      <= pos[:, None])[:, None, None, :]
         for li, blk in enumerate(self.blocks):
             q, k_new, v_new = blk.qkv(x)
-            kc[rows, pos, li] = k_new[:, 0]
-            vc[rows, pos, li] = v_new[:, 0]
+            kc[rows, pos_w, li] = (k_new[:, 0] if not per_row_pos else
+                                   torch.where((pos < U)[:, None], k_new[:, 0],
+                                               kc[rows, pos_w, li]))
+            vc[rows, pos_w, li] = (v_new[:, 0] if not per_row_pos else
+                                   torch.where((pos < U)[:, None], v_new[:, 0],
+                                               vc[rows, pos_w, li]))
             x = blk.run(x, q, kc[:, :, li], vc[:, :, li], self_mask)
         logits = self.proj(self.ln_out(x))[:, 0]
         return (F.log_softmax(logits, dim=-1),

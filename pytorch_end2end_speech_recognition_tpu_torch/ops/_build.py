@@ -60,12 +60,12 @@ SIGNATURES = {
     # lp, skip, sok, tlen, last, alpha, ll, g, grad, B, T, S, stream
     "ctc_beta_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _P],
-    # lp, r_state, last, lengths, cand, psi, B, K, C, T, V, stream
-    "ctc_prefix_score_launch": [_P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _P],
-    # lp, r_state, last, lengths, parent, tok, is_ext, out, B, K, T, V,
-    # stream
-    "ctc_prefix_select_launch": [_P] * 8 + [_I, _I, _I, _I, _P],
+    # lp, r_state, last, lengths, cand, r_init (or null), psi, B, K, C, T,
+    # V, stream
+    "ctc_prefix_score_launch": [_P] * 7 + [_I, _I, _I, _I, _I, _P],
+    # lp, r_state, last, lengths, parent, tok, is_ext, r_init (or null),
+    # out, B, K, T, V, stream
+    "ctc_prefix_select_launch": [_P] * 9 + [_I, _I, _I, _I, _P],
     # bwd, D, B, H, out (int[7]): the LSTM kernels' cluster plan
     "lstm_plan": [_I, _I, _I, _I, _P],
     # xg, whh, lens, h_all, c_all, D, B, T, H, stream

@@ -878,3 +878,137 @@ def test_beam_token_loop_never_syncs_the_host(dev, decoder, lm_type):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert out["steps"] == beam.SYNC_EVERY
+
+
+@pytest.mark.parametrize("B,T,V,K,C", [(1, 256, 1024, 10, 40),
+                                       (2, 24, 12, 3, 5)])
+def test_prefix_kernels_with_r_init_match_plain(dev, B, T, V, K, C):
+    """The prefix kernels at the streaming beam's window: r[-1] is each
+    hypothesis's pre-window column r_init (B, K, 2), here random and
+    finite; psi and the kept columns within T' 2^-22 (1 + |plain|) of the
+    plain versions given the same r_init, two launches bit for bit. The
+    control, the kernels without r_init, must leave that bound."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import ctc_prefix as cp
+
+    g = torch.Generator(device="cpu").manual_seed(T + 1)
+    lp = torch.log_softmax(torch.randn(B, T, V, generator=g) * 2, -1)
+    r = torch.randn(B, K, T, 2, generator=g).cumsum(2) - 5.0
+    r_init = torch.log_softmax(torch.randn(B, K, 2, generator=g), -1) - 1.0
+    last = torch.randint(2, V, (B, K), generator=g)
+    lengths = torch.randint(1, 4, (B, K), generator=g)
+    cand = torch.stack([torch.randperm(V - 2, generator=g)[:C] + 2
+                        for _ in range(B * K)]).reshape(B, K, C)
+    cand[:, :, 0] = last
+    parent = torch.randint(0, K, (B, K), generator=g)
+    is_ext = torch.rand(B, K, generator=g) < 0.7
+    tok = cand.gather(1, parent[..., None].expand(B, K, C))[:, :, 1]
+    lp, r, r_init, last, lengths, cand, parent, is_ext, tok = (
+        t.to(dev) for t in (lp, r, r_init, last, lengths, cand, parent,
+                            is_ext, tok))
+    tol = T * 2.0 ** -22
+
+    def excess(got, want):
+        return ((got - want).abs() / (tol * (1 + want.abs()))).max().item()
+
+    psi = cp.ctc_prefix_score(lp, r, last, lengths, cand, r_init)
+    want = cp.prefix_recursion_plain(lp, r, cand, last, lengths,
+                                     r_init=r_init)[0]
+    cols = cp.ctc_prefix_select(lp, r, last, lengths, parent, tok, is_ext,
+                                r_init)
+    want_cols = cp.prefix_select_plain(lp, r, last, lengths, parent, tok,
+                                       is_ext, r_init=r_init)
+    torch.cuda.synchronize()
+    assert excess(psi, want) <= 1.0 and excess(cols, want_cols) <= 1.0
+    assert torch.equal(psi, cp.ctc_prefix_score(lp, r, last, lengths, cand,
+                                                r_init))
+    assert torch.equal(cols, cp.ctc_prefix_select(
+        lp, r, last, lengths, parent, tok, is_ext, r_init))
+    assert excess(cp.ctc_prefix_score(lp, r, last, lengths, cand), want) > 1
+    assert excess(cp.ctc_prefix_select(lp, r, last, lengths, parent, tok,
+                                       is_ext), want_cols) > 1
+
+
+def _chunks(model, audio, lens, C):
+    """The encoder output and CTC log-probs of row 0 in chunks of C frames
+    (enc (1, C, D), logp (1, C, V), valid frames, final)."""
+    with torch.inference_mode():
+        enc, elens = model.encode(audio[:1], lens[:1])
+        logp = torch.log_softmax(model.ctc_logits(enc), -1)
+    T = int(elens[0])
+    out = []
+    for s in range(0, T, C):
+        n = min(C, T - s)
+        e = torch.zeros((1, C, enc.shape[2]), device=enc.device)
+        lp = torch.zeros((1, C, logp.shape[2]), device=enc.device)
+        e[0, :n], lp[0, :n] = enc[0, s:s + n].float(), logp[0, s:s + n]
+        out.append((e, lp, torch.full((1,), n, device=enc.device),
+                    s + C >= T))
+    return out
+
+
+def test_chunk_beam_on_the_kernels_matches_the_plain_prefix_scorer(dev):
+    """The streaming beam (small transformer-decoder model, RnnLm) fed the
+    same chunks with the prefix kernels and with the plain recursion: after
+    every advance the same tokens, lengths and finished flags, scores within
+    1e-4; one score and one select launch a token step."""
+    from pytorch_end2end_speech_recognition_tpu_torch.decode.chunk_beam import (
+        ChunkBeamDecoder,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import ctc_prefix as cp
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        DecodeConfig,
+    )
+
+    model, lm, audio, lens = _small_beam_model(dev)
+    dcfg = DecodeConfig(beam_size=4, pre_beam_k=8, lm_weight=0.3)
+    kw = dict(chunk_frames=16, window_frames=48, max_tokens=24,
+              steps_per_chunk=8)
+    kern = ChunkBeamDecoder(model, dcfg, lm=lm, **kw)
+    ref = ChunkBeamDecoder(model, dcfg, lm=lm, prefix_impl="torch", **kw)
+    ck, cr = kern.init(1), ref.init(1)
+    for e, lp, n, final in _chunks(model, audio, lens, 16):
+        before = (cp.ctc_prefix_score.launches, cp.ctc_prefix_select.launches)
+        ck, bk = kern.feed(ck, e, lp, n, final=final)
+        torch.cuda.synchronize()
+        steps = bk["steps"]
+        assert (cp.ctc_prefix_score.launches - before[0],
+                cp.ctc_prefix_select.launches - before[1]) == (steps, steps)
+        cr, br = ref.feed(cr, e, lp, n, final=final)
+        for key in ("tokens", "lengths", "finished"):
+            assert torch.equal(bk[key], br[key]), key
+        assert torch.allclose(bk["scores"], br["scores"], rtol=0, atol=1e-4)
+
+
+def test_chunk_beam_feed_never_syncs_the_host(dev):
+    """A feed of SYNC_EVERY token steps (steps_per_chunk = SYNC_EVERY, so
+    the loop never tests its flag) under the sync debugger's error mode,
+    after a first feed that builds what a process builds once; a .item()
+    under the same mode must raise."""
+    from pytorch_end2end_speech_recognition_tpu_torch.decode.beam import (
+        SYNC_EVERY,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.decode.chunk_beam import (
+        ChunkBeamDecoder,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        DecodeConfig,
+    )
+
+    model, lm, audio, lens = _small_beam_model(dev, "transformer",
+                                               "transformer")
+    cb = ChunkBeamDecoder(model, DecodeConfig(beam_size=4, pre_beam_k=8,
+                                              lm_weight=0.3,
+                                              coverage_penalty=0.1),
+                          lm=lm, chunk_frames=16, window_frames=48,
+                          steps_per_chunk=SYNC_EVERY)
+    chunks = _chunks(model, audio, lens, 16)
+    carry, _ = cb.feed(cb.init(1), *chunks[0][:3])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.ones((), device=dev).item()
+        carry, beam = cb.feed(carry, *chunks[1][:3])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert beam["steps"] == SYNC_EVERY
