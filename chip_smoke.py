@@ -187,7 +187,29 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    streaming audio-s/s greedy and beam, the latency of each 0.5 s feed,
    advances and token steps, ms and kernels a token step and the idle
    share under torch.profiler, lat_step's launches, and the prefix pair's
-   times at the window against their bound.
+   times at the window against their bound;
+19. serving bundles and the remaining CLIs: the flagship (seeded random
+   weights, the relative bias at BIAS_STD) saved as a checkpoint and
+   exported by `cli.export` in two processes at once, buckets (8, 30) and
+   (32, 30), and (1, 10) and (1, 60); an4_ctc's greedy bundle (8, 8);
+   rung 4's beam bundle (8, 10, beam 10, no LM). A fresh process (this
+   script with `--bundle-child`) loads the greedy bundles with
+   `serving.load_bundle` and transcribes 1 request of 7 s, 5 of 12-28 s,
+   32 of 3-30 s, 1 of 50 s and an4's 8 of 2-8 s: the tokens equal the live
+   model's greedy decode of the same padded batch; launches per call
+   log-mel 1, Toeplitz 1, attention 12 (10 and 30 s), log-mel 1, flash 12
+   (60 s), LSTM 2 (an4_ctc), no plain version; none of the port's models/,
+   training/ or decode/ modules imported; no tensor of a program off the
+   card but 0-d scalars; a control (the (32, 30) program exported with the
+   relative bias zeroed) differs on some row; the beam bundle's texts equal
+   the live decoder's and its prefix launches its token steps; `cli.decode`
+   greedy and beam on a synthetic manifest equal to the in-process
+   decodes, with the WER line and `--nbest-out`; `cli.main --test` equal
+   to `cli.decode`; `cli.demo --steps 20 --encoder conformer`; and
+   `cli.supervise` running `cli.train` for 20 steps to exit code 0.
+   Printed, not gated: each program's export time and each bundle's
+   bytes, the load time, and the (32, 30) bundle's transcribe audio-s/s
+   beside [6]'s live forward.
 
 It then prints the total time, the `kernels` JSON line, the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Without a card it
@@ -3899,6 +3921,532 @@ def stream_phase(dev, gen, peaks, card, counted, t_start, trained) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- [19] serving bundles and the remaining CLIs
+BUNDLE_SETS = (  # request set: (bundle, seconds of each request)
+    ("1 x 7 s", "short", (7.0,)),
+    ("5 x 12-28 s", "batch", (12.0, 16.0, 20.0, 24.0, 28.0)),
+    ("32 x 3-30 s", "batch", tuple(3.0 + 27.0 * i / 31 for i in range(32))),
+    ("1 x 50 s", "short", (50.0,)),
+)
+# the launches of one transcribe call of each bucket's program (no plain
+# version runs): the 10 s and 30 s buckets (T' 250, 750) take the dense
+# bias, the 60 s bucket (T' 1,498) the flash path, an4_ctc's LSTM 2 layers
+BUNDLE_LAUNCHES = {
+    (1, 10): {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": 12},
+    (8, 30): {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": 12},
+    (32, 30): {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": 12},
+    (1, 60): {"logmel": 1, "flash_fwd": 12},
+    (8, 8): {"logmel": 1, "lstm_fwd": 2},
+}
+# the operators' wrappers (their launch counters) and the plain versions
+# that the operators' CPU versions call, by module of ops/
+BUNDLE_KERNELS = (("frontend_kernel", "logmel"),
+                  ("attention_kernel", "toeplitz_fwd"),
+                  ("attention_kernel", "attention_fwd"),
+                  ("attention_kernel", "flash_fwd"),
+                  ("rnn_kernel", "lstm_fwd"), ("ffn_kernel", "ffn_fwd"))
+BUNDLE_PLAIN = (("frontend_kernel", "logmel_plain"),
+                ("attention_kernel", "toeplitz_expand"),
+                ("attention_kernel", "attention_plain"),
+                ("attention_kernel", "flash_fwd_plain"),
+                ("rnn_kernel", "lstm_fwd_plain"),
+                ("ffn_kernel", "ffn_fwd_plain"))
+V_AN4 = 32  # an4_ctc's character vocabulary
+
+
+def _program_tensors(prog):
+    """Every tensor a loaded program holds: parameters, buffers and the
+    constants set as attributes, by dotted name."""
+    out = {}
+    for mname, mod in prog.named_modules():
+        for n, v in vars(mod).items():
+            if isinstance(v, torch.Tensor):
+                out[f"{mname}.{n}".lstrip(".")] = v
+        for n, v in list(mod.named_parameters(recurse=False)) + list(
+                mod.named_buffers(recurse=False)):
+            out[f"{mname}.{n}".lstrip(".")] = v
+    return out
+
+
+def bundle_child(spec_path: str) -> int:
+    """[19]'s serving host, run as `python3 chip_smoke.py --bundle-child
+    SPEC` in a fresh process. It loads the bundles the spec names with
+    `serving.load_bundle` alone, transcribes each request set, and writes
+    (JSON) each set's token ids, bucket, launches and plain-version calls;
+    then the transcribe throughput of one set (the median of timed
+    windows), the load time, the programs' tensors that are not on the
+    card, and the port's models/, training/ and decode/ modules imported."""
+    import importlib
+
+    spec = json.loads(Path(spec_path).read_text())
+    ops = {m: importlib.import_module(f"{PKG}.ops.{m}")
+           for m, _ in BUNDLE_KERNELS}
+    plain_calls = {}
+    for mod, name in BUNDLE_PLAIN:
+        def counting(*a, _f=getattr(ops[mod], name), _n=name, **kw):
+            plain_calls[_n] = plain_calls.get(_n, 0) + 1
+            return _f(*a, **kw)
+        setattr(ops[mod], name, counting)
+    from pytorch_end2end_speech_recognition_tpu_torch.serving import (
+        load_bundle,
+    )
+
+    kernels = [getattr(ops[m], n) for m, n in BUNDLE_KERNELS]
+    t0 = time.perf_counter()
+    bundles = {k: load_bundle(d) for k, d in spec["bundles"].items()}
+    out = {"load_s": time.perf_counter() - t0, "sets": {}}
+    reqs = {}
+    for name, (key, npz) in spec["sets"].items():
+        req = np.load(npz)
+        reqs[name] = audios = [req[k] for k in req.files]
+        for fn in kernels:
+            fn.launches = 0
+        plain_calls.clear()
+        ids = bundles[key].transcribe_ids(audios)  # ends in a copy: synced
+        out["sets"][name] = {
+            "ids": ids,
+            "bucket": list(bundles[key]._pick_bucket(
+                len(audios), max(len(a) for a in audios))),
+            "launches": {fn.__name__: fn.launches for fn in kernels
+                         if fn.launches},
+            "plain": dict(plain_calls)}
+    key, name = spec["throughput"]
+    audios = reqs[name]
+    secs = sum(len(a) for a in audios) / SR
+    for _ in range(2):
+        bundles[key].transcribe(audios)
+    rates = []
+    for _ in range(WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            bundles[key].transcribe(audios)
+        rates.append(secs * ITERS / (time.perf_counter() - t0))
+    out["rates"] = rates
+    out["host_tensors"] = [
+        [key, list(bucket), tname, list(t.shape)]
+        for key, b in bundles.items() for bucket, prog in b._programs.items()
+        for tname, t in _program_tensors(prog).items()
+        if t.device.type != "cuda"]
+    out["n_tensors"] = sum(len(_program_tensors(p)) for b in bundles.values()
+                           for p in b._programs.values())
+    out["modules"] = sorted(
+        m for m in sys.modules if m.split(".")[:2] in (
+            [PKG, "models"], [PKG, "training"], [PKG, "decode"]))
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def _padded(audios, B: int, seconds: float):
+    """The bucket (B, seconds)'s batch of the requests, padded as
+    `ServingBundle.transcribe` pads them (numpy float32 and int32)."""
+    batch = np.zeros((B, int(seconds * SR)), np.float32)
+    lens = np.zeros((B,), np.int32)
+    for i, a in enumerate(audios):
+        batch[i, :len(a)] = a
+        lens[i] = len(a)
+    return batch, lens
+
+
+def _live_ids(model, audios, B, seconds, dev):
+    """The live model's greedy ids of the requests on the bucket's padded
+    batch."""
+    batch, lens = _padded(audios, B, seconds)
+    with torch.inference_mode():
+        *_, tok, tl = serve(model, torch.from_numpy(batch).to(dev),
+                            torch.from_numpy(lens).to(dev))
+    host = torch.cat([tl[:, None].to(tok.dtype), tok], 1).cpu().numpy()
+    return [host[i, 1:1 + host[i, 0]].tolist() for i in range(len(audios))]
+
+
+def _bundle_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.iterdir())
+
+
+def bundle_phase(dev, gen, card, counted, t_start, live_rate) -> None:
+    """[19] serving bundles and the remaining CLIs, at full width with
+    seeded random weights (the relative bias at BIAS_STD): the flagship's
+    checkpoint exported by `cli.export` in two subprocesses at once
+    (buckets (8, 30) and (32, 30); (1, 10) and (1, 60)), an4_ctc's greedy
+    bundle (8, 8) and rung 4's beam bundle (8, 10, beam 10, no LM) in
+    process; a fresh process loads the greedy bundles with `load_bundle`
+    and transcribes four request sets and an4's batch. Checks: each set's
+    tokens equal the live model's greedy decode of the same padded batch;
+    launches per call (log-mel 1, Toeplitz 1, attention 12 at 10 and 30 s;
+    log-mel 1, flash 12 at 60 s; LSTM 2 for an4_ctc), no plain version;
+    no model, training or decode module imported there; the programs hold
+    no tensor off the card but 0-d scalars; a control (the relative bias
+    zeroed before export) differs on at least one row; the beam bundle's
+    texts equal the live decoder's, its prefix launches its token steps;
+    `cli.decode` greedy and beam on a synthetic manifest equal to the
+    in-process decodes, the WER line and `--nbest-out`; `cli.main --test`
+    equal to `cli.decode`; `cli.demo --steps 20 --encoder conformer`
+    printing its result; `cli.supervise` running `cli.train` for 20 steps
+    to exit code 0. Printed, not gated: export seconds and bytes, load
+    time, the (32, 30) bundle's transcribe audio-s/s beside [6]'s live
+    forward."""
+    import ast
+    import contextlib
+    import io
+    import shutil
+    import subprocess
+    import tempfile
+    import threading
+    from types import SimpleNamespace
+
+    from pytorch_end2end_speech_recognition_tpu_torch.cli import (
+        decode as cli_decode,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.cli import demo as cli_demo
+    from pytorch_end2end_speech_recognition_tpu_torch.cli import main as cli_main
+    from pytorch_end2end_speech_recognition_tpu_torch.cli import (
+        supervise as cli_supervise,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.configs import presets
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import (
+        BucketedLoader,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.manifest import (
+        read_manifest,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.synthetic import (
+        make_phrases_corpus,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
+        N_SPECIAL,
+        CharTokenizer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.decode.beam import (
+        BeamSearchDecoder,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
+    from pytorch_end2end_speech_recognition_tpu_torch.serving import (
+        export_bundle,
+        load_bundle,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.serving.export import (
+        GreedyProgram,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_19_"))
+    procs = []
+
+    def launches():
+        return {f.__name__: f.launches for f in counted if f.launches}
+
+    def zero():
+        for f in counted:
+            f.launches = 0
+
+    try:
+        corpus = make_phrases_corpus(tmp / "corpus", n_train=64, n_dev=4,
+                                     n_test=16, seed=19)
+        texts = [u.text for u in read_manifest(corpus["train"])]
+        chars = sorted(set("".join(texts)) - {" "})
+        V = presets.flagship_conformer().model.vocab_size
+        tok = CharTokenizer(charset="".join(chars) + "".join(
+            chr(0x100 + i) for i in range(V - N_SPECIAL - 1 - len(chars))))
+        check(tok.vocab_size == V, f"[19] tokenizer of {tok.vocab_size} ids")
+        tok.save(tmp / "tokenizer.json")
+        cfg = presets.flagship_conformer()
+        cfg.data.tokenizer_path = str(tmp / "tokenizer.json")
+        cfg.data.test_manifest = str(corpus["test"])
+        cfg.train.checkpoint_dir = str(tmp / "flagship")
+        cfg.train.metrics_path = ""
+        cfg_path = tmp / "flagship.json"
+        cfg_path.write_text(cfg.to_json())
+        solver = Solver(cfg, tok, device=dev)
+        with torch.no_grad():
+            solver.model.encoder.rel.table.normal_(0.0, BIAS_STD,
+                                                   generator=gen)
+        solver.save_checkpoint("best")
+        model = solver.model.eval()
+
+        # the flagship's two bundles, exported at once in two processes
+        t_exp = time.perf_counter()
+        for key, bs, secs in (("batch", "8,32", "30"), ("short", "1", "10,60")):
+            procs.append((key, subprocess.Popen(
+                [sys.executable, "-m", f"{PKG}.cli.export", "--config",
+                 str(cfg_path), "--checkpoint-tag", "best", "--out-dir",
+                 str(tmp / f"bundle_{key}"), "--batch-sizes", bs,
+                 "--seconds", secs, "--device", dev.type], cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+
+        # meanwhile: the request sets and the live model's tokens
+        reqs, want = {}, {}
+        buckets = {"1 x 7 s": (1, 10), "5 x 12-28 s": (8, 30),
+                   "32 x 3-30 s": (32, 30), "1 x 50 s": (1, 60)}
+        for name, key, secs in BUNDLE_SETS:
+            lens = [int(s * SR) for s in secs]
+            a = speechlike(len(lens), max(lens), gen, dev).cpu().numpy()
+            reqs[name] = [a[i, :n].copy() for i, n in enumerate(lens)]
+            np.savez(tmp / f"req_{len(reqs)}.npz", *reqs[name])
+            want[name] = _live_ids(model, reqs[name], *buckets[name], dev)
+        # an4_ctc's greedy bundle at (8, 8), exported in process
+        an4_cfg = presets.an4_ctc()
+        an4_cfg.train.checkpoint_dir = str(tmp / "an4")
+        an4_cfg.train.metrics_path = ""
+        an4 = Solver(an4_cfg, tokenizer_of(V_AN4), device=dev)
+        an4.save_checkpoint("best")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            export_bundle(an4_cfg, tokenizer_of(V_AN4), tmp / "bundle_an4",
+                          batch_sizes=(8,), seconds=(8,), device=dev.type)
+        t_an4 = time.perf_counter() - t0
+        an4_lens = [int(s * SR) for s in np.linspace(2.0, 8.0, 8)]
+        a = speechlike(8, max(an4_lens), gen, dev).cpu().numpy()
+        reqs["an4 8 x 2-8 s"] = [a[i, :n].copy()
+                                 for i, n in enumerate(an4_lens)]
+        np.savez(tmp / "req_an4.npz", *reqs["an4 8 x 2-8 s"])
+        want["an4 8 x 2-8 s"] = _live_ids(an4.model.eval(),
+                                          reqs["an4 8 x 2-8 s"], 8, 8, dev)
+        print(f"[19] an4_ctc bundle (8, 8) exported in {t_an4:.1f} s: "
+              + err.getvalue().strip().replace("\n", "; "), flush=True)
+
+        # the control: the flagship's (32, 30) program exported with the
+        # relative bias zeroed must miss the live tokens on some row
+        ctl = AsrModel(solver.cfg, device=dev)
+        ctl.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            ctl.encoder.rel.table.zero_()
+            ep = torch.export.export(GreedyProgram(ctl.eval()), (
+                torch.zeros((32, 30 * SR), device=dev),
+                torch.zeros((32,), dtype=torch.int32, device=dev)))
+            batch, blens = _padded(reqs["32 x 3-30 s"], 32, 30)
+            ctl_tok, ctl_tl = ep.module()(torch.from_numpy(batch).to(dev),
+                                          torch.from_numpy(blens).to(dev))
+        ctl_ids = [ctl_tok[i, :int(ctl_tl[i])].tolist() for i in range(32)]
+        n_differ = sum(c != w for c, w in zip(ctl_ids, want["32 x 3-30 s"]))
+        print(f"[19] control, the (32, 30) program exported with the "
+              f"relative bias zeroed: {n_differ}/32 rows differ from the "
+              f"live tokens (must be >= 1)", flush=True)
+        check(n_differ >= 1, "[19] a bundle without its relative bias "
+              "gives the live tokens: the check cannot see the bias")
+        del ctl, ep
+
+        # the exports' results
+        for key, p in procs:
+            out, _ = p.communicate(timeout=600)
+            for line in out.splitlines():
+                if line.startswith("[export]"):
+                    print(f"[19] {key} bundle: {line}", flush=True)
+            check(p.returncode == 0, f"[19] cli.export ({key}) failed:\n"
+                  + out[-3000:])
+            print(f"[19] {key} bundle: {_bundle_bytes(tmp / f'bundle_{key}')}"
+                  f" bytes", flush=True)
+        procs.clear()
+        print(f"[19] both cli.export processes done "
+              f"{time.perf_counter() - t_exp:.1f} s after their start",
+              flush=True)
+
+        # a fresh process serves them: load_bundle alone
+        spec = {"bundles": {k: str(tmp / f"bundle_{k}")
+                            for k in ("batch", "short", "an4")},
+                "sets": {name: (key, str(tmp / f"req_{i + 1}.npz"))
+                         for i, (name, key, _) in enumerate(BUNDLE_SETS)},
+                "throughput": ["batch", "32 x 3-30 s"],
+                "out": str(tmp / "served.json")}
+        spec["sets"]["an4 8 x 2-8 s"] = ("an4", str(tmp / "req_an4.npz"))
+        (tmp / "spec.json").write_text(json.dumps(spec))
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, str(root / "chip_smoke.py"), "--bundle-child",
+             str(tmp / "spec.json")], cwd=root, capture_output=True,
+            text=True, timeout=600)
+        check(child.returncode == 0, "[19] the serving process failed:\n"
+              + child.stderr[-3000:])
+        served = json.loads((tmp / "served.json").read_text())
+        print(f"[19] serving process: {time.perf_counter() - t0:.1f} s, "
+              f"load_bundle of 5 programs {served['load_s']:.1f} s; port "
+              f"modules of models/, training/, decode/ imported there: "
+              f"{served['modules']}", flush=True)
+        check(served["modules"] == [], "[19] the serving process imported "
+              f"model code: {served['modules']}")
+        host = served["host_tensors"]
+        big = [t for t in host if t[3]]
+        print(f"[19] programs' tensors off the card, of "
+              f"{served['n_tensors']}: {len(host) - len(big)} 0-d scalars "
+              f"{sorted({t[2] for t in host if not t[3]})}, {len(big)} "
+              f"others {big[:4]}", flush=True)
+        check(not big, "[19] a program holds a host tensor beyond a 0-d "
+              "scalar: transcribe would copy it every call")
+        an4_set = "an4 8 x 2-8 s"
+        for name, res in served["sets"].items():
+            bucket = tuple(res["bucket"])
+            same = sum(g == w for g, w in zip(res["ids"], want[name]))
+            print(f"[19] {name} -> bucket {bucket}: tokens equal to the live "
+                  f"model's on {same}/{len(want[name])} rows; launches "
+                  f"{res['launches']}, plain versions {res['plain']}",
+                  flush=True)
+            check(res["ids"] == want[name] and res["plain"] == {}
+                  and res["launches"] == BUNDLE_LAUNCHES[bucket]
+                  and bucket == ((8, 8) if name == an4_set
+                                 else buckets[name]),
+                  f"[19] {name}: tokens, bucket or launches")
+        for key in ("logmel", "lstm_fwd"):
+            check(served["sets"][an4_set]["launches"].get(key)
+                  == BUNDLE_LAUNCHES[(8, 8)][key], f"[19] an4 {key}")
+        rates = served["rates"]
+        print(f"[19] (32, 30) bundle transcribe: median "
+              f"{statistics.median(rates):.1f} audio-s/s of requests over "
+              f"{len(rates)} windows of {ITERS} calls (min {min(rates):.1f},"
+              f" max {max(rates):.1f}); [6]'s live forward at B=32 x 30 s: "
+              f"{live_rate:.1f}; {card}", flush=True)
+
+        # cli.supervise: cli.train for 20 steps in its own process group,
+        # beside the in-process CLIs below
+        sup_dir = tmp / "supervised"
+        sup_rc = []
+
+        def supervise():
+            try:
+                cli_supervise.main([
+                    "--config", str(cfg_path), "--hang-timeout", "300",
+                    "--max-restarts", "0", "--steps", "20",
+                    "--device", dev.type,
+                    "--set", f"data.train_manifest={corpus['train']}",
+                    "--set", "data.batch_size=32",
+                    "--set", f"train.checkpoint_dir={sup_dir}",
+                    "--set", f"train.metrics_path={sup_dir / 'm.jsonl'}",
+                    "--set", "train.log_every=5"])
+            except SystemExit as e:
+                sup_rc.append(e.code)
+
+        t_sup = time.perf_counter()
+        sup = threading.Thread(target=supervise)
+        sup.start()
+
+        # rung 4's beam bundle at (8, 10), beam 10, no LM, in process
+        r4_cfg = presets.libri960_conformer()
+        r4_cfg.train.checkpoint_dir = str(tmp / "rung4")
+        r4_cfg.train.metrics_path = ""
+        r4_cfg.decode.beam_size, r4_cfg.decode.lm_weight = 10, 0.0
+        # 12 token steps at T' 250, as [15] caps its decodes
+        r4_cfg.decode.max_decode_ratio = 0.05
+        r4_tok = tokenizer_of(V_RUNG4)
+        r4 = Solver(r4_cfg, r4_tok, device=dev)
+        with torch.no_grad():
+            r4.model.encoder.rel.table.normal_(0.0, BIAS_STD, generator=gen)
+        r4.save_checkpoint("best")
+        export_bundle(r4_cfg, r4_tok, tmp / "bundle_r4", mode="beam",
+                      batch_sizes=(8,), seconds=(10,), device=dev.type)
+        r4_bundle = load_bundle(tmp / "bundle_r4")
+        r4_lens = [int(s * SR) for s in np.linspace(4.0, 10.0, 8)]
+        a = speechlike(8, max(r4_lens), gen, dev).cpu().numpy()
+        r4_req = [a[i, :n].copy() for i, n in enumerate(r4_lens)]
+        zero()
+        t0 = time.perf_counter()
+        r4_texts = r4_bundle.transcribe(r4_req)
+        torch.cuda.synchronize()
+        t_r4 = time.perf_counter() - t0
+        r4_launch = launches()
+        batch, blens = _padded(r4_req, 8, 10)
+        live_dec = BeamSearchDecoder(r4.model.eval(), r4.cfg.decode)
+        live = live_dec.decode_batch(SimpleNamespace(audio=batch,
+                                                     audio_lens=blens), r4_tok)
+        steps = int(live_dec.decode_ids(
+            torch.from_numpy(batch).to(dev),
+            torch.from_numpy(blens).to(dev))["steps"])
+        print(f"[19] rung 4 beam bundle (8, 10), beam 10: {t_r4:.2f} s a "
+              f"call, launches {r4_launch}, {steps} token steps live; texts "
+              f"equal to the live decoder's on "
+              f"{sum(t == r[0]['text'] for t, r in zip(r4_texts, live))}/8 "
+              "rows", flush=True)
+        check(r4_texts == [r[0]["text"] for r in live]
+              and r4_launch.get("ctc_prefix_score") == steps
+              and r4_launch.get("ctc_prefix_select") == steps
+              and r4_launch.get("attention_fwd") == 16,
+              "[19] rung 4 beam bundle against the live decoder")
+        del r4, r4_bundle, live_dec
+
+        # cli.decode on the synthetic test manifest: greedy and beam
+        def run_cli(fn, argv):
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                fn(argv)
+            wer = [x for x in err.getvalue().splitlines()
+                   if x.startswith("WER ")]
+            return ([json.loads(x) for x in out.getvalue().splitlines()],
+                    wer, time.perf_counter() - t0)
+
+        base = ["--config", str(cfg_path), "--checkpoint-tag", "best",
+                "--device", dev.type]
+        test = ["--manifest", str(corpus["test"])]
+        nbest = tmp / "nbest.jsonl"
+        greedy, g_wer, g_s = run_cli(cli_decode.main, base + test)
+        beam, b_wer, b_s = run_cli(cli_decode.main, base + test + [
+            "--mode", "beam", "--beam-size", "10", "--set",
+            "decode.max_decode_ratio=0.2", "--nbest-out", str(nbest)])
+        main_out, m_wer, m_s = run_cli(cli_main.main, base + ["--test"])
+        loader = BucketedLoader(read_manifest(corpus["test"]), tok,
+                                solver.cfg.data, train=False)
+        dcfg = solver.cfg.decode
+        dcfg.beam_size, dcfg.max_decode_ratio = 10, 0.2
+        bsd = BeamSearchDecoder(model, dcfg)
+        g_want, b_want, n_want = [], [], []
+        for b in loader.epoch(0):
+            hyps = solver.decode_batch(b)
+            res = bsd.decode_batch(b, tok)
+            for i in range(len(b.ids)):
+                if b.audio_lens[i] == 0:
+                    continue
+                row = {"id": b.ids[i], "ref": b.texts[i]}
+                g_want.append({**row, "hyp": hyps[i]})
+                b_want.append({**row, "hyp": res[i][0]["text"]})
+            n_want += [{"id": u, "nbest": r} for u, r in zip(b.ids, res)]
+        n_rows = [json.loads(x) for x in nbest.read_text().splitlines()]
+        print(f"[19] cli.decode greedy: {len(greedy)} lines in {g_s:.1f} s, "
+              f"{g_wer}; beam 10: {len(beam)} lines in {b_s:.1f} s, "
+              f"{b_wer}, {len(n_rows)} N-best rows; cli.main --test: "
+              f"{len(main_out)} lines in {m_s:.1f} s, {m_wer}; first hyp "
+              f"{greedy[0]['hyp'][:40]!r}", flush=True)
+        check(greedy == g_want and beam == b_want and len(g_wer) == 1
+              and len(b_wer) == 1 and len(greedy) == 16
+              and n_rows == json.loads(json.dumps(n_want)),
+              "[19] cli.decode against the in-process decodes")
+        check(main_out == greedy and m_wer == g_wer,
+              "[19] cli.main --test differs from cli.decode")
+
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            cli_demo.main(["--workdir", str(tmp / "demo"), "--steps", "20",
+                           "--encoder", "conformer", "--device", dev.type])
+        result = ast.literal_eval(out.getvalue().splitlines()[-1])
+        print(f"[19] cli.demo --steps 20 --encoder conformer in "
+              f"{time.perf_counter() - t0:.1f} s: {result}", flush=True)
+        check(set(result) == {"train_wer", "dev_wer"}
+              and all(math.isfinite(v) for v in result.values()),
+              "[19] cli.demo result")
+        sup.join(timeout=600)
+        metrics = ([json.loads(x) for x in
+                    (sup_dir / "m.jsonl").read_text().splitlines()]
+                   if (sup_dir / "m.jsonl").exists() else [])
+        print(f"[19] cli.supervise (cli.train, 20 steps): exit code "
+              f"{sup_rc} in {time.perf_counter() - t_sup:.1f} s; last "
+              f"metrics record {metrics[-1] if metrics else None}",
+              flush=True)
+        check(not sup.is_alive() and sup_rc == [0]
+              and (sup_dir / "last").exists()
+              and any(r.get("step") == 20 for r in metrics),
+              "[19] cli.supervise did not train to step 20 and exit 0")
+        print(f"[19] {time.perf_counter() - t_phase:.1f} s for [19], "
+              f"{time.perf_counter() - t_start:.0f} s since start",
+              flush=True)
+    finally:
+        for _, p in procs:
+            p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def train_seed_sweep(seeds: list[int]) -> int:
     """`python3 chip_smoke.py --train-seeds 0,1,2`: the train-step
     comparisons of [8] (the kernels, ffn_impl=torch) and [13]
@@ -4839,7 +5387,8 @@ def main() -> int:
                 out = serve(model, audio, full_lens)
             torch.cuda.synchronize()
             rates.append(B * SECONDS * ITERS / (time.perf_counter() - t0))
-    print(f"[6] throughput: median {statistics.median(rates):.1f} audio-s/s "
+    live_rate = statistics.median(rates)  # [19] prints it beside a bundle's
+    print(f"[6] throughput: median {live_rate:.1f} audio-s/s "
           f"over {WINDOWS} windows of {ITERS} x (B={B} x {SECONDS:.0f} s) "
           f"(min {min(rates):.1f}, max {max(rates):.1f}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}; "
@@ -5255,6 +5804,9 @@ def main() -> int:
     # ---- [18] streaming: rung 4's encoder and chunk beam, an4_ctc, the CLIs
     stream_phase(dev, torch.Generator(device=dev).manual_seed(18), peaks,
                  card, COUNTED, t_start, trained)
+    # ---- [19] serving bundles and the remaining CLIs
+    bundle_phase(dev, torch.Generator(device=dev).manual_seed(19), card,
+                 COUNTED, t_start, live_rate)
 
     order = ("logmel", "toeplitz", "attention", "attention_bwd",
              "toeplitz_reduce", "flash_attention", "flash_attention_bwd",
@@ -5271,4 +5823,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-seeds"]:
         sys.exit(train_seed_sweep([int(s) for s in sys.argv[2].split(",")]))
+    if sys.argv[1:2] == ["--bundle-child"]:
+        sys.exit(bundle_child(sys.argv[2]))
     sys.exit(main())

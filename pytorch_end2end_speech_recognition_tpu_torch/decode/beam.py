@@ -26,7 +26,8 @@ every row.
 
 `decode_batch` runs the whole pipeline on a loader's batch and turns the
 N-best ids into text with the tokenizer; `decode_ids` stops at the ids.
-Decoding over a device mesh is not ported yet.
+Decoding over a device mesh comes with the parallelism slice (ROADMAP.md
+Queue 1 item 5).
 """
 
 from __future__ import annotations

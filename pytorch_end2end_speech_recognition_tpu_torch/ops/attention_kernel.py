@@ -52,12 +52,31 @@ def toeplitz_fwd(diag: torch.Tensor, T: int, pad_to: int,
     """(N, 2T-1) float32 diagonals -> (N, pad_to, pad_to) dense bias of
     `dtype` with out[n, i, j] = diag[n, (T-1) + j - i] for i, j < T and edge
     values in the pad band. The Toeplitz kernel on CUDA tensors, the plain
-    expansion on CPU tensors. Not differentiable: see `toeplitz_dense`."""
-    if diag.device.type == "cpu":
-        return toeplitz_expand(diag, pad_to, pad_to, T=T).to(dtype)
+    expansion on CPU tensors, as the operator `asr_port::toeplitz_expand`.
+    Not differentiable: see `toeplitz_dense`."""
+    return toeplitz_op(diag, T, pad_to, dtype)
+
+
+toeplitz_fwd.launches = 0
+
+
+@torch.library.custom_op(
+    "asr_port::toeplitz_expand", mutates_args=(), device_types="cpu",
+    schema="(Tensor diag, int T, int pad_to, ScalarType dtype) -> Tensor")
+def toeplitz_op(diag, T, pad_to, dtype):
+    """The operator's CPU version: the plain expansion."""
+    return toeplitz_expand(diag, pad_to, pad_to, T=T).to(dtype)
+
+
+@toeplitz_op.register_fake
+def _toeplitz_fake(diag, T, pad_to, dtype):
+    return diag.new_empty((diag.shape[0], pad_to, pad_to), dtype=dtype)
+
+
+@toeplitz_op.register_kernel("cuda")
+def _toeplitz_cuda(diag, T, pad_to, dtype):
     from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
 
-    _require_cuda("toeplitz_fwd", diag)
     N, W = diag.shape
     if W != 2 * T - 1 or pad_to < T or T < 1:
         raise ValueError(f"toeplitz_fwd: diag {tuple(diag.shape)} does not "
@@ -76,9 +95,6 @@ def toeplitz_fwd(diag: torch.Tensor, T: int, pad_to: int,
     _build.check(err, "toeplitz_fwd")
     toeplitz_fwd.launches += 1
     return out
-
-
-toeplitz_fwd.launches = 0
 
 
 def toeplitz_reduce_plain(g: torch.Tensor, T: int) -> torch.Tensor:
@@ -338,9 +354,41 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log2-sum-exp (B, H, T) that the backward kernel needs, when `with_lse`
     (else None); +inf on rows of a batch row with lens 0, whose output the
     kernel leaves 0 (the JAX reference returns the mean of v there). On CPU
-    tensors: (`attention_plain`, None)."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, bias, lens, heads), None
+    tensors: (`attention_plain`, None). Runs as the operator
+    `asr_port::attention_fwd`."""
+    out, lse = attention_op(q, k, v, bias, lens, heads, with_lse)
+    return out, (lse if with_lse and q.device.type != "cpu" else None)
+
+
+attention_fwd.launches = 0
+
+
+def _lse_fake(q, heads, with_lse):
+    """The attention operators' lse: (B, H, T) float32 from the kernel with
+    `with_lse`, else empty (and always empty from the CPU version)."""
+    B, T, _ = q.shape
+    shape = (B, heads, T) if with_lse and q.device.type == "cuda" else (0,)
+    return q.new_empty(shape, dtype=torch.float32)
+
+
+@torch.library.custom_op(
+    "asr_port::attention_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor lens, "
+           "int heads, bool with_lse) -> (Tensor, Tensor)")
+def attention_op(q, k, v, bias, lens, heads, with_lse):
+    """The operator's CPU version: `attention_plain`, and no lse (an empty
+    tensor: the plain backward does not read it)."""
+    return (attention_plain(q, k, v, bias, lens, heads),
+            q.new_empty(0, dtype=torch.float32))
+
+
+@attention_op.register_fake
+def _attention_fake(q, k, v, bias, lens, heads, with_lse):
+    return torch.empty_like(q), _lse_fake(q, heads, with_lse)
+
+
+@attention_op.register_kernel("cuda")
+def _attention_cuda(q, k, v, bias, lens, heads, with_lse):
     (q, k, v, bias), lens32 = _kernel_args("attention_fwd", q, k, v, bias,
                                            lens, heads)
     bias_args = (bias.data_ptr(), bias.shape[1]) if bias is not None else (
@@ -348,10 +396,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out, lse, launched = _fwd_launch("attention_launch", "attention_fwd", q,
                                      k, v, bias_args, lens32, heads, with_lse)
     attention_fwd.launches += launched
-    return out, lse
-
-
-attention_fwd.launches = 0
+    return out, lse if lse is not None else q.new_empty(0, dtype=torch.float32)
 
 
 def attention_bwd(q, k, v, bias, lens, g, lse, heads: int):
@@ -524,19 +569,39 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The long-audio attention kernel (`csrc/attention.cu`, bias mode
     kDiag): returns (out, lse) as `attention_fwd` does, with the bias read
     from the float32 diagonals diag (H, 2T-1), at any T. On CPU tensors:
-    (`flash_fwd_plain`, None), where diag may also be None."""
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, diag, lens, heads), None
+    (`flash_fwd_plain`, None), where diag may also be None. Runs as the
+    operator `asr_port::flash_fwd`."""
+    out, lse = flash_op(q, k, v, diag, lens, heads, with_lse)
+    return out, (lse if with_lse and q.device.type != "cpu" else None)
+
+
+flash_fwd.launches = 0
+
+
+@torch.library.custom_op(
+    "asr_port::flash_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? diag, Tensor lens, "
+           "int heads, bool with_lse) -> (Tensor, Tensor)")
+def flash_op(q, k, v, diag, lens, heads, with_lse):
+    """The operator's CPU version: `flash_fwd_plain`, and an empty lse."""
+    return (flash_fwd_plain(q, k, v, diag, lens, heads),
+            q.new_empty(0, dtype=torch.float32))
+
+
+@flash_op.register_fake
+def _flash_fake(q, k, v, diag, lens, heads, with_lse):
+    return torch.empty_like(q), _lse_fake(q, heads, with_lse)
+
+
+@flash_op.register_kernel("cuda")
+def _flash_cuda(q, k, v, diag, lens, heads, with_lse):
     (q, k, v, diag), lens32 = _flash_args("flash_fwd", q, k, v, diag, lens,
                                           heads)
     out, lse, launched = _fwd_launch("flash_launch", "flash_fwd", q, k, v,
                                      (diag.data_ptr(),), lens32, heads,
                                      with_lse)
     flash_fwd.launches += launched
-    return out, lse
-
-
-flash_fwd.launches = 0
+    return out, lse if lse is not None else q.new_empty(0, dtype=torch.float32)
 
 
 def flash_bwd(q, k, v, diag, lens, g, lse, heads: int):

@@ -188,10 +188,31 @@ def _check(name, x, gamma, beta, w1, b1, w2, b2, seed, g=None):
 def ffn_fwd(x, gamma, beta, w1, b1, w2, b2, seed, rate: float,
             scale: float) -> torch.Tensor:
     """out (R, D) of the block: the forward kernel on CUDA tensors,
-    `ffn_fwd_plain` on CPU tensors."""
-    if x.device.type == "cpu":
-        return ffn_fwd_plain(x, gamma, beta, w1, b1, w2, b2, seed, rate,
-                             scale)
+    `ffn_fwd_plain` on CPU tensors, as the operator `asr_port::ffn_fwd`."""
+    return ffn_fwd_op(x, gamma, beta, w1, b1, w2, b2, seed, float(rate),
+                      float(scale))
+
+
+ffn_fwd.launches = 0
+
+
+@torch.library.custom_op(
+    "asr_port::ffn_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor gamma, Tensor beta, Tensor w1, Tensor b1, "
+           "Tensor w2, Tensor b2, Tensor seed, float rate, float scale) "
+           "-> Tensor")
+def ffn_fwd_op(x, gamma, beta, w1, b1, w2, b2, seed, rate, scale):
+    """The operator's CPU version: `ffn_fwd_plain`."""
+    return ffn_fwd_plain(x, gamma, beta, w1, b1, w2, b2, seed, rate, scale)
+
+
+@ffn_fwd_op.register_fake
+def _ffn_fwd_fake(x, gamma, beta, w1, b1, w2, b2, seed, rate, scale):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+@ffn_fwd_op.register_kernel("cuda")
+def _ffn_fwd_cuda(x, gamma, beta, w1, b1, w2, b2, seed, rate, scale):
     from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
 
     t = _check("ffn_fwd", x, gamma, beta, w1, b1, w2, b2, seed)
@@ -207,9 +228,6 @@ def ffn_fwd(x, gamma, beta, w1, b1, w2, b2, seed, rate: float,
         _build.check(err, "ffn_fwd")
         ffn_fwd.launches += 1
     return out
-
-
-ffn_fwd.launches = 0
 
 
 def bwd_plan(R: int, D: int, F: int) -> dict:

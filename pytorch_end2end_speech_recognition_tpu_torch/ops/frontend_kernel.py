@@ -116,17 +116,46 @@ def logmel(audio: torch.Tensor, basis: torch.Tensor, basis_prev: torch.Tensor,
     audio (B, Ts) float32, basis (win, 2F) float32 or bfloat16, basis_prev
     (1, 2F) float32, mel_b (F, M) float32, frame_lens (B,) integer; plan
     `mel_plan(mel_b)` where the caller keeps it (`Frontend` does), else it
-    is computed here."""
-    if audio.device.type == "cpu":
-        return logmel_plain(audio, basis, basis_prev, mel_b, hop, n_frames,
-                            frame_lens)
+    is computed here. Runs as the operator `asr_port::logmel`, so that an
+    exported program (`serving/export.py`) calls the kernel too."""
+    bands, mel_t = (None, None) if plan is None else plan
+    return logmel_op(audio, basis, basis_prev, mel_b, hop, n_frames,
+                     frame_lens, bands, mel_t)
+
+
+logmel.launches = 0
+
+
+@torch.library.custom_op(
+    "asr_port::logmel", mutates_args=(), device_types="cpu",
+    schema="(Tensor audio, Tensor basis, Tensor basis_prev, Tensor mel_b, "
+           "int hop, int n_frames, Tensor frame_lens, Tensor? bands, "
+           "Tensor? mel_t) -> Tensor")
+def logmel_op(audio, basis, basis_prev, mel_b, hop, n_frames, frame_lens,
+              bands, mel_t):
+    """The operator's CPU version: `logmel_plain` (the plan is not read)."""
+    return logmel_plain(audio, basis, basis_prev, mel_b, hop, n_frames,
+                        frame_lens)
+
+
+@logmel_op.register_fake
+def _logmel_fake(audio, basis, basis_prev, mel_b, hop, n_frames, frame_lens,
+                 bands, mel_t):
+    return audio.new_empty((audio.shape[0], n_frames, mel_b.shape[1]),
+                           dtype=torch.float32)
+
+
+@logmel_op.register_kernel("cuda")
+def _logmel_cuda(audio, basis, basis_prev, mel_b, hop, n_frames, frame_lens,
+                 bands, mel_t):
+    """The operator's CUDA version: checks what the kernel takes, launches
+    it and counts the launch on `logmel.launches`."""
     from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
 
+    plan = None if bands is None else (bands, mel_t)
     B, Ts = audio.shape
     win, two_f = basis.shape
     n_bins, M = mel_b.shape
-    if audio.device.type != "cuda":
-        raise ValueError(f"logmel: unsupported device {audio.device}")
     for name, t in (("basis", basis), ("basis_prev", basis_prev),
                     ("mel_b", mel_b), ("frame_lens", frame_lens)):
         if t.device != audio.device:
@@ -191,6 +220,3 @@ def logmel(audio: torch.Tensor, basis: torch.Tensor, basis_prev: torch.Tensor,
     _build.check(err, "logmel")
     logmel.launches += 1
     return out
-
-
-logmel.launches = 0

@@ -185,9 +185,32 @@ def lstm_plan(bwd: bool, D: int, B: int, H: int) -> dict:
 
 def lstm_fwd(xg, whh, lens):
     """(h_all, c_all) of the recurrence over D stacked directions: the
-    forward kernel on CUDA tensors, `lstm_fwd_plain` on CPU tensors."""
-    if xg.device.type == "cpu":
-        return lstm_fwd_plain(xg, whh, lens)
+    forward kernel on CUDA tensors, `lstm_fwd_plain` on CPU tensors, as the
+    operator `asr_port::lstm_fwd` (one node of an exported program, where
+    the plain loop would unroll over T)."""
+    return lstm_fwd_op(xg, whh, lens)
+
+
+lstm_fwd.launches = 0
+
+
+@torch.library.custom_op(
+    "asr_port::lstm_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor xg, Tensor whh, Tensor lens) -> (Tensor, Tensor)")
+def lstm_fwd_op(xg, whh, lens):
+    """The operator's CPU version: `lstm_fwd_plain`."""
+    return lstm_fwd_plain(xg, whh, lens)
+
+
+@lstm_fwd_op.register_fake
+def _lstm_fwd_fake(xg, whh, lens):
+    D, B, T, H4 = xg.shape
+    return (xg.new_empty((D, B, T, H4 // 4), dtype=torch.float32),
+            xg.new_empty((D, B, T, H4 // 4), dtype=torch.float32))
+
+
+@lstm_fwd_op.register_kernel("cuda")
+def _lstm_fwd_cuda(xg, whh, lens):
     from pytorch_end2end_speech_recognition_tpu_torch.ops import _build
 
     _check("lstm_fwd", xg, whh, lens)
@@ -205,9 +228,6 @@ def lstm_fwd(xg, whh, lens):
         _build.check(err, "lstm_fwd")
         lstm_fwd.launches += 1
     return h_all, c_all
-
-
-lstm_fwd.launches = 0
 
 
 def lstm_bwd(xg, whh, lens, h_all, c_all, g):

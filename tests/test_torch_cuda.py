@@ -1012,3 +1012,180 @@ def test_chunk_beam_feed_never_syncs_the_host(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert beam["steps"] == SYNC_EVERY
+
+
+def _op_case(name, dev):
+    """One call of each operator that a serving program reaches, at small
+    shapes of the paths' widths: (the operator, its arguments)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        attention_kernel as ak,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        ffn_kernel as fk,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        frontend_kernel as lk,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        rnn_kernel as rk,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend import (
+        Frontend,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        AsrConfig,
+        resolve_device,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(14)
+
+    def mk(*s, dt=torch.bfloat16, scale=0.5):
+        return (torch.randn(*s, generator=g) * scale).to(dev, dt)
+
+    B, H, T = 3, 4, 150
+    lens = torch.tensor([T, 97, 1], device=dev)
+    q, k, v = mk(B, T, 256), mk(B, T, 256), mk(B, T, 256)
+    if name == "logmel":
+        fcfg = resolve_device(AsrConfig(), dev).frontend
+        fr = Frontend(fcfg, dev)
+        Ts = 3 * 16000 + 77
+        audio = mk(2, Ts, dt=torch.float32, scale=0.1)
+        n = fr.n_frames(Ts)
+        return lk.logmel_op, (audio, fr.basis, fr.basis_prev, fr.mel_b,
+                              fr.hop, n, torch.tensor([n, n // 3],
+                                                      device=dev),
+                              fr.mel_bands, fr.mel_t)
+    if name == "toeplitz_expand":
+        return ak.toeplitz_op, (mk(2 * H, 2 * T - 1, dt=torch.float32), T,
+                                256, torch.bfloat16)
+    if name.startswith("attention_fwd"):
+        return ak.attention_op, (q, k, v, mk(H, 256, 256), lens, H,
+                                 name.endswith("lse"))
+    if name.startswith("flash_fwd"):
+        return ak.flash_op, (q, k, v, mk(H, 2 * T - 1, dt=torch.float32),
+                             lens, H, name.endswith("lse"))
+    if name == "lstm_fwd":
+        return rk.lstm_fwd_op, (mk(2, B, 40, 4 * 64, dt=torch.float32),
+                                mk(2, 64, 4 * 64, dt=torch.float32, scale=0.1),
+                                torch.tensor([40, 23, 0], device=dev))
+    if name == "ffn_fwd":
+        R, D, F = 300, 256, 1024
+        return fk.ffn_fwd_op, (
+            mk(R, D), mk(D, dt=torch.float32, scale=1.0),
+            mk(D, dt=torch.float32, scale=0.1), mk(F, D, scale=0.06),
+            mk(F, scale=0.1), mk(D, F, scale=0.03), mk(D, scale=0.1),
+            torch.zeros(1, dtype=torch.int32, device=dev), 0.0, 0.5)
+    raise ValueError(name)
+
+
+OPS = ["logmel", "toeplitz_expand", "attention_fwd", "attention_fwd_lse",
+       "flash_fwd", "flash_fwd_lse", "lstm_fwd", "ffn_fwd"]
+
+
+def _outs(x):
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_operator_fake_matches_its_cuda_output(dev, name):
+    """Each serving operator's fake (the shapes and dtypes `torch.export`
+    traces with) equals what its CUDA version returns."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    op, args = _op_case(name, dev)
+    real = _outs(op(*args))
+    torch.cuda.synchronize()
+    with FakeTensorMode() as mode:
+        fargs = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        fake = _outs(op(*fargs))
+    assert [(tuple(t.shape), t.dtype, t.device) for t in fake] == [
+        (tuple(t.shape), t.dtype, t.device) for t in real]
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_operator_through_torch_export_is_bit_exact(dev, name):
+    """Each operator called through an exported program (saved and loaded)
+    gives the eager kernel's output bit for bit, the FFN at D 256 too."""
+    import io
+
+    op, args = _op_case(name, dev)
+    tensors = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+
+    class Call(torch.nn.Module):
+        def forward(self, *ts):
+            full = list(args)
+            for i, t in zip(tensors, ts):
+                full[i] = t
+            return op(*full)
+
+    inputs = tuple(args[i] for i in tensors)
+    with torch.no_grad():
+        ep = torch.export.export(Call(), inputs)
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    buf.seek(0)
+    got = _outs(torch.export.load(buf).module()(*inputs))
+    want = _outs(op(*args))
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_greedy_bundle_exported_on_the_card_gives_live_tokens(dev, tmp_path):
+    """A 2-layer flagship (d256, H4, bf16, the kernels) exported on the card
+    transcribes a ragged pair as the live model does, token for token,
+    through the log-mel, Toeplitz and attention operators."""
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        flagship_conformer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
+        CharTokenizer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
+        attention_fwd,
+        toeplitz_fwd,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc import (
+        ctc_greedy_decode,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend_kernel import (
+        logmel,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.serving import (
+        export_bundle,
+        load_bundle,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+
+    cfg = flagship_conformer()
+    cfg.model.encoder_layers = 2
+    cfg.train.checkpoint_dir = str(tmp_path / "ckpt")
+    cfg.train.metrics_path = ""
+    tok = CharTokenizer(charset="abcdefghijklmnopqrstuvwxyz'")
+    solver = Solver(cfg, tok, device=dev)
+    with torch.no_grad():
+        solver.model.encoder.rel.table.normal_(0, 4.0)
+    solver.save_checkpoint("best")
+    out = export_bundle(cfg, tok, tmp_path / "bundle", batch_sizes=(2,),
+                        seconds=(4,), device="cuda")
+    bundle = load_bundle(out)
+    rng = np.random.default_rng(3)
+    audios = [rng.standard_normal(n).astype(np.float32) * 0.1
+              for n in (64000, 37123)]
+    for fn in (logmel, toeplitz_fwd, attention_fwd):
+        fn.launches = 0
+    got = bundle.transcribe_ids(audios)
+    assert (logmel.launches, toeplitz_fwd.launches,
+            attention_fwd.launches) == (1, 1, 2)
+    batch = torch.zeros(2, 64000, device=dev)
+    for i, a in enumerate(audios):
+        batch[i, :len(a)] = torch.from_numpy(a)
+    lens = torch.tensor([len(a) for a in audios], device=dev)
+    with torch.no_grad():
+        enc, el = solver.model.encode(batch, lens)
+        ids, il = ctc_greedy_decode(solver.model.ctc_logits(enc), el)
+    assert got == [ids[i, :int(il[i])].tolist() for i in range(2)]

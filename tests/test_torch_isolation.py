@@ -3,6 +3,7 @@ package; config resolution copies instead of mutating; entry points run on
 CUDA unless asked for the CPU, and raise without a card."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -96,6 +97,21 @@ def test_trainer_host_modules_stand_alone(module):
     name = f"{PKG.name}.{module}"
     assert name in MODULES
     path = PKG.joinpath(*module.split(".")).with_suffix(".py")
+    bad = [n for n in _imported(path) if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("module", [
+    "serving", "serving.export", "cli.decode", "cli.export", "cli.demo",
+    "cli.supervise", "cli.main"])
+def test_serving_and_cli_modules_stand_alone(module):
+    """The serving bundles and the five CLIs exist, are among the modules
+    imported with JAX blocked below, and import neither JAX nor the JAX
+    package."""
+    name = f"{PKG.name}.{module}"
+    assert name in MODULES
+    path = PKG.joinpath(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
     bad = [n for n in _imported(path) if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -210,3 +226,49 @@ def test_ffn_impl_cuda_routes_ffn_blocks_as_the_jax_gate(
     assert bool(torch.isfinite(out).all())
     assert len(calls) == (len(ffns) if fused else 0)
     assert all(c == (2 * out.shape[1], m.encoder_dim) for c in calls)
+
+
+@pytest.mark.parametrize("entry", ["decode", "export", "demo", "bundle"])
+def test_serving_entry_points_raise_without_a_card(entry, monkeypatch,
+                                                   tmp_path):
+    """`cli.decode`, `cli.export` and `cli.demo` at their default device,
+    and `load_bundle` of a bundle exported on CUDA, raise on a machine
+    without a card instead of running on the CPU."""
+    from pytorch_end2end_speech_recognition_tpu_torch.cli import (
+        decode,
+        demo,
+        export,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
+        CharTokenizer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.serving import (
+        load_bundle,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tok = CharTokenizer(charset="abc")
+    tok.save(tmp_path / "tokenizer.json")
+    cfg = ["--config", "flagship_conformer", "--set",
+           f"data.tokenizer_path={tmp_path / 'tokenizer.json'}"]
+    if entry == "bundle":
+        (tmp_path / "meta.json").write_text(json.dumps({
+            "mode": "greedy", "format": "torch.export", "sample_rate": 16000,
+            "artifacts": [{"file": "greedy_b1_s1.pt2", "batch": 1,
+                           "seconds": 1}],
+            "vocab_hash": tok.vocab_hash(), "device": "cuda",
+            "config_name": "flagship_conformer"}))
+    calls = {
+        "decode": lambda: decode.main(cfg + ["--manifest", "none.jsonl"]),
+        "export": lambda: export.main(
+            ["--config", str(tmp_path / "cfg.json"), "--out-dir",
+             str(tmp_path / "b")]),
+        "demo": lambda: demo.main(["--workdir", str(tmp_path / "demo"),
+                                   "--steps", "1"]),
+        "bundle": lambda: load_bundle(tmp_path)}
+    if entry == "export":
+        c = flagship_conformer()
+        c.data.tokenizer_path = str(tmp_path / "tokenizer.json")
+        (tmp_path / "cfg.json").write_text(c.to_json())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
