@@ -210,6 +210,30 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    Printed, not gated: each program's export time and each bundle's
    bytes, the load time, and the (32, 30) bundle's transcribe audio-s/s
    beside [6]'s live forward.
+20. data and tensor parallelism (`rung5_phase`): [20a] rung 5
+   (libri960_multihost: 24 Conformer layers d1,024, H16, FFN 4,096, the
+   6-layer decoder d512, vocab 1,024; bf16, seed 20) whole through
+   `Solver(mesh=make_mesh(1, 1))` in a world-1 process group over
+   'cpu:gloo,cuda:nccl' (an NCCL all-reduce of a card tensor first): one
+   hybrid step on a ragged B=8 x 30 s batch (U <= 128) against plain
+   torch on the card at [8]'s tolerances with a bias-zeroed control;
+   launches (log-mel 1, flash 24 + 24, CTC 1 + 1), peak memory, step
+   time. The card's compute mode must be Default. [20b] the same step at
+   dp 1 x tp 2, two processes on the card over gloo (this script with
+   `--dist-child`): the loss and every gradient, gathered whole, against
+   [20a]'s kernel step, with two controls that must fail (pw1 split
+   contiguously, not as GLU halves; block 0's row-parallel all-reduce
+   left out); each rank's launches (flash 24 + 24 on 8 heads), peak
+   memory, and parameter and Adam bytes (under 0.6 of [20a]'s). [20c] the
+   flagship through `cli.train` at dp 2 x tp 1 (two processes, B=16
+   each) against one process at B=32 for 5 steps on [17]'s manifest,
+   dropout and SpecAugment off: each step's loss within 5e-4; one
+   checkpoint and one tokenizer.json; `--resume` at dp 1 x tp 2 restoring
+   every local slice bit for bit; `cli.decode` over two processes
+   printing the one-process decode's lines and WER line. Every child has
+   a timeout; one that fails or hangs fails the phase with every child's
+   output printed. Its step times are no scaling numbers: two ranks share
+   one card and gloo stages CUDA tensors through the host.
 
 It then prints the total time, the `kernels` JSON line, the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Without a card it
@@ -221,9 +245,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import platform
 import re
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -2958,6 +2984,9 @@ def trainer_phase(dev, card, counted, t_start):
     from pytorch_end2end_speech_recognition_tpu_torch.models import (
         encoders as tenc,
     )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        attention_kernel as tak,
+    )
     from pytorch_end2end_speech_recognition_tpu_torch.ops import ctc as tctc
     from pytorch_end2end_speech_recognition_tpu_torch.ops import frontend as fe
     from pytorch_end2end_speech_recognition_tpu_torch.ops import (
@@ -2996,7 +3025,7 @@ def trainer_phase(dev, card, counted, t_start):
     # counters and from counters put on the plain versions the path would
     # take off the card; the mask and loss of each step 21
     plain = {"logmel_plain": (fe, "logmel_plain"),
-             "attention_plain": (tenc, "attention_plain"),
+             "attention_plain": (tak, "attention_plain"),
              "toeplitz_expand": (tenc, "toeplitz_expand"),
              "ctc_alpha_plain": (tctc, "ctc_alpha_plain")}
     plain_calls = dict.fromkeys(plain, 0)
@@ -3486,6 +3515,9 @@ def stream_phase(dev, gen, peaks, card, counted, t_start, trained) -> None:
         StreamingBeamTranscriber,
         StreamingTranscriber,
     )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        attention_kernel as tak,
+    )
     from pytorch_end2end_speech_recognition_tpu_torch.ops import ctc_prefix as cp
     from pytorch_end2end_speech_recognition_tpu_torch.ops import frontend as fe
 
@@ -3493,7 +3525,7 @@ def stream_phase(dev, gen, peaks, card, counted, t_start, trained) -> None:
     tmp, corpus, ckpt = trained
     # the plain versions the path would take off the card, counted
     plain = {"logmel_plain": (fe, "logmel_plain"),
-             "attention_plain": (tenc, "attention_plain"),
+             "attention_plain": (tak, "attention_plain"),
              "toeplitz_expand": (tenc, "toeplitz_expand"),
              "prefix_recursion_plain": (chunk_beam, "prefix_recursion_plain"),
              "prefix_select_plain": (chunk_beam, "prefix_select_plain")}
@@ -4445,6 +4477,609 @@ def bundle_phase(dev, gen, card, counted, t_start, live_rate) -> None:
             p.kill()
             p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+R5_B = 8               # [20a]/[20b]: rung 5's check batch, B = 8 x 30 s
+R5_SEED = 20
+DIST_TIMEOUT = 420     # seconds a child rank of [20b]/[20c] may take
+D20_STEPS = 5          # [20c]'s steps, one process and two
+TOL_D20_LOSS = 5e-4    # [20c]: relative, each step's loss
+
+
+def r5_cfg(impl: str, overrides: dict):
+    """libri960_multihost (rung 5) as [20] runs it: vocab 1,024 as rung 4's
+    card runs, dropout 0 and no SpecAugment (one step held against
+    another), weights from R5_SEED; `impl` 'cuda' (the kernels) or 'torch'
+    (plain); `overrides` dotted config values (a narrow rehearsal)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        libri960_multihost,
+    )
+
+    c = libri960_multihost()
+    c.model.vocab_size = V_RUNG4
+    c.model.encoder_dropout = c.model.decoder_dropout = 0.0
+    c.frontend.spec_augment = False
+    c.train.seed = R5_SEED
+    c.train.metrics_path = ""
+    if impl == "torch":
+        c.frontend.impl = "torch"
+        c.model.attn_impl = c.model.ctc_impl = "torch"
+    for k, v in overrides.items():
+        c.override(k, str(v))
+    return c
+
+
+def compute_mode() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def run_children(tag: str, specs: list, timeout: float = DIST_TIMEOUT):
+    """Run `python3 chip_smoke.py --dist-child SPEC RANK` for each rank's
+    spec file at once; each child's output. A child that fails or outlives
+    `timeout` fails the phase, with every child's output printed; no child
+    is left running."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-child",
+         str(spec), str(rank)], cwd=root, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank, spec in enumerate(specs)]
+    deadline = time.perf_counter() + timeout
+    outs, timed_out = [], False
+    for p in procs:
+        try:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))[0])
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            break
+    if timed_out or any(p.returncode != 0 for p in procs[:len(outs)]):
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate()[0] if i >= len(outs) else outs[i]
+                for i, p in enumerate(procs)]
+        for rank, out in enumerate(outs):
+            print(f"{tag} rank {rank} output:\n{out}", flush=True)
+    check(not timed_out, f"{tag}: a rank outlived {timeout} s")
+    check(all(p.returncode == 0 for p in procs),
+          f"{tag}: rank exit codes {[p.returncode for p in procs]}")
+    return outs
+
+
+def child_results(out: str) -> list[dict]:
+    return [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+            if line.startswith("DIST_RESULT ")]
+
+
+def _step_stats(got: dict, want: dict, loss: float, want_loss: float):
+    """(relative |d loss|, min cosine, max relative error, median cosine,
+    parameters compared) of a step against a reference, as [8] holds
+    them."""
+    d_loss = abs(loss - want_loss) / abs(want_loss)
+    cmin, rmax, cmed, n_cmp = grad_stats(got, want)
+    return d_loss, cmin, rmax, cmed, n_cmp
+
+
+def _step_ok(d_loss, cmin, rmax) -> bool:
+    return (d_loss <= TOL_TRAIN_LOSS and cmin >= TRAIN_MIN_COS
+            and rmax <= TRAIN_MAX_REL)
+
+
+def rung5_phase(dev, card, counted, t_start, audio, audio_lens,
+                overrides: dict | None = None, flagship_sets=()) -> None:
+    """[20] data and tensor parallelism on the card.
+
+    [20a] rung 5 (libri960_multihost: 24 Conformer layers d1,024, H16, FFN
+    4,096; the 6-layer decoder d512, vocab 1,024) at full width, bf16,
+    through `Solver(mesh=make_mesh(1, 1))` in a world-1 process group over
+    'cpu:gloo,cuda:nccl': one hybrid step on a ragged B=8 x 30 s batch (U
+    <= 128) against the same weights in plain torch on the card, with a
+    bias-zeroed control; launches per step (log-mel 1, flash 24 + 24,
+    Toeplitz 0 + 0, CTC 1 + 1), peak memory, step time.
+
+    [20b] the same step at dp 1 x tp 2: two processes on the one card over
+    gloo (`rung5_child`), the same weights sharded from the full state,
+    the same batch; the loss and every gradient, gathered whole, against
+    [20a]'s kernel step; controls that must fail (pw1 split contiguously,
+    not as GLU halves; the row-parallel all-reduce left out in one block),
+    each held over block 0's gradients; per rank, launches (flash 24 + 24 on 8 heads), peak memory, parameter
+    and Adam bytes.
+
+    [20c] the flagship through `cli.train` at dp 2 x tp 1 (two processes on
+    the card over gloo, per-rank batch 16) against one process at batch
+    32, [17]'s manifest, 5 steps, dropout and SpecAugment off: each step's
+    loss within 5e-4; one checkpoint and one tokenizer.json; `--resume` at
+    dp 1 x tp 2 restoring every local slice bit for bit; `cli.decode` on
+    two processes printing the one-process WER line and utterance lines.
+
+    Step times here are not scaling numbers: two ranks share one card, and
+    gloo stages CUDA tensors through the host. `overrides` (rung 5's
+    config) and `flagship_sets` ([20c]'s extra `--set` pairs) narrow the
+    models for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import Batch
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.mesh import (
+        abort,
+        initialize_multihost,
+        make_mesh,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_20_"))
+    gen = torch.Generator(device=dev).manual_seed(R5_SEED)
+    cuda = dev.type == "cuda"
+    child_dev = "cuda:0" if cuda else "cpu"
+    overrides = overrides or {}
+    try:
+        initialize_multihost(f"file://{tmp / 'rdzv_20a'}",
+                             num_processes=1, process_id=0,
+                             backend="cpu:gloo,cuda:nccl" if cuda else "gloo",
+                             timeout_s=300)
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one)
+        check(float(one) == 1.0, "[20a] NCCL all-reduce at world 1")
+        mesh = make_mesh(1, 1, device=dev.type)
+        print(f"[20a] process group: world {dist.get_world_size()}, backend "
+              f"{dist.get_backend()}; NCCL all-reduce of a card tensor: "
+              f"{float(one)}; mesh dp {mesh.dp} x tp {mesh.tp} on "
+              f"{mesh.device}", flush=True)
+        m0 = r5_cfg("cuda", overrides).model
+        L, H, V = m0.encoder_layers, m0.encoder_heads, V_RUNG4
+        check(L == 24 and H == 16 and m0.encoder_dim == 1024
+              and m0.encoder_ffn_dim == 4096 and m0.decoder_layers == 6
+              and m0.decoder_dim == 512 and m0.encoder == "conformer",
+              "rung 5 is not the preset")
+        table = torch.randn(L, H, 64, device=dev, generator=gen) * BIAS_STD
+        B8 = R5_B
+        nf = (audio_lens[:B8] - WIN) // HOP + 1
+        enc_lens = ((nf + 1) // 2 + 1) // 2
+        tok = 1 + torch.cumsum(torch.randint(
+            1, V - 1, (B8, U_RUNG4), device=dev, generator=gen), 1) % (V - 1)
+        tok_lens = torch.minimum(torch.randint(
+            U_RUNG4 // 2, U_RUNG4 + 1, (B8,), device=dev, generator=gen),
+            enc_lens // 2)
+        tok = tok * (torch.arange(U_RUNG4, device=dev)[None, :]
+                     < tok_lens[:, None])
+        host = lambda t: t.cpu().numpy().astype(np.int32)  # noqa: E731
+        batch = Batch(audio[:B8].cpu().numpy(), host(audio_lens[:B8]),
+                      host(tok), host(tok_lens))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ks = Solver(r5_cfg("cuda", overrides), tokenizer_of(V), mesh=mesh)
+        _with_table(ks.model, table)
+        n_par = sum(p.numel() for p in ks.params)
+        n_enc = sum(p.numel() for p in ks.model.encoder.parameters())
+        state_bytes = 3 * 4 * n_par   # parameters, Adam's two moments
+        print(f"[20a] rung 5: {n_par / 1e6:.1f} M parameters ({n_enc / 1e6:.1f}"
+              f" M in the encoder), built in {time.perf_counter() - t0:.1f} "
+              f"s; parameter and Adam bytes {state_bytes / 2**30:.2f} GiB",
+              flush=True)
+        for fn in counted:
+            fn.launches = 0
+        km, kg = ks.grads(batch)
+        torch.cuda.synchronize()
+        counts = _launches(counted)
+        k_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[20a] rung 5 hybrid step launches: {counts}", flush=True)
+        check(counts == {"logmel": 1, "flash_fwd": L, "flash_bwd": L,
+                         "ctc_alpha": 1, "ctc_beta": 1},
+              f"[20a] step launch counts {counts}")
+        kg = {n: g.detach() for n, g in zip(ks.names, kg)}
+        check(all(bool(torch.isfinite(g).all()) for g in kg.values()),
+              "[20a] kernel gradients not finite")
+        ref_path = tmp / "r5_ref.pt"
+        torch.save({"loss": float(km["loss"]),
+                    "grads": {n: g.cpu() for n, g in kg.items()}}, ref_path)
+        torch.save({"table": table.cpu(), "audio": batch.audio,
+                    "audio_lens": batch.audio_lens, "tokens": batch.tokens,
+                    "token_lens": batch.token_lens}, tmp / "r5_data.pt")
+        ks.train_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ks.train_step(batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        del ks
+        torch.cuda.empty_cache()
+        ps = Solver(r5_cfg("torch", overrides), tokenizer_of(V), device=dev)
+        _with_table(ps.model, table)
+        pm, pg = ps.grads(batch)
+        pg = {n: g.detach() for n, g in zip(ps.names, pg)}
+        d_loss, cmin, rmax, cmed, n_cmp = _step_stats(
+            kg, pg, float(km["loss"]), float(pm["loss"]))
+        print(f"[20a] rung 5 kernels vs plain torch, one hybrid step (B={B8} "
+              f"x {SECONDS:.0f} s ragged, T' {int(enc_lens.max())}, U<="
+              f"{U_RUNG4}, vocab {V}, bf16, {L} L d1024 H16 + 6-layer decoder;"
+              f" flash by the 15 MiB rule): loss {float(km['loss']):.5f} vs "
+              f"{float(pm['loss']):.5f}, relative |d loss| {d_loss:.2e} (tol "
+              f"{TOL_TRAIN_LOSS}); gradients of {n_cmp} parameters: cosine "
+              f"min {cmin:.5f} median {cmed:.5f} (tol {TRAIN_MIN_COS}), "
+              f"relative error max {rmax:.4f} (tol {TRAIN_MAX_REL}); step "
+              f"peak memory {k_peak:.2f} GiB; Solver.train_step "
+              f"{step_s * 1e3:.1f} ms; {card}", flush=True)
+        check(_step_ok(d_loss, cmin, rmax),
+              "[20a] rung 5 kernel step disagrees with plain")
+        with torch.no_grad():
+            ps.model.encoder.rel.table.zero_()
+        cm, cg = ps.grads(batch)
+        cg = {n: g.detach() for n, g in zip(ps.names, cg)}
+        c = _step_stats(kg, cg, float(km["loss"]), float(cm["loss"]))
+        print(f"[20a] control, plain model with the relative bias zeroed: "
+              f"relative |d loss| {c[0]:.2e}, cosine min {c[1]:.5f}, relative"
+              f" error max {c[2]:.4f} (must fail)", flush=True)
+        check(not _step_ok(*c[:3]), "[20a] the step tolerance cannot see the "
+              "bias")
+        del ps, pg, cg, kg
+        torch.cuda.empty_cache()
+        abort()
+        print(f"[20a] done in {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+
+        mode = compute_mode()
+        print(f"[20] compute mode: {mode} (two ranks share the card only in "
+              "Default)", flush=True)
+        check(mode == "Default", f"[20] compute mode {mode}")
+        # [20b] rung 5 at dp 1 x tp 2, two ranks on the card over gloo
+        t_b = time.perf_counter()
+        specs = []
+        for rank in range(2):
+            spec = tmp / f"r5_{rank}.json"
+            spec.write_text(json.dumps({
+                "kind": "r5", "rdzv": str(tmp / "rdzv_20b"),
+                "data": str(tmp / "r5_data.pt"), "ref": str(ref_path),
+                "device": child_dev, "state_bytes_20a": state_bytes,
+                "peak_20a": k_peak, "overrides": overrides}))
+            specs.append(spec)
+        outs = run_children("[20b]", specs)
+        for rank, out in enumerate(outs):
+            for line in out.splitlines():
+                if line.startswith("[20b]"):
+                    print(line, flush=True)
+        res = [r for out in outs for r in child_results(out)]
+        check(len(res) == 2, f"[20b] results from {len(res)} ranks")
+        for r in res:
+            check(r["counts"] == {"logmel": 1, "flash_fwd": L,
+                                  "flash_bwd": L, "ctc_alpha": 1,
+                                  "ctc_beta": 1},
+                  f"[20b] rank {r['rank']} launch counts {r['counts']}")
+            check(r["state_bytes"] < 0.6 * state_bytes,
+                  f"[20b] rank {r['rank']} holds {r['state_bytes']} bytes of "
+                  "parameters and Adam state")
+        top = next(r for r in res if r["rank"] == 0)
+        check(_step_ok(*top["step"]), "[20b] tp 2 step disagrees with [20a]")
+        for name in ("glu_contiguous", "reduce_left_out"):
+            check(not _step_ok(*top[name]), f"[20b] control {name} passed")
+        print(f"[20b] done in {time.perf_counter() - t_b:.1f} s (step times "
+              "here are no scaling numbers: two ranks share one card and "
+              "gloo stages card tensors through the host)", flush=True)
+        os.remove(ref_path)
+        dist_train_phase(dev, card, tmp, child_dev, flagship_sets)
+    finally:
+        abort()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[20] done in {time.perf_counter() - t_phase:.1f} s; "
+          f"{time.perf_counter() - t_start:.0f} s since start", flush=True)
+
+
+def rung5_child(spec: dict, rank: int) -> None:
+    """[20b] one rank of rung 5 at dp 1 x tp 2 (see `rung5_phase`)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import Batch
+    from pytorch_end2end_speech_recognition_tpu_torch.models import (
+        encoders as tenc,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.mesh import (
+        initialize_multihost,
+        make_mesh,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.sharding import (
+        full_tensor,
+        shard_tensor,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+
+    counted = counted_wrappers()
+    initialize_multihost(f"file://{spec['rdzv']}",
+                         num_processes=2, process_id=rank, backend="gloo",
+                         timeout_s=DIST_TIMEOUT)
+    dev = torch.device(spec["device"])
+    mesh = make_mesh(1, 2, device=spec["device"])
+    data = torch.load(spec["data"], weights_only=False)
+    batch = Batch(data["audio"], data["audio_lens"], data["tokens"],
+                  data["token_lens"])
+    cfg = r5_cfg("cuda" if dev.type == "cuda" else "torch",
+                 spec["overrides"])
+    solver = Solver(cfg, tokenizer_of(cfg.model.vocab_size), mesh=mesh)
+    _with_table(solver.model, data["table"].to(dev))
+    state_bytes = 3 * sum(p.numel() * p.element_size()
+                          for p in solver.params)
+    ref = (torch.load(spec["ref"], weights_only=True, mmap=True)
+           if rank == 0 else None)
+
+    def step(tag, prefix=""):
+        """One step; rank 0 gets its stats against [20a]'s kernel step,
+        over the gradients whose names start with `prefix`. (A control
+        that fails on some gradients fails on all: their minimum cosine
+        is no higher and their maximum error no lower.)"""
+        metrics, grads = solver.grads(batch)
+        full = {n: full_tensor(mesh, g, solver.dims.get(n))
+                for n, g in zip(solver.names, grads) if n.startswith(prefix)}
+        if rank != 0:
+            return None
+        stats = _step_stats(full, {n: ref["grads"][n] for n in full},
+                            float(metrics["loss"]), ref["loss"])
+        print(f"[20b] {tag}: loss {float(metrics['loss']):.5f} vs [20a] "
+              f"{ref['loss']:.5f}, relative |d loss| {stats[0]:.2e}; "
+              f"gradients of {stats[4]} parameters, gathered whole: cosine "
+              f"min {stats[1]:.5f} median {stats[3]:.5f}, relative error max "
+              f"{stats[2]:.4f}", flush=True)
+        return stats[:3]
+
+    for fn in counted:
+        fn.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    main_stats = step("kernels at dp 1 x tp 2 vs [20a]'s step")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = _launches(counted)
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    share = state_bytes / spec["state_bytes_20a"]
+    print(f"[20b] rank {rank}: launches {counts}; peak memory {peak:.2f} GiB"
+          f" ([20a] {spec['peak_20a']:.2f}); parameter and Adam bytes "
+          f"{state_bytes / 2**30:.2f} GiB ({share:.3f} of [20a]'s); the step"
+          f" with its gathers {step_s:.1f} s", flush=True)
+
+    # the controls gather block 0's gradients alone (the gloo gathers of
+    # all of them take most of a step's time), where both faults show
+    block0 = "encoder.blocks.0."
+    # control 1: pw1 split contiguously (rank r holds rows r D/... of (a;
+    # b) in one block), not as matching GLU halves
+    convs = [m for m in solver.model.modules()
+             if isinstance(m, tenc.ConvModule)]
+    saved = [m.pw1.weight.data for m in convs]
+    col = tenc._col
+    for m in convs:
+        whole = full_tensor(mesh, m.pw1.weight, (0, True)).to(dev)
+        m.pw1.weight.data = shard_tensor(whole, 0, False, 2,
+                                         mesh.model_rank).contiguous()
+    tenc._col = lambda x, layer, dt, group, glu=False: col(x, layer, dt,
+                                                           group, False)
+    try:
+        glu_stats = step("control, pw1 split contiguously (must fail)",
+                         block0)
+    finally:
+        tenc._col = col
+        for m, w in zip(convs, saved):
+            m.pw1.weight.data = w
+
+    # control 2: the row-parallel all-reduce left out in one block (block
+    # 0's first FFN)
+    reduce_from = tenc.reduce_from
+    calls = [0]
+
+    def skip_first(x, group):
+        calls[0] += 1
+        return x if calls[0] == 1 else reduce_from(x, group)
+
+    tenc.reduce_from = skip_first
+    try:
+        red_stats = step("control, block 0's fc2 all-reduce left out (must "
+                         "fail)", block0)
+    finally:
+        tenc.reduce_from = reduce_from
+    print("DIST_RESULT " + json.dumps({
+        "rank": rank, "counts": counts, "state_bytes": state_bytes,
+        "peak_gib": peak, "step": main_stats, "glu_contiguous": glu_stats,
+        "reduce_left_out": red_stats}), flush=True)
+
+
+def dist_train_phase(dev, card, tmp, child_dev, flagship_sets) -> None:
+    """[20c] (see `rung5_phase`)."""
+    import contextlib
+    import io
+
+    from pytorch_end2end_speech_recognition_tpu_torch.cli import (
+        decode as cli_decode,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.cli import train as cli
+    from pytorch_end2end_speech_recognition_tpu_torch.data.synthetic import (
+        make_phrases_corpus,
+    )
+
+    t_c = time.perf_counter()
+    # [17]'s manifest, written again from its seed ([18] deleted [17]'s)
+    corpus = make_phrases_corpus(tmp / "corpus", n_train=512, n_dev=64,
+                                 n_test=1, seed=0)
+
+    def args(name: str, batch: int) -> list:
+        return ["--config", "flagship_conformer",
+                "--set", f"data.train_manifest={corpus['train']}",
+                "--set", f"data.dev_manifest={corpus['dev']}",
+                "--set", f"data.batch_size={batch}",
+                "--set", "data.batch_frames=15360000",
+                "--set", "train.eval_every=1000000",
+                "--set", "train.log_every=1",
+                "--set", "model.encoder_dropout=0.0",
+                "--set", "model.decoder_dropout=0.0",
+                "--set", "frontend.spec_augment=false",
+                "--set", f"train.checkpoint_dir={tmp / name}",
+                "--set", f"train.metrics_path={tmp / (name + '.jsonl')}",
+                *flagship_sets]
+
+    def losses(name: str) -> list:
+        return [json.loads(x)["loss"] for x in
+                (tmp / f"{name}.jsonl").read_text().splitlines()
+                if json.loads(x)["tag"] == "train"]
+
+    def children(tag: str, module: str, argv: list, check_resume=None):
+        specs = []
+        for rank in range(2):
+            spec = tmp / f"{tag}_{rank}.json"
+            spec.write_text(json.dumps({
+                "kind": "cli", "module": module, "check_resume": check_resume,
+                "argv": argv + [
+                    "--coordinator", f"file://{tmp / ('rdzv_' + tag)}",
+                    "--num-processes", "2", "--process-id", str(rank),
+                    "--device", child_dev, "--dist-backend", "gloo"]}))
+            specs.append(spec)
+        return run_children(f"[20c] {tag}", specs)
+
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        cli.main(args("one", 32) + ["--steps", str(D20_STEPS),
+                                    "--device", dev.type])
+    t_two = time.perf_counter()
+    children("train", "train", args("two", 16) + [
+        "--steps", str(D20_STEPS), "--set", "train.dp=2",
+        "--set", "train.tp=1"])
+    t_two = time.perf_counter() - t_two
+    one, two = losses("one"), losses("two")
+    rel = [abs(a - b) / abs(a) for a, b in zip(one, two)]
+    print(f"[20c] flagship through cli.train, {D20_STEPS} steps on [17]'s "
+          f"manifest (dropout and SpecAugment off): one process at B=32 "
+          f"losses {[round(x, 5) for x in one]}; dp 2 x tp 1 (two processes "
+          f"on the card over gloo, B=16 each) {[round(x, 5) for x in two]};"
+          f" relative |d loss| max {max(rel):.2e} (tol {TOL_D20_LOSS}); the "
+          f"two-process run {t_two:.1f} s with its start-up (no scaling "
+          f"number)", flush=True)
+    check(len(one) == len(two) == D20_STEPS and max(rel) <= TOL_D20_LOSS,
+          "[20c] two-process losses differ from one process's")
+    files = sorted(p.name for p in (tmp / "two").iterdir())
+    print(f"[20c] two-process checkpoint directory: {files}", flush=True)
+    check(files == ["last", "last.config.json", "tokenizer.json"],
+          f"[20c] checkpoint directory {files}")
+    outs = children("resume", "train", args("two", 16) + [
+        "--steps", str(D20_STEPS), "--resume", "--set", "train.dp=1",
+        "--set", "train.tp=2"], check_resume=str(tmp / "two"))
+    res = [r for out in outs for r in child_results(out)]
+    print(f"[20c] --resume at dp 1 x tp 2: {res}", flush=True)
+    check(len(res) == 2 and all(r["differ"] == 0 and r["sliced"] > 0
+                                for r in res),
+          "[20c] the resumed slices differ from the checkpoint")
+    dec = ["--config", str(tmp / "two" / "last.config.json"),
+           "--checkpoint-tag", "last", "--manifest", str(corpus["dev"])]
+    outs = children("decode", "decode", dec)
+    got = io.StringIO()
+    err = io.StringIO()
+    with contextlib.redirect_stdout(got), contextlib.redirect_stderr(err):
+        cli_decode.main(dec + ["--device", dev.type])
+    wer_one = re.search(r"WER .*", err.getvalue()).group(0)
+    wer_two = re.search(r"WER .*", outs[0])
+    lines_two = [x for x in outs[0].splitlines() if x.startswith("{")]
+    print(f"[20c] cli.decode (greedy) of {len(lines_two)} dev utterances: "
+          f"two processes '{wer_two.group(0) if wer_two else None}', one "
+          f"'{wer_one}'", flush=True)
+    check(wer_two is not None and wer_two.group(0) == wer_one
+          and lines_two == got.getvalue().splitlines()
+          and not any(x.startswith("{") for x in outs[1].splitlines()),
+          "[20c] two-process decode differs from one process's")
+    print(f"[20c] done in {time.perf_counter() - t_c:.1f} s; {card}",
+          flush=True)
+
+
+def cli_child(spec: dict, rank: int) -> None:
+    """[20c] one rank of a CLI; with `check_resume` (a checkpoint
+    directory), every local slice the Solver restores is compared with
+    that checkpoint's whole tensor, sliced, bit for bit."""
+    import importlib
+
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.sharding import (
+        shard_tensor,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training import (
+        checkpoint,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+
+    if spec["check_resume"]:
+        saved = checkpoint.load_checkpoint(spec["check_resume"],
+                                           "last")["params"]
+        load = Solver.load_checkpoint
+
+        def checked(self, tag="last"):
+            load(self, tag)
+            differ = sliced = 0
+            for n, p in zip(self.names, self.params):
+                want = saved[n]
+                if n in self.dims:
+                    want = shard_tensor(want, *self.dims[n], self.mesh.tp,
+                                        self.mesh.model_rank)
+                    sliced += 1
+                differ += int(not torch.equal(p.detach().cpu(), want))
+            print("DIST_RESULT " + json.dumps({
+                "rank": rank, "differ": differ, "sliced": sliced,
+                "params": len(self.names), "step": self.step}), flush=True)
+
+        Solver.load_checkpoint = checked
+    importlib.import_module(f"{PKG}.cli.{spec['module']}").main(spec["argv"])
+
+
+def counted_wrappers():
+    """The kernel wrappers with launch counters, as main() counts them."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (  # noqa: E501
+        attention_bwd,
+        attention_fwd,
+        flash_bwd,
+        flash_fwd,
+        toeplitz_fwd,
+        toeplitz_reduce,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc_kernel import (
+        ctc_alpha,
+        ctc_beta,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc_prefix import (
+        ctc_prefix_score,
+        ctc_prefix_select,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
+        ffn_bwd,
+        ffn_fwd,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend_kernel import (
+        logmel,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn_kernel import (
+        lstm_bwd,
+        lstm_fwd,
+    )
+
+    return (logmel, toeplitz_fwd, attention_fwd, attention_bwd,
+            toeplitz_reduce, ctc_alpha, ctc_beta, flash_fwd, flash_bwd,
+            lstm_fwd, lstm_bwd, ffn_fwd, ffn_bwd, ctc_prefix_score,
+            ctc_prefix_select)
+
+
+def dist_child(spec_path: str, rank: int) -> int:
+    """A child rank of [20b] or [20c]."""
+    spec = json.loads(Path(spec_path).read_text())
+    if spec["kind"] == "r5":
+        rung5_child(spec, rank)
+    else:
+        cli_child(spec, rank)
+    return 0
 
 
 def train_seed_sweep(seeds: list[int]) -> int:
@@ -5807,6 +6442,8 @@ def main() -> int:
     # ---- [19] serving bundles and the remaining CLIs
     bundle_phase(dev, torch.Generator(device=dev).manual_seed(19), card,
                  COUNTED, t_start, live_rate)
+    # ---- [20] data and tensor parallelism: rung 5, two ranks, the CLIs
+    rung5_phase(dev, card, COUNTED, t_start, audio, audio_lens)
 
     order = ("logmel", "toeplitz", "attention", "attention_bwd",
              "toeplitz_reduce", "flash_attention", "flash_attention_bwd",
@@ -5825,4 +6462,6 @@ if __name__ == "__main__":
         sys.exit(train_seed_sweep([int(s) for s in sys.argv[2].split(",")]))
     if sys.argv[1:2] == ["--bundle-child"]:
         sys.exit(bundle_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--dist-child"]:
+        sys.exit(dist_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -9,10 +9,15 @@
 Prints one JSON line {"id", "ref", "hyp"} per utterance and the `WER ...
 CER ... SER ...` line on stderr. `--mode attention` is the beam without the
 CTC scorer (decode.ctc_weight 0). Decodes on CUDA unless `--device cpu` is
-given (and raises without a card). Where `train.dp * train.tp > 1` and the
-process sees exactly that many cards, the JAX CLI decodes the beam over a
-device mesh; that comes with the parallelism slice (ROADMAP.md Queue 1
-item 5) and raises NotImplementedError here.
+given (and raises without a card).
+
+Several processes (cli.train's `--distributed` / `--coordinator`
+flags): every rank reads the whole manifest and holds the whole model,
+decodes its own contiguous rows of each batch (`decode/beam.py`'s row
+split, greedy or beam), and the results are gathered to every rank in
+input order; each rank counts the errors of its rows and the counts are
+summed over the ranks, so rank 0 prints every utterance's line and the
+WER line of one process's decode (and writes `--nbest-out`).
 """
 
 from __future__ import annotations
@@ -36,13 +41,18 @@ def main(argv=None):
     ap.add_argument("--set", action="append", default=[], metavar="K=V")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    from pytorch_end2end_speech_recognition_tpu_torch.cli.train import (
+        add_distributed_args,
+        end_distributed,
+        init_distributed,
+        load_config,
+    )
+
+    add_distributed_args(ap)
     args = ap.parse_args(argv)
 
     import torch
 
-    from pytorch_end2end_speech_recognition_tpu_torch.cli.train import (
-        load_config,
-    )
     from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import (
         BucketedLoader,
     )
@@ -52,8 +62,15 @@ def main(argv=None):
     from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
         load_for_config,
     )
+    from pytorch_end2end_speech_recognition_tpu_torch.decode.beam import (
+        by_rows,
+        split_rows,
+    )
     from pytorch_end2end_speech_recognition_tpu_torch.metrics.wer import (
         ErrorStats,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (  # noqa: E501
+        all_reduce_,
     )
     from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
         Solver,
@@ -76,7 +93,10 @@ def main(argv=None):
     tok = load_for_config(cfg)
     # the Solver only holds the checkpoint's weights here: no metrics file
     cfg.train.metrics_path = cfg.train.tensorboard_dir = ""
-    solver = Solver(cfg, tok, device=args.device)
+    mesh = init_distributed(args, cfg, args.device, rows_only=True)
+    group = mesh.world_group if mesh is not None else None
+    rank0 = mesh is None or mesh.rank == 0
+    solver = Solver(cfg, tok, device=mesh.device if mesh else args.device)
     solver.load_checkpoint(args.checkpoint_tag)
     solver.model.eval()
     cfg = solver.cfg
@@ -98,19 +118,13 @@ def main(argv=None):
             )
 
             lm = load_lm(args.lm_checkpoint, cfg, tok, device=solver.device)
-        n_dev = cfg.train.dp * cfg.train.tp
-        if (n_dev > 1 and solver.device.type == "cuda"
-                and torch.cuda.device_count() == n_dev):
-            raise NotImplementedError(
-                f"decoding over a dp={cfg.train.dp} x tp={cfg.train.tp} mesh "
-                "comes with the parallelism slice (ROADMAP.md Queue 1 item "
-                "5)")
-        beam = BeamSearchDecoder(solver.model, cfg.decode, lm=lm)
+        beam = BeamSearchDecoder(solver.model, cfg.decode, lm=lm, mesh=mesh)
 
     wer_stats, cer_stats = ErrorStats(), ErrorStats()
-    nbest_f = open(args.nbest_out, "w") if args.nbest_out else None
+    nbest_f = open(args.nbest_out, "w") if args.nbest_out and rank0 else None
     try:
         for batch in loader.epoch(0):
+            mine = split_rows(len(batch.audio_lens), group)
             if beam is not None:
                 results = beam.decode_batch(batch, tok)
                 hyps = [r[0]["text"] if r else "" for r in results]
@@ -119,18 +133,29 @@ def main(argv=None):
                         nbest_f.write(json.dumps({"id": uid, "nbest": r})
                                       + "\n")
             else:
-                hyps = solver.decode_batch(batch)
+                hyps = by_rows(solver.decode_batch, batch, group)
             for i, (ref, hyp) in enumerate(zip(batch.texts, hyps)):
                 if batch.audio_lens[i] == 0:
                     continue
-                wer_stats.update(ref.split(), hyp.split())
-                cer_stats.update(list(ref.replace(" ", "")),
-                                 list(hyp.replace(" ", "")))
-                print(json.dumps({"id": batch.ids[i], "ref": ref,
-                                  "hyp": hyp}))
+                if i in mine:
+                    wer_stats.update(ref.split(), hyp.split())
+                    cer_stats.update(list(ref.replace(" ", "")),
+                                     list(hyp.replace(" ", "")))
+                if rank0:
+                    print(json.dumps({"id": batch.ids[i], "ref": ref,
+                                      "hyp": hyp}))
     finally:
         if nbest_f:
             nbest_f.close()
+    for stats in (wer_stats, cer_stats):
+        counts = all_reduce_(torch.tensor(
+            [stats.errors, stats.tokens, stats.sentences,
+             stats.wrong_sentences]), group).tolist()
+        (stats.errors, stats.tokens, stats.sentences,
+         stats.wrong_sentences) = counts
+    end_distributed(args)
+    if not rank0:
+        return wer_stats
     print(
         f"WER {wer_stats.rate:.4f} ({wer_stats.errors}/{wer_stats.tokens})  "
         f"CER {cer_stats.rate:.4f}  SER {wer_stats.ser:.4f}",

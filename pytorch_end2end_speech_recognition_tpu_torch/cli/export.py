@@ -12,7 +12,10 @@ place of the JAX CLI's `--platforms`: export on the device that will
 serve. A greedy bundle is self-contained: a serving host needs only
 `serving.load_bundle(dir).transcribe(...)`, not the model code or the
 checkpoint; a beam bundle carries the weights and config and needs the
-model code. See serving/export.py.
+model code. See serving/export.py. Under several processes (cli.train's
+`--distributed` / `--coordinator` flags) the checkpoint is restored
+through the train.dp x train.tp mesh, gathered whole, and rank 0 writes
+the bundle.
 """
 
 from __future__ import annotations
@@ -31,11 +34,16 @@ def main(argv=None):
     ap.add_argument("--seconds", default="10,30")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu': the serving device")
-    args = ap.parse_args(argv)
-
     from pytorch_end2end_speech_recognition_tpu_torch.cli.train import (
+        add_distributed_args,
+        end_distributed,
+        init_distributed,
         load_config,
     )
+
+    add_distributed_args(ap)
+    args = ap.parse_args(argv)
+
     from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
         load_for_config,
     )
@@ -45,14 +53,16 @@ def main(argv=None):
 
     cfg = load_config(args.config)
     tok = load_for_config(cfg)
+    mesh = init_distributed(args, cfg, args.device, tag="export")
     out = export_bundle(
         cfg, tok, args.out_dir, checkpoint_tag=args.checkpoint_tag,
         mode=args.mode,
         batch_sizes=[int(x) for x in args.batch_sizes.split(",")],
         seconds=[float(x) if "." in x else int(x)
                  for x in args.seconds.split(",")],
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
+    end_distributed(args)
     print(f"exported serving bundle -> {out}", file=sys.stderr)
     return out
 

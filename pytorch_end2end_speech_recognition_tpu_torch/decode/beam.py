@@ -26,12 +26,20 @@ every row.
 
 `decode_batch` runs the whole pipeline on a loader's batch and turns the
 N-best ids into text with the tokenizer; `decode_ids` stops at the ids.
-Decoding over a device mesh comes with the parallelism slice (ROADMAP.md
-Queue 1 item 5).
+
+On a mesh (`mesh=`, the JAX package's multi-device decode) each rank
+decodes its own contiguous rows of `decode_batch`'s batch with the whole
+model and LM, and the N-best lists are gathered to every rank in input
+order (through host tensors). Where the JAX decoder also TP-shards the
+decoder's weights under GSPMD, the port gathers a sharded model whole
+first and splits by rows only: a token step is launch-bound (the card
+idles 82-89% of it), and an all-reduce per linear per step would only add
+to that. The tokens are the same.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -47,6 +55,17 @@ from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc_prefix import (
     log_add,
     prefix_recursion_plain,
     prefix_select_plain,
+)
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (
+    all_gather_objects,
+    group_rank,
+    size,
+)
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.mesh import (
+    require_mesh,
+)
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.sharding import (
+    gather_model,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
     DecodeConfig,
@@ -96,14 +115,15 @@ class BeamSearchDecoder:
     an optional LM (`models/lm.py`), on the model's device. The CTC prefix
     scorer follows `prefix_impl` ('cuda': the kernels, which take their
     plain versions on CPU tensors; 'torch': the plain recursion), by
-    default the model's `ctc_impl`."""
+    default the model's `ctc_impl`. With a `mesh`, every rank of it must
+    construct the decoder and call `decode_batch` alike (see the module's
+    docstring)."""
 
     def __init__(self, model, cfg: DecodeConfig, lm=None, mesh=None,
                  prefix_impl: str | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BeamSearchDecoder(mesh=...): decoding over a device mesh "
-                "comes with the parallelism slice")
+        require_mesh(mesh)
+        self.group = None if mesh is None else mesh.world_group
+        model = gather_model(model)
         if model.decoder is None:
             raise ValueError("beam search needs the model's attention "
                              "decoder (ctc_weight < 1)")
@@ -134,7 +154,12 @@ class BeamSearchDecoder:
 
     def decode_batch(self, batch, tokenizer) -> list[list[dict]]:
         """A bucketed batch -> per-utterance N-best dicts {'text', 'tokens',
-        'score'}, best first (`cfg.nbest` of them; [] for pad rows)."""
+        'score'}, best first (`cfg.nbest` of them; [] for pad rows). On a
+        mesh, this rank decodes its rows and every rank returns all rows."""
+        return by_rows(lambda b: self._decode_rows(b, tokenizer), batch,
+                       self.group)
+
+    def _decode_rows(self, batch, tokenizer) -> list[list[dict]]:
         dev = next(self.model.parameters()).device
         out = self.decode_ids(torch.as_tensor(batch.audio, device=dev),
                               torch.as_tensor(batch.audio_lens, device=dev))
@@ -316,3 +341,32 @@ class BeamSearchDecoder:
             "finished": finished.gather(1, order),
             "steps": steps,
         }
+
+
+def by_rows(fn, batch, group) -> list:
+    """`fn` (a batch -> one result a row) over this rank's rows of `batch`
+    (`split_rows`), every rank's results gathered in input order; `fn` of
+    the whole batch without a group."""
+    if group is None:
+        return fn(batch)
+    rows = split_rows(len(batch.audio_lens), group)
+    mine = fn(batch_rows(batch, rows)) if len(rows) else []
+    return [r for part in all_gather_objects(mine, group) for r in part]
+
+
+def split_rows(n: int, group) -> np.ndarray:
+    """This rank's contiguous rows of n (the first n % world ranks take one
+    more)."""
+    return np.array_split(np.arange(n), size(group))[group_rank(group)]
+
+
+def batch_rows(batch, rows: np.ndarray):
+    """A `Batch` of the given rows (ids and texts, which a loader's batch
+    holds for its leading real rows only, likewise)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import Batch
+
+    pick = lambda a: a[rows]  # noqa: E731
+    return Batch(pick(batch.audio), pick(batch.audio_lens),
+                 pick(batch.tokens), pick(batch.token_lens),
+                 [batch.ids[i] for i in rows if i < len(batch.ids)],
+                 [batch.texts[i] for i in rows if i < len(batch.texts)])

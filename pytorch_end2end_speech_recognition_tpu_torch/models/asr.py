@@ -96,12 +96,19 @@ class AsrModel(nn.Module):
     """Frontend, encoder, CTC head and (for ctc_weight < 1) the decoder on
     one device.
 
-    `cfg` is resolved for `device` (None -> 'cuda'; the caller's config is
-    not modified) and the weights are drawn from `seed`."""
+    `cfg` is resolved for `device` (None -> 'cuda', or the mesh's device;
+    the caller's config is not modified) and the weights are drawn from
+    `seed`. With a `mesh` (parallel/mesh.py) the whole model is drawn, so
+    that every mesh starts from the same weights, and then sharded
+    (`parallel/sharding.py:shard_model`): this rank keeps its slices."""
 
-    def __init__(self, cfg: AsrConfig, device=None, seed: int = 0):
+    mesh = None
+
+    def __init__(self, cfg: AsrConfig, device=None, seed: int = 0,
+                 mesh=None):
         super().__init__()
-        dev = dv.resolve(device)
+        dev = dv.resolve(mesh.device if mesh is not None and device is None
+                         else device)
         cfg = resolve_device(cfg, dev)
         self.cfg = cfg
         self.frontend = Frontend(cfg.frontend, dev)
@@ -120,6 +127,12 @@ class AsrModel(nn.Module):
             if part is not None:
                 part.to_empty(device=dev)
                 init_params(part, gen)
+        if mesh is not None:
+            from pytorch_end2end_speech_recognition_tpu_torch.parallel.sharding import (  # noqa: E501
+                shard_model,
+            )
+
+            shard_model(self, mesh)
 
     def features(self, audio: torch.Tensor, audio_lens: torch.Tensor,
                  train: bool = False,

@@ -10,6 +10,13 @@ computed once per utterance, and each step writes its self-attention K/V
 in place into fixed-shape (B, max_len, L, D) float32 caches. There is no
 Pallas kernel here: attention is plain torch in float32, as the reference
 computes it; the projections run in `cfg.dtype`.
+
+Under tensor parallelism (`parallel/sharding.py`) the training pass runs
+Megatron's split as the JAX package's rules lay it out: wq/wk/wv
+column-parallel on this rank's heads, wo row-parallel, fc1 and fc2 as in
+the encoder's FFN, the embedding and the output projection replicated.
+The beam search's interface needs the whole decoder: the beam decoder
+gathers a sharded model first (`decode/beam.py`).
 """
 
 from __future__ import annotations
@@ -22,12 +29,18 @@ import torch.nn.functional as F
 
 from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
     LN_EPS,
+    _col,
     _dt,
     _layer_norm,
     _linear,
+    _row,
     dropout,
     pe_table,
     sinusoidal_pe,  # noqa: F401 (the decoder's table, re-exported)
+)
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (
+    copy_to,
+    size,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import ModelConfig
 
@@ -74,6 +87,8 @@ class TransformerDecoderBlock(nn.Module):
     """Pre-LN block: causal self-attn -> cross-attn(enc) -> FFN, residual
     stream in float32."""
 
+    tp_group = None
+
     def __init__(self, d_enc: int, cfg: ModelConfig):
         super().__init__()
         D = cfg.decoder_dim
@@ -94,18 +109,25 @@ class TransformerDecoderBlock(nn.Module):
         self.fc2 = nn.Linear(Fd, D)
 
     def _proj(self, x, layer):
-        return _linear(x, layer, self.dt).float()
+        """A column-parallel projection (the whole one without a group) of
+        an input that has been through `copy_to`."""
+        return _col(x, layer, self.dt, self.tp_group).float()
+
+    def _out(self, y, layer):
+        return _row(y, layer, self.dt, self.tp_group, False).float()
 
     def self_qkv(self, x):
         """x (B, Tq, D) float32 -> q, k, v (B, Tq, D) float32 from the
-        pre-LN input."""
-        h = _layer_norm(x, self.ln1)
+        pre-LN input (this rank's heads' features under tensor
+        parallelism)."""
+        h = copy_to(_layer_norm(x, self.ln1).to(self.dt), self.tp_group)
         return (self._proj(h, self.wq1), self._proj(h, self.wk1),
                 self._proj(h, self.wv1))
 
     def cross_kv(self, enc):
         """enc (B, T, d_enc) -> (k, v), each (B, T, D) float32; once per
-        utterance."""
+        utterance. Under tensor parallelism enc must have been through
+        `copy_to` (`TransformerDecoder.forward` does it once)."""
         return self._proj(enc, self.wk2), self._proj(enc, self.wv2)
 
     def run(self, x, q, k, v, self_mask, ck, cv, cross_mask, train=False,
@@ -114,15 +136,19 @@ class TransformerDecoderBlock(nn.Module):
         weights (B, H, Tq, T)). When ck/cv hold fewer rows than x (beam
         search: x has K hypotheses of each utterance, in row-major order),
         each query row attends to its utterance's keys."""
-        y, _ = mha(q, k, v, self_mask, self.heads)
-        x = x + dropout(self._proj(y, self.wo1), self.rate, gen, train)
-        q2 = self._proj(_layer_norm(x, self.ln2), self.wq2)
-        y2, w = (mha(q2, ck, cv, cross_mask, self.heads)
+        g = self.tp_group
+        heads = self.heads // size(g)
+        y, _ = mha(q, k, v, self_mask, heads)
+        x = x + dropout(self._out(y, self.wo1), self.rate, gen, train)
+        q2 = self._proj(copy_to(_layer_norm(x, self.ln2).to(self.dt), g),
+                        self.wq2)
+        y2, w = (mha(q2, ck, cv, cross_mask, heads)
                  if ck.shape[0] == q2.shape[0]
-                 else mha_grouped(q2, ck, cv, cross_mask, self.heads))
-        x = x + dropout(self._proj(y2, self.wo2), self.rate, gen, train)
-        f = F.relu(_linear(_layer_norm(x, self.ln3), self.fc1, self.dt))
-        f = _linear(f, self.fc2, self.dt).float()
+                 else mha_grouped(q2, ck, cv, cross_mask, heads))
+        x = x + dropout(self._out(y2, self.wo2), self.rate, gen, train)
+        f = F.relu(_col(copy_to(_layer_norm(x, self.ln3).to(self.dt), g),
+                        self.fc1, self.dt, g))
+        f = self._out(f, self.fc2)
         return x + dropout(f, self.rate, gen, train), w
 
 
@@ -146,7 +172,8 @@ class TransformerDecoder(nn.Module):
         """Teacher-forced log-probs (B, U+1, V) for targets [tokens, eos]
         from inputs [sos, tokens], causal self-attention, cross-attention to
         the frames t < enc_lens[b]; with `return_attn` also the last
-        block's cross-attention weights averaged over heads (B, U+1, T)."""
+        block's cross-attention weights averaged over heads (B, U+1, T;
+        over this rank's heads under tensor parallelism)."""
         B, T, _ = enc.shape
         U1 = tokens.shape[1] + 1
         sos = torch.full((B, 1), SOS_EOS_ID, dtype=torch.long,
@@ -159,6 +186,8 @@ class TransformerDecoder(nn.Module):
                                           device=enc.device))[None, None]
         cross_mask = (torch.arange(T, device=enc.device)[None, :]
                       < enc_lens[:, None])[:, None, None, :]
+        if self.blocks and self.blocks[0].tp_group is not None:
+            enc = copy_to(enc.to(self.dt), self.blocks[0].tp_group)
         for blk in self.blocks:
             q, sk, sv = blk.self_qkv(x)
             ck, cv = blk.cross_kv(enc)

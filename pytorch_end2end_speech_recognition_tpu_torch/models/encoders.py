@@ -17,6 +17,20 @@ kernels (`ops/ffn_kernel.py`), whose dropout draws its seed from the same
 generator. With `model.remat` each block of the Transformer and Conformer
 stacks runs under `torch.utils.checkpoint` in training (the JAX package's
 `jax.checkpoint`), its recompute replaying the generator's draws.
+
+Tensor parallelism (`parallel/sharding.py` shards the parameters, then sets
+`tp_group` on the modules that have one): MhsaBlock (q/k/v
+column-parallel on this rank's H/tp heads, o row-parallel), FfnBlock (fc1,
+fc2), ConvModule (pw1 in GLU halves, pw2; the depthwise conv on this
+rank's channels; its channel LayerNorm's mean and variance summed over
+the shards) and the relative-bias table (this rank's heads). A replicated
+parameter that a rank uses only in part, or on its own part of the
+activations (the column-parallel biases, the depthwise conv, the channel
+LayerNorm, the bias table; under sequence parallelism the layer norms and
+the row-parallel biases), enters through `copy_to`, so its gradient is
+summed over the 'model' group. With `model.sp` the residual stream between
+blocks is split along time over the 'model' group (Megatron sequence
+parallelism: the JAX package's `sp_constrain`), when tp divides T.
 """
 
 from __future__ import annotations
@@ -28,9 +42,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (
-    attention_plain,
-    flash_attention,
-    fused_attention,
+    sharded_fused_attention,
     toeplitz_dense,
     toeplitz_expand,
 )
@@ -39,6 +51,20 @@ from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
     fits_vmem,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn import bilstm_layer
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (
+    copy_to,
+    gather_time,
+    gather_time_replicated,
+    group_rank,
+    reduce_from,
+    reduce_scatter_time,
+    size,
+    split_time,
+    sum_both,
+)
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.sharding import (
+    shard_tensor,
+)
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import ModelConfig
 
 LN_EPS = 1e-6
@@ -65,16 +91,24 @@ def _masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            train: bool) -> torch.Tensor:
+            train: bool, group=None) -> torch.Tensor:
     """Stateless dropout (the JAX package's `dropout`): a no-op unless
     training at a rate > 0; kept elements scaled by 1/(1-rate) in x's dtype.
-    Draws from `generator`, which must live on x's device."""
+    Draws from `generator`, which must live on x's device. With a `group`,
+    x is this rank's time slice of a (B, T, ...) tensor split over it
+    (sequence parallelism): the whole mask is drawn, as without the split
+    (the group's ranks hold one generator state), and this rank's slice
+    kept, so the slices do not repeat one pattern."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError(f"dropout at rate {rate} in training needs a "
                          "torch.Generator")
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    shape = list(x.shape)
+    shape[1] *= size(group)
+    u = torch.rand(shape, generator=generator, device=x.device)
+    if group is not None:
+        u = u.chunk(size(group), 1)[group_rank(group)]
     return x * ((u < 1.0 - rate).to(x.dtype) * (1.0 / (1.0 - rate)))
 
 
@@ -84,10 +118,51 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dt: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dt), layer.weight.to(dt), bias)
 
 
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """nnx.LayerNorm with float32 params: computed and returned in float32."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm,
+                group=None) -> torch.Tensor:
+    """nnx.LayerNorm with float32 params: computed and returned in float32.
+    With a `group`, x is this rank's part of the rows (sequence
+    parallelism), so the parameters' gradients are summed over it."""
+    return F.layer_norm(x.float(), ln.normalized_shape,
+                        copy_to(ln.weight, group), copy_to(ln.bias, group),
                         LN_EPS)
+
+
+def _part(p: torch.Tensor, group, dim: int = 0,
+          glu: bool = False) -> torch.Tensor:
+    """This rank's slice of a replicated parameter along `dim`, its
+    gradient summed over the group (the whole parameter without one)."""
+    if group is None:
+        return p
+    return shard_tensor(copy_to(p, group), dim, glu, size(group),
+                        group_rank(group))
+
+
+def _enter(h: torch.Tensor, group, sp: bool) -> torch.Tensor:
+    """The input of column-parallel linears: time-gathered under sequence
+    parallelism, else the replicated input, its gradient summed."""
+    return gather_time(h, group) if sp else copy_to(h, group)
+
+
+def _col(x: torch.Tensor, layer: nn.Linear, dt: torch.dtype, group,
+         glu: bool = False) -> torch.Tensor:
+    """A column-parallel linear: this rank's output features (its weight
+    rows; the bias's matching slice); `_linear` without a group."""
+    bias = None if layer.bias is None else _part(layer.bias, group, 0,
+                                                 glu).to(dt)
+    return F.linear(x.to(dt), layer.weight.to(dt), bias)
+
+
+def _row(x: torch.Tensor, layer: nn.Linear, dt: torch.dtype, group,
+         sp: bool) -> torch.Tensor:
+    """A row-parallel linear: this rank's input features' partial product,
+    summed over the group (reduce-scattered along time under sequence
+    parallelism), then the bias; `_linear` without a group."""
+    if group is None:
+        return _linear(x, layer, dt)
+    y = F.linear(x.to(dt), layer.weight.to(dt))
+    y = reduce_scatter_time(y, group) if sp else reduce_from(y, group)
+    return y + copy_to(layer.bias, group if sp else None).to(dt)
 
 
 class LstmParams(nn.Module):
@@ -287,6 +362,8 @@ class RelPosBias(nn.Module):
     once. Gradients flow back through the bucket gather into the table.
     """
 
+    tp_group = None  # set under tensor parallelism: this rank's heads
+
     def __init__(self, layers: int, heads: int, n_buckets: int = 64,
                  max_dist: int = 256):
         super().__init__()
@@ -309,17 +386,21 @@ class RelPosBias(nn.Module):
 
     def diags(self, T: int, dtype=torch.float32) -> torch.Tensor:
         """(L, H, 2T-1) diagonal vectors: diag[..., (T-1) + r] is the bias
-        of relative offset r = j - i."""
+        of relative offset r = j - i; under tensor parallelism, this rank's
+        H/tp heads."""
         rel = torch.arange(-(T - 1), T, device=self.table.device)
-        return self.table[:, :, self._bucket(rel)].to(dtype)
+        return _part(self.table, self.tp_group, 1)[
+            :, :, self._bucket(rel)].to(dtype)
 
     def forward(self, T: int, dtype=torch.float32, pad_to: int | None = None,
                 impl: str = "torch") -> torch.Tensor:
-        """(L, H, P, P) biases for all layers, P = pad_to or T. With
-        impl='cuda' the Toeplitz kernel expands every layer in one launch,
-        padded to `pad_to` (edge values in the pad band)."""
-        L, H, _ = self.table.shape
-        diag = self.diags(T).reshape(L * H, 2 * T - 1)
+        """(L, H, P, P) biases for all layers (this rank's heads under
+        tensor parallelism), P = pad_to or T. With impl='cuda' the Toeplitz
+        kernel expands every layer in one launch, padded to `pad_to` (edge
+        values in the pad band)."""
+        diag = self.diags(T)
+        L, H, _ = diag.shape
+        diag = diag.reshape(L * H, 2 * T - 1)
         P = pad_to or T
         if impl == "cuda":
             dense = toeplitz_dense(diag.contiguous(), T, P, dtype)
@@ -332,7 +413,9 @@ def _rel_bias_repr(rel: RelPosBias | None, cfg: ModelConfig, T: int):
     """(biases, diags), at most one of them set: dense stacked (L, H, P, P)
     biases in `cfg.dtype` (P = T, or T padded to a 128 multiple on the
     kernel path), or the float32 diagonals (L, H, 2T-1) for the flash path;
-    (None, None) without a relative bias.
+    (None, None) without a relative bias. Under tensor parallelism
+    (`rel.tp_group`) H is this rank's heads; the choice stays on the
+    global H, so that one config takes one path on any mesh.
 
     The rule is the JAX package's `_rel_bias_repr`, formula and itemsize
     included, kept so that one config takes one path in both packages: its
@@ -354,7 +437,11 @@ def _rel_bias_repr(rel: RelPosBias | None, cfg: ModelConfig, T: int):
 
 class MhsaBlock(nn.Module):
     """Pre-LN multi-head self-attention with key padding mask and an
-    optional per-head additive bias."""
+    optional per-head additive bias. The attention runs through
+    `sharded_fused_attention`: under tensor parallelism on this rank's
+    heads alone, with no collective, on the dense and the flash path."""
+
+    tp_group = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -369,51 +456,67 @@ class MhsaBlock(nn.Module):
         self.rate = cfg.encoder_dropout
         self.dt, self.rdt = _dt(cfg), _rdt(cfg)
 
-    def forward(self, x, mask, bias=None, diag=None, train=False, gen=None):
+    def forward(self, x, mask, bias=None, diag=None, train=False, gen=None,
+                sp=False):
         """`bias`: this block's (H, P, P) slice of the stacked dense biases;
-        `diag`: its (H, 2T-1) float32 diagonals on the flash path."""
-        h = _layer_norm(x, self.ln)
-        qf = _linear(h, self.q, self.dt)
-        kf = _linear(h, self.k, self.dt)
-        vf = _linear(h, self.v, self.dt)
+        `diag`: its (H, 2T-1) float32 diagonals on the flash path (this
+        rank's heads under tensor parallelism); `sp`: x is this rank's time
+        slice (mask stays whole)."""
+        g = self.tp_group
+        h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt), g,
+                   sp)
+        qf = _col(h, self.q, self.dt, g)
+        kf = _col(h, self.k, self.dt, g)
+        vf = _col(h, self.v, self.dt, g)
         lens = mask.sum(dim=1).to(torch.int32)
-        cuda = self.attn_impl == "cuda"
-        if diag is not None:
-            y = flash_attention(qf, kf, vf, diag, lens, self.heads,
-                                plain=not cuda)
-        else:
-            attend = fused_attention if cuda else attention_plain
-            y = attend(qf, kf, vf, bias, lens, self.heads)
-        y = _linear(y, self.o, self.dt).to(self.rdt)
-        return x + dropout(y, self.rate, gen, train)
+        y = sharded_fused_attention(size(g), qf, kf, vf, bias, lens,
+                                    self.heads, diag=diag,
+                                    plain=self.attn_impl != "cuda")
+        y = _row(y, self.o, self.dt, g, sp).to(self.rdt)
+        return x + dropout(y, self.rate, gen, train, g if sp else None)
+
+
+def ffn_fused(cfg: ModelConfig, mesh=None) -> bool:
+    """The JAX package's gate of its fused FFN (`models/encoders.py:
+    503-507`): the kernel impl, no mesh with a 'data' or 'model' axis > 1,
+    no sequence or pipeline parallelism, and `fits_vmem(D, F)`."""
+    sharded = mesh is not None and mesh.sharded
+    return (cfg.ffn_impl == "cuda" and not sharded and not cfg.sp
+            and cfg.pp_stages == 1
+            and fits_vmem(cfg.encoder_dim, cfg.encoder_ffn_dim))
 
 
 class FfnBlock(nn.Module):
     """Pre-LN FFN: x + scale * dropout(fc2(silu(fc1(LN(x))))).
 
     With `ffn_impl='cuda'` it takes the fused FFN kernels where the JAX
-    package's gate takes its Pallas kernel: no sequence or pipeline
-    parallelism (the port has no sharded encoder) and `fits_vmem(D, F)`.
+    package's gate takes its Pallas kernel (`ffn_fused`: no mesh with an
+    axis > 1, no sequence or pipeline parallelism, `fits_vmem(D, F)`).
     Elsewhere (rung 4 and 5's widths) it runs plain torch, as the JAX
     package runs XLA there. On the kernel path the weights are cast to
     `cfg.dtype` first, as the JAX model casts them, so their gradients are
     rounded where the JAX package's are; the kernels raise on what they do
     not take (float32 weights on the card), there is no fallback."""
 
+    tp_group = None
+
     def __init__(self, cfg: ModelConfig, scale: float = 1.0):
         super().__init__()
         D = cfg.encoder_dim
+        self.cfg = cfg
         self.scale = scale
         self.ln = nn.LayerNorm(D, eps=LN_EPS)
         self.fc1 = nn.Linear(D, cfg.encoder_ffn_dim)
         self.fc2 = nn.Linear(cfg.encoder_ffn_dim, D)
         self.rate = cfg.encoder_dropout
         self.dt, self.rdt = _dt(cfg), _rdt(cfg)
-        self.fused = (cfg.ffn_impl == "cuda" and not cfg.sp
-                      and cfg.pp_stages == 1
-                      and fits_vmem(D, cfg.encoder_ffn_dim))
+        self.fused = ffn_fused(cfg)
 
-    def forward(self, x, train=False, gen=None):
+    def set_mesh(self, mesh) -> None:
+        """Apply the gate's mesh term (`shard_model` calls it)."""
+        self.fused = ffn_fused(self.cfg, mesh)
+
+    def forward(self, x, train=False, gen=None, sp=False):
         if self.fused:
             dt = self.dt
             return ffn_block_fused(
@@ -421,13 +524,22 @@ class FfnBlock(nn.Module):
                 self.fc1.bias.to(dt), self.fc2.weight.to(dt),
                 self.fc2.bias.to(dt), rate=self.rate, scale=self.scale,
                 train=train, generator=gen)
-        h = F.silu(_linear(_layer_norm(x, self.ln), self.fc1, self.dt))
-        h = _linear(h, self.fc2, self.dt).to(self.rdt)
-        return x + self.scale * dropout(h, self.rate, gen, train)
+        g = self.tp_group
+        h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt), g,
+                   sp)
+        h = _row(F.silu(_col(h, self.fc1, self.dt, g)), self.fc2, self.dt, g,
+                 sp).to(self.rdt)
+        return x + self.scale * dropout(h, self.rate, gen, train,
+                                        g if sp else None)
 
 
 class ConvModule(nn.Module):
-    """Conformer convolution module: pointwise-GLU -> depthwise -> LN -> pw."""
+    """Conformer convolution module: pointwise-GLU -> depthwise -> LN -> pw.
+    Under tensor parallelism a rank holds D/tp of the channels from pw1's
+    GLU to pw2; the channel LayerNorm sums its mean and variance over the
+    'model' group (`_channel_ln`), the JAX package's numbers."""
+
+    tp_group = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -440,19 +552,40 @@ class ConvModule(nn.Module):
         self.rate = cfg.encoder_dropout
         self.dt, self.rdt = _dt(cfg), _rdt(cfg)
 
-    def forward(self, x, mask, train=False, gen=None):
-        h = F.glu(_linear(_layer_norm(x, self.ln), self.pw1, self.dt), dim=-1)
+    def forward(self, x, mask, train=False, gen=None, sp=False):
+        g = self.tp_group
+        h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt), g,
+                   sp)
+        h = F.glu(_col(h, self.pw1, self.dt, g, glu=True), dim=-1)
         h = _masked(h, mask[..., None])  # the depthwise conv must not see pad
         K = self.dw.kernel_size[0]
         h = F.pad(h.transpose(1, 2), ((K - 1) // 2, K - 1 - (K - 1) // 2))
-        h = F.conv1d(h, self.dw.weight.to(self.dt), self.dw.bias.to(self.dt),
-                     groups=self.dw.groups).transpose(1, 2)
-        h = F.silu(_layer_norm(h, self.norm))
-        h = _linear(h, self.pw2, self.dt).to(self.rdt)
-        return x + dropout(h, self.rate, gen, train)
+        h = F.conv1d(h, _part(self.dw.weight, g).to(self.dt),
+                     _part(self.dw.bias, g).to(self.dt),
+                     groups=h.shape[1]).transpose(1, 2)
+        h = F.silu(_channel_ln(h, self.norm, g))
+        h = _row(h, self.pw2, self.dt, g, sp).to(self.rdt)
+        return x + dropout(h, self.rate, gen, train, g if sp else None)
+
+
+def _channel_ln(h: torch.Tensor, ln: nn.LayerNorm, group) -> torch.Tensor:
+    """LayerNorm over channels that `group` splits: the sum, then the
+    centred sum of squares, each summed over the shards (two passes, as
+    `F.layer_norm` computes them), in float32; `_layer_norm` without a
+    group."""
+    if group is None:
+        return _layer_norm(h, ln)
+    x = h.float()
+    D = ln.normalized_shape[0]
+    xc = x - sum_both(x.sum(-1, keepdim=True), group) / D
+    var = sum_both((xc * xc).sum(-1, keepdim=True), group) / D
+    return (xc * torch.rsqrt(var + LN_EPS) * _part(ln.weight, group)
+            + _part(ln.bias, group))
 
 
 class ConformerBlock(nn.Module):
+    tp_group = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.ff1 = FfnBlock(cfg, scale=0.5)
@@ -461,12 +594,15 @@ class ConformerBlock(nn.Module):
         self.ff2 = FfnBlock(cfg, scale=0.5)
         self.ln = nn.LayerNorm(cfg.encoder_dim, eps=LN_EPS)
 
-    def forward(self, x, mask, bias=None, diag=None, train=False, gen=None):
-        x = self.ff1(x, train, gen)
-        x = self.mhsa(x, mask, bias, diag, train, gen)
-        x = self.conv(x, mask, train, gen)
-        x = self.ff2(x, train, gen)
-        return _layer_norm(x, self.ln).to(x.dtype)  # keep the residual dtype
+    def forward(self, x, mask, bias=None, diag=None, train=False, gen=None,
+                sp=False):
+        x = self.ff1(x, train, gen, sp)
+        x = self.mhsa(x, mask, bias, diag, train, gen, sp)
+        x = self.conv(x, mask, train, gen, sp)
+        x = self.ff2(x, train, gen, sp)
+        # keep the residual dtype
+        return _layer_norm(x, self.ln, self.tp_group if sp else None).to(
+            x.dtype)
 
 
 class TransformerBlock(nn.Module):
@@ -475,8 +611,19 @@ class TransformerBlock(nn.Module):
         self.mhsa = MhsaBlock(cfg)
         self.ffn = FfnBlock(cfg)
 
-    def forward(self, x, mask, bias=None, diag=None, train=False, gen=None):
-        return self.ffn(self.mhsa(x, mask, bias, diag, train, gen), train, gen)
+    def forward(self, x, mask, bias=None, diag=None, train=False, gen=None,
+                sp=False):
+        return self.ffn(self.mhsa(x, mask, bias, diag, train, gen, sp), train,
+                        gen, sp)
+
+
+def sp_enabled(cfg: ModelConfig, group, T: int) -> bool:
+    """Whether the residual stream runs time-split over the 'model' group
+    (the JAX package's `sp_constrain` test): `model.sp`, a group, and T a
+    multiple of its size; a no-op otherwise, and under `cp_mode` (which
+    the port refuses)."""
+    return (cfg.sp and not cfg.cp_mode and group is not None
+            and T % size(group) == 0)
 
 
 class _BlockEncoder(nn.Module):
@@ -484,11 +631,15 @@ class _BlockEncoder(nn.Module):
     Conformer encoders): subsampling, the relative-bias table when
     `pos_encoding='relative'`, `cfg.encoder_layers` blocks of `block`."""
 
+    tp_group = None
+
     def __init__(self, d_in: int, cfg: ModelConfig, block):
         super().__init__()
         if cfg.cp_mode or cfg.pp_stages > 1:
             raise NotImplementedError(
-                "context and pipeline parallelism are not ported yet")
+                "context (cp_mode) and pipeline (pp_stages > 1) parallelism "
+                "come with the next parallelism slice (parallel/cp.py, "
+                "parallel/pp.py)")
         self.cfg = cfg
         self.sub = ConvSubsample(d_in, cfg.encoder_dim, cfg)
         self.rel = (RelPosBias(cfg.encoder_layers, cfg.encoder_heads)
@@ -500,22 +651,29 @@ class _BlockEncoder(nn.Module):
 
     def _apply_blocks(self, x, mask, train, generator):
         """The blocks in order, each with its layer's slice of the relative
-        bias (dense, or the diagonals past FLASH_T; none for absolute PE)."""
-        biases, diags = _rel_bias_repr(self.rel, self.cfg, mask.shape[1])
+        bias (dense, or the diagonals past FLASH_T; none for absolute PE),
+        the residual stream split along time between them under sequence
+        parallelism."""
+        g = self.tp_group
+        T = mask.shape[1]
+        biases, diags = _rel_bias_repr(self.rel, self.cfg, T)
         # unbind: one stacked gradient for all layers in the backward
         none = [None] * len(self.blocks)
         biases = biases.unbind(0) if biases is not None else none
         diags = diags.unbind(0) if diags is not None else none
         remat = self.cfg.remat and train
+        sp = sp_enabled(self.cfg, g, T)
+        if sp:
+            x = split_time(x, g)
         for blk, bias, diag in zip(self.blocks, biases, diags):
             if remat:
-                x = _remat_block(blk, x, mask, bias, diag, generator)
+                x = _remat_block(blk, x, mask, bias, diag, generator, sp)
             else:
-                x = blk(x, mask, bias, diag, train, generator)
-        return x
+                x = blk(x, mask, bias, diag, train, generator, sp)
+        return gather_time_replicated(x, g) if sp else x
 
 
-def _remat_block(blk, x, mask, bias, diag, generator):
+def _remat_block(blk, x, mask, bias, diag, generator, sp=False):
     """One training block under `torch.utils.checkpoint` (the JAX package's
     `jax.checkpoint` of `_apply_blocks`): its activations are recomputed in
     the backward. Checkpoint restores only the default generators, and the
@@ -529,11 +687,11 @@ def _remat_block(blk, x, mask, bias, diag, generator):
     def run(x, bias, diag):
         calls[0] += 1
         if calls[0] == 1 or generator is None:
-            return blk(x, mask, bias, diag, True, generator)
+            return blk(x, mask, bias, diag, True, generator, sp)
         after = generator.get_state()
         generator.set_state(state)
         try:
-            return blk(x, mask, bias, diag, True, generator)
+            return blk(x, mask, bias, diag, True, generator, sp)
         finally:
             generator.set_state(after)
 
@@ -579,6 +737,8 @@ class ConformerEncoder(_BlockEncoder):
 
 
 def build_encoder(d_in: int, cfg: ModelConfig) -> nn.Module:
+    """The encoder of `cfg.encoder` (`shard_model` shards it for a
+    mesh)."""
     if cfg.encoder == "blstm":
         return BiLstmEncoder(d_in, cfg)
     if cfg.encoder == "pblstm":

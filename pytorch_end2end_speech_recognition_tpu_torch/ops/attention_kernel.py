@@ -666,3 +666,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or None; lens: (B,) integer. As `fused_attention`, query rows past
     lens[b] still produce outputs that callers mask."""
     return _FlashAttention.apply(q, k, v, diag, lens, heads, plain)
+
+
+# ------------------------------------------------------- tensor parallelism
+def sharded_fused_attention(tp: int, q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, bias: torch.Tensor | None,
+                            lens: torch.Tensor, heads: int,
+                            diag: torch.Tensor | None = None,
+                            plain: bool = False) -> torch.Tensor:
+    """Attention on one rank's heads of a 'model' axis of size `tp`: the
+    JAX package's `sharded_fused_attention` (`ops/attention_pallas.py:898`),
+    whose shard_map hands each device its (B/dp, T, H/tp Dh) slice, and
+    `MhsaBlock`'s one attention path (tp 1 off a mesh).
+
+    q, k, v, lens: this rank's rows and heads (the column-parallel
+    projections' H/tp contiguous Dh-column groups); `heads` is the global
+    H. `bias` (H/tp, P, P), or on the flash path `diag` (H/tp, 2T-1)
+    float32, holds this rank's heads (`RelPosBias` takes them from its
+    table). Runs `fused_attention` (kernels #3/#4), with `diag`
+    `flash_attention` (#7/#8), with `plain` their plain versions, on the
+    local heads alone and with no collective, as in JAX: a bias's
+    gradient covers this rank's heads and rows, for the caller to sum. The
+    JAX package runs flash unsharded under GSPMD; head-sharding it gives
+    the same result."""
+    if heads % tp:
+        raise ValueError(f"{heads} heads do not split over tp={tp}")
+    local = heads // tp
+    rel = diag if diag is not None else bias
+    if rel is not None and rel.shape[0] != local:
+        raise ValueError(f"bias of {rel.shape[0]} heads for this rank's "
+                         f"{local}")
+    if diag is not None:
+        return flash_attention(q, k, v, diag, lens, local, plain=plain)
+    attend = attention_plain if plain else fused_attention
+    return attend(q, k, v, bias, lens, local)

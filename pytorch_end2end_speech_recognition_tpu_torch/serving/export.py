@@ -95,12 +95,10 @@ def export_bundle(cfg, tokenizer, out_dir, checkpoint_tag="best",
     (beam) for each bucket of the cross product of `batch_sizes` and
     `seconds`. Each program's export time and size go to stderr.
 
-    `mesh` (restoring through a sharded Solver) comes with the parallelism
-    slice and raises NotImplementedError until then."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "export_bundle(mesh=...): data and tensor parallelism come with "
-            "the parallelism slice")
+    `mesh`: restore the checkpoint through a Solver sharded over the
+    training mesh (every rank of it calls this alike), gather its state
+    whole, and export single-device programs, equal to an unsharded
+    export; rank 0 writes the bundle, on the mesh's device."""
     if mode not in FORMATS:
         raise ValueError(f"unknown bundle mode {mode!r}: 'greedy' or 'beam'")
     from pytorch_end2end_speech_recognition_tpu_torch.models.streaming import (
@@ -115,8 +113,17 @@ def export_bundle(cfg, tokenizer, out_dir, checkpoint_tag="best",
     cfg = copy.deepcopy(cfg)
     # the Solver only holds the checkpoint's weights here: no metrics file
     cfg.train.metrics_path = cfg.train.tensorboard_dir = ""
-    solver = Solver(cfg, tokenizer, device=device)
+    solver = Solver(cfg, tokenizer, device=device, mesh=mesh)
     solver.load_checkpoint(checkpoint_tag)
+    if mesh is not None:
+        from pytorch_end2end_speech_recognition_tpu_torch.parallel.sharding import (  # noqa: E501
+            gather_model,
+        )
+
+        model = gather_model(solver.model)
+        if mesh.rank != 0:
+            return out
+        solver.model = model
     model = solver.model.eval()
     dev, cfg = solver.device, solver.cfg
     sr = cfg.frontend.sample_rate

@@ -7,7 +7,10 @@ parameters by name, the optimizer's state and the meta fields of the JAX
 package's checkpoints: step, best dev WER, the random state (here the
 `torch.Generator`'s byte state, in place of the PRNG key), the loader
 cursor, the plateau scale, the evaluations since the best and the
-tokenizer's vocab hash. Everything in it is a tensor or a plain Python
+tokenizer's vocab hash (and on a mesh, every data rank's generator
+state). Parameters and optimizer moments are whole tensors: a sharded
+Solver gathers them first, and slices them again on restore, for any
+mesh. Everything in it is a tensor or a plain Python
 value, so it loads with `torch.load(..., weights_only=True)`. Checkpoints
 written by the JAX package (Orbax) are not read.
 """
@@ -31,6 +34,8 @@ def _default_meta() -> dict:
         "step": 0,
         "best_wer": 0.0,
         "rng": torch.zeros(0, dtype=torch.uint8),
+        # every data rank's generator state on a mesh with dp > 1
+        "rng_data_ranks": torch.zeros(0, dtype=torch.uint8),
         "cursor_epoch": 0,
         "cursor_batch": 0,
         "lr_scale": 1.0,

@@ -9,6 +9,9 @@ from pytorch_end2end_speech_recognition_tpu_torch.models.decoder_transformer imp
     SOS_EOS_ID,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc import ctc_loss
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (
+    all_reduce_,
+)
 
 
 def attention_ce_loss(logps: torch.Tensor, tokens: torch.Tensor,
@@ -33,11 +36,18 @@ def attention_ce_loss(logps: torch.Tensor, tokens: torch.Tensor,
 
 def hybrid_loss(ctc_logits, enc_lens, att_logps, tokens, token_lens,
                 ctc_weight: float, label_smoothing: float = 0.0,
-                ctc_impl: str = "torch"):
+                ctc_impl: str = "torch", data_group=None):
     """(batch-mean hybrid loss, metrics): the CTC NLL divided by
     max(token_len, 1), both terms summed over rows and divided by the number
-    of rows with token_len > 0 (at least 1)."""
-    n_valid = torch.clamp((token_lens > 0).sum(), min=1).float()
+    of rows with token_len > 0 (at least 1).
+
+    With a `data_group`, the rows are this rank's share of the global batch:
+    the count of valid rows is summed over the group (the JAX package's
+    global n_valid), so this rank's loss is its rows' part of the global
+    mean, and the ranks' gradients are to be summed, not averaged (pad rows
+    may all sit on one rank)."""
+    n_valid = torch.clamp(all_reduce_((token_lens > 0).sum(), data_group),
+                          min=1).float()
     metrics = {}
     total = torch.zeros((), device=ctc_logits.device)
     if ctc_weight > 0.0:

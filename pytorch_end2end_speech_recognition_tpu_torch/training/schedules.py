@@ -26,6 +26,9 @@ from typing import Callable
 
 import torch
 
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (
+    all_reduce_,
+)
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import TrainConfig
 
 
@@ -54,10 +57,19 @@ def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     raise ValueError(f"unknown schedule {cfg.schedule}")
 
 
-def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, a 0-dim float32."""
+def global_norm(grads: list[torch.Tensor], sharded: torch.Tensor | None = None,
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, a 0-dim float32. Under
+    tensor parallelism (`group`, the 'model' group), the gradients marked
+    in `sharded` (bool, one a gradient) are this rank's slices: their
+    squares are summed over the group, and a replicated one counts once."""
     norms = torch._foreach_norm(grads)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if group is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).float() ** 2
+    mask = sharded.to(sq.device)
+    part = all_reduce_(torch.where(mask, sq, 0.0).sum(), group)
+    return torch.sqrt(part + torch.where(mask, 0.0, sq).sum())
 
 
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
@@ -96,6 +108,8 @@ class Optimizer:
         self.count = 0
         self.acc = zeros() if accum_steps > 1 else None
         self.mini_step = 0
+        # (sharded mask, 'model' group) under tensor parallelism
+        self.shards: tuple = (None, None)
 
     def state_dict(self) -> dict:
         """The state as tensors and ints (no reference to the parameters)."""
@@ -156,7 +170,7 @@ class Optimizer:
         factor) when no accumulation is pending."""
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
-        norm = global_norm(grads)
+        norm = global_norm(grads, *self.shards)
         inner_norm = norm
         if self.acc is not None:
             n = self.mini_step
@@ -166,7 +180,7 @@ class Optimizer:
             if self.mini_step:
                 return norm
             grads = self.acc
-            inner_norm = global_norm(grads)
+            inner_norm = global_norm(grads, *self.shards)
         grads = clip_by_global_norm(grads, self.max_norm, inner_norm)
         upd = self._adam(grads) if self.kind == "adam" else self._adadelta(
             grads)

@@ -19,8 +19,27 @@ step checkpoint (the newest `train.keep_checkpoints` kept), logs the
 decoder's attention to tensorboard, keeps the best-WER checkpoint and
 decays the learning rate on a plateau. Checkpoints hold the loader's
 cursor and the generator's state, so a resumed run takes the batches and
-draws the uninterrupted run would have taken. Not ported: the device mesh
-(data and tensor parallelism).
+draws the uninterrupted run would have taken.
+
+On a mesh (`parallel/mesh.py`; the JAX package's `Solver(mesh=...)`) the
+model is sharded (`parallel/sharding.py`), each rank trains on its loader
+shard's rows, and:
+- the loss divides by the valid rows of the global batch, and after the
+  backward one all-reduce sums the flattened gradients over 'data', in
+  parameter order, so every replica takes the global batch's step;
+- the gradient's global norm sums the sharded parameters' squares over
+  'model'; Adam's moments are sharded as their parameters;
+- the logged metrics and the dev WER's error counts are the global
+  batch's (summed over 'data'); only rank 0 writes metrics;
+- a checkpoint holds whole tensors, gathered from the shards and written
+  by rank 0, and restores on any mesh;
+- each data rank draws from its own generator, seeded train.seed + data
+  rank (the ranks of one 'model' group draw alike: their SpecAugment masks
+  and dropout on replicated activations must agree). A checkpoint keeps
+  every data rank's generator state; resuming on another dp reseeds the
+  data ranks past 0.
+Every rank must make the same calls in the same order (each one of these
+runs collectives): `fit`, `evaluate`, the checkpoint methods.
 """
 
 from __future__ import annotations
@@ -44,6 +63,14 @@ from pytorch_end2end_speech_recognition_tpu_torch.models.decoder import (
 from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc import (
     ctc_greedy_decode,
 )
+from pytorch_end2end_speech_recognition_tpu_torch.parallel import sharding
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (
+    all_gather_host,
+    all_reduce_,
+)
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.mesh import (
+    require_mesh,
+)
 from pytorch_end2end_speech_recognition_tpu_torch.training import checkpoint
 from pytorch_end2end_speech_recognition_tpu_torch.training.losses import (
     hybrid_loss,
@@ -63,28 +90,37 @@ from pytorch_end2end_speech_recognition_tpu_torch.utils.metrics_log import (
 
 class Solver:
     """Trains an `AsrModel`. `cfg` is resolved for `device` (None ->
-    'cuda'; the caller's config is not modified) with `vocab_size` set from
-    `tokenizer`; a `model` built from the same config may be passed in."""
+    'cuda'; with a `mesh`, the mesh's device; the caller's config is not
+    modified) with `vocab_size` set from `tokenizer`; a `model` built from
+    the same config may be passed in (it is sharded here if it is not
+    yet)."""
 
     def __init__(self, cfg: AsrConfig, tokenizer, device=None,
                  model: AsrModel | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Solver(mesh=...): data and tensor parallelism come with the "
-                "parallelism slice")
-        dev = dv.resolve(device)
+        require_mesh(mesh)
+        dev = mesh.device if mesh is not None else dv.resolve(device)
         cfg = resolve_device(cfg, dev)
         cfg.model.vocab_size = tokenizer.vocab_size
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.device = dev
-        self.model = model or AsrModel(cfg, device=dev, seed=cfg.train.seed)
+        self.mesh = mesh
+        self.model = model or AsrModel(cfg, device=dev, seed=cfg.train.seed,
+                                       mesh=mesh)
+        if mesh is not None:
+            sharding.shard_train_state(mesh, self.model)
         if self.model.cfg.model.vocab_size != tokenizer.vocab_size:
             raise ValueError("model vocab_size differs from the tokenizer's")
         self.names, self.params = zip(*self.model.named_parameters())
         self.opt = make_optimizer(cfg.train, list(self.params))
+        self.dims = self.model.shard_dims if mesh is not None else {}
+        self.data_group = mesh.data_group if mesh is not None else None
+        data_rank = mesh.data_rank if mesh is not None else 0
+        if mesh is not None and mesh.tp > 1:
+            self.opt.shards = (sharding.sharded_mask(self.names, self.dims),
+                               mesh.model_group)
         self.generator = torch.Generator(device=dev).manual_seed(
-            cfg.train.seed)
+            cfg.train.seed + data_rank)
         self.step = 0
         self.best_wer = float("inf")
         self.lr_scale = 1.0          # host-driven plateau decay multiplier
@@ -92,18 +128,32 @@ class Solver:
         self.cursor_epoch = 0        # loader position for exact resume
         self.cursor_batch = 0
         self.log: list[dict] = []    # the train records, as logged
-        self.logger = MetricsLogger(cfg.train.metrics_path or None,
-                                    tensorboard_dir=cfg.train.tensorboard_dir
-                                    or None)
+        self.rank0 = mesh is None or mesh.rank == 0
+        self.logger = MetricsLogger(
+            cfg.train.metrics_path if self.rank0 else None, echo=self.rank0,
+            tensorboard_dir=(cfg.train.tensorboard_dir if self.rank0
+                             else None) or None)
         # pinned host batches whose copies to the card may be in flight
         self._in_flight: list[tuple[tuple, torch.cuda.Event]] = []
+        if mesh is not None:
+            from pytorch_end2end_speech_recognition_tpu_torch.utils.debugging import (  # noqa: E501
+                check_collective_consistency,
+            )
+
+            check_collective_consistency(
+                {"params": dict(zip(self.names, self.params)),
+                 "opt": {"m1": self.opt.m1, "m2": self.opt.m2}},
+                specs={f"params/{n}": spec for n, (_, spec) in
+                       zip(self.names, self.model.param_specs)})
 
     # ------------------------------------------------------------ data feed
     def _put(self, batch: Batch):
         """The batch's four arrays on the device. Pinned ones (`pin_batch`)
         are copied asynchronously; each stays referenced until an event
         recorded after its copy has completed, so its page-locked buffer is
-        neither freed nor reused while the DMA reads it."""
+        neither freed nor reused while the DMA reads it. On a mesh the
+        batch is this rank's shard of the global batch, as its loader
+        reads it (`host_shard_info`)."""
         arrays = (batch.audio, batch.audio_lens, batch.tokens,
                   batch.token_lens)
         if not (isinstance(batch.audio, torch.Tensor)
@@ -123,7 +173,8 @@ class Solver:
         over one batch, without updating: SpecAugment (from `spec_mask` when
         given), dropout, CTC head and decoder (the speller's
         scheduled-sampling coins (B, U+1) from `coins` when given), hybrid
-        loss, backward."""
+        loss, backward. On a mesh: the global batch's metrics and
+        gradients (this rank's slices of the sharded ones)."""
         m, mc = self.model, self.cfg.model
         audio, audio_lens, tokens, token_lens = self._put(batch)
         enc, enc_lens = m.encode(audio, audio_lens, train=True,
@@ -140,9 +191,27 @@ class Solver:
                             generator=self.generator)
         loss, metrics = hybrid_loss(logits, enc_lens, att, tokens, token_lens,
                                     mc.ctc_weight, mc.label_smoothing,
-                                    ctc_impl=mc.ctc_impl)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        return {k: v.detach() for k, v in metrics.items()}, list(grads)
+                                    ctc_impl=mc.ctc_impl,
+                                    data_group=self.data_group)
+        grads = list(torch.autograd.grad(loss, self.params,
+                                         allow_unused=True))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.data_group is not None:
+            grads = self._sum_over_data(grads)
+            vals = all_reduce_(torch.stack(list(metrics.values())),
+                               self.data_group)
+            metrics = dict(zip(metrics, vals.unbind(0)))
+        return metrics, grads
+
+    def _sum_over_data(self, grads: list) -> list[torch.Tensor]:
+        """The gradients summed over 'data' by one all-reduce of their
+        concatenation, in parameter order."""
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.params, grads)]
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]),
+                           self.data_group)
+        return [f.view_as(g) for f, g in
+                zip(flat.split([g.numel() for g in grads]), grads)]
 
     def train_step(self, batch: Batch, spec_mask=None, coins=None) -> dict:
         """One micro-step; returns the step's metrics as 0-dim device
@@ -184,9 +253,12 @@ class Solver:
                 audio_s += float(batch.audio_lens.sum()) / sr
                 if self.step % cfg.log_every == 0 or self.step == steps:
                     rec = {k: float(v) for k, v in metrics.items()}
+                    total_s = float(all_reduce_(
+                        torch.tensor([audio_s], dtype=torch.float64),
+                        self.data_group))
                     wall = time.perf_counter() - t0
                     rec.update(step=self.step,
-                               audio_s_per_s=audio_s / max(wall, 1e-9),
+                               audio_s_per_s=total_s / max(wall, 1e-9),
                                wall_s=wall)
                     self.logger.log("train", rec)
                     self.log.append(rec)
@@ -232,7 +304,10 @@ class Solver:
         return out[:, 1:], out[:, 0]
 
     def evaluate(self, loader: BucketedLoader) -> float:
-        """Greedy dev WER over one pass of `loader`."""
+        """Greedy dev WER over one pass of `loader`; on a mesh each data
+        rank scores its loader shard and the error counts are summed over
+        'data', so that every rank sees the global WER (the best-WER and
+        plateau decisions stay in lockstep)."""
         stats = ErrorStats()
         for batch in loader.epoch(0):
             hyp, hyp_lens = self.greedy_ids(batch)
@@ -241,12 +316,19 @@ class Solver:
                     continue
                 text = self.tokenizer.decode(hyp[i, :hyp_lens[i]])
                 stats.update(batch.texts[i].split(), text.split())
-        return stats.rate
+        if self.data_group is None:
+            return stats.rate
+        errors, tokens = all_reduce_(
+            torch.tensor([stats.errors, stats.tokens]), self.data_group)
+        return int(errors) / max(int(tokens), 1)
 
     def _log_attention(self, batch: Batch) -> None:
         """One utterance's decoder attention heatmap to tensorboard (no-op
-        without a decoder or a tensorboard_dir)."""
-        if self.model.decoder is None or self.logger._tb is None:
+        without a decoder or a tensorboard_dir, and under tensor
+        parallelism, whose forward runs collectives that rank 0 alone,
+        the one that logs, would wait on)."""
+        if (self.model.decoder is None or self.logger._tb is None
+                or (self.mesh is not None and self.mesh.tp > 1)):
             return
         with torch.inference_mode():
             audio, audio_lens, tokens, _ = self._put(batch)
@@ -267,8 +349,12 @@ class Solver:
 
     # ------------------------------------------------------------ checkpoints
     def _extra_meta(self) -> dict:
+        rng = self.generator.get_state()
+        ranks = (torch.stack(all_gather_host(rng, self.data_group))
+                 if self.data_group is not None else torch.zeros(0))
         return {
-            "rng": self.generator.get_state(),
+            "rng": rng,
+            "rng_data_ranks": ranks.to(torch.uint8),
             "cursor_epoch": self.cursor_epoch,
             "cursor_batch": self.cursor_batch,
             "lr_scale": self.lr_scale,
@@ -277,21 +363,47 @@ class Solver:
         }
 
     def _params(self) -> dict:
-        return dict(zip(self.names, self.params))
+        """Every parameter whole (gathered from the shards on a mesh)."""
+        if self.mesh is None:
+            return dict(zip(self.names, self.params))
+        return {n: sharding.full_tensor(self.mesh, p, self.dims.get(n))
+                for n, p in zip(self.names, self.params)}
+
+    def full_state(self) -> tuple[dict, dict, dict]:
+        """(whole parameters, whole optimizer state, meta) for a checkpoint;
+        on a mesh a collective of every rank."""
+        opt = self.opt.state_dict()
+        if self.mesh is not None:
+            opt = sharding.full_opt_state(opt, list(self.names), self.dims,
+                                          self.mesh)
+        return self._params(), opt, self._extra_meta()
+
+    def _written(self) -> None:
+        """On a mesh, wait until rank 0 has written (a host all-reduce over
+        every rank)."""
+        if self.mesh is not None and self.mesh.dp * self.mesh.tp > 1:
+            import torch.distributed as dist
+
+            all_reduce_(torch.zeros(1), dist.group.WORLD)
 
     def save_checkpoint(self, tag: str = "last"):
-        checkpoint.save_checkpoint(
-            self.cfg.train.checkpoint_dir, tag, params=self._params(),
-            opt_state=self.opt.state_dict(), step=self.step,
-            best_wer=self.best_wer, cfg=self.cfg,
-            extra_meta=self._extra_meta())
+        params, opt, meta = self.full_state()
+        if self.rank0:
+            checkpoint.save_checkpoint(
+                self.cfg.train.checkpoint_dir, tag, params=params,
+                opt_state=opt, step=self.step, best_wer=self.best_wer,
+                cfg=self.cfg, extra_meta=meta)
+        self._written()
 
     def save_step_checkpoint(self):
-        checkpoint.save_step_checkpoint(
-            self.cfg.train.checkpoint_dir, self.step, params=self._params(),
-            opt_state=self.opt.state_dict(), best_wer=self.best_wer,
-            cfg=self.cfg, max_to_keep=self.cfg.train.keep_checkpoints,
-            extra_meta=self._extra_meta())
+        params, opt, meta = self.full_state()
+        if self.rank0:
+            checkpoint.save_step_checkpoint(
+                self.cfg.train.checkpoint_dir, self.step, params=params,
+                opt_state=opt, best_wer=self.best_wer, cfg=self.cfg,
+                max_to_keep=self.cfg.train.keep_checkpoints,
+                extra_meta=meta)
+        self._written()
 
     def load_checkpoint(self, tag: str = "last"):
         """Restore parameters, optimizer state, step, best WER, generator
@@ -312,13 +424,28 @@ class Solver:
         if set(params) != set(self.names):
             raise ValueError(f"checkpoint '{tag}' holds other parameters "
                              "than this model")
+        opt = data["opt_state"]
+        mesh = self.mesh
+        if mesh is not None:
+            opt = sharding.shard_train_state(mesh, self.model, opt)[1]
         with torch.no_grad():
             for name, p in zip(self.names, self.params):
-                p.copy_(params[name])
-        self.opt.load_state_dict(data["opt_state"])
+                full = params[name]
+                if name in self.dims:
+                    full = sharding.shard_tensor(full, *self.dims[name],
+                                                 mesh.tp, mesh.model_rank)
+                p.copy_(full)
+        self.opt.load_state_dict(opt)
         self.step = int(data["step"])
         self.best_wer = float(data["best_wer"])
-        self.generator.set_state(data["rng"])
+        ranks = data.get("rng_data_ranks")
+        dp = mesh.dp if mesh is not None else 1
+        if dp == 1:
+            self.generator.set_state(data["rng"])
+        elif ranks is not None and len(ranks) == dp:
+            self.generator.set_state(ranks[mesh.data_rank].contiguous())
+        elif mesh.data_rank == 0:
+            self.generator.set_state(data["rng"])
         self.cursor_epoch = int(data["cursor_epoch"])
         self.cursor_batch = int(data["cursor_batch"])
         self.lr_scale = float(data["lr_scale"])

@@ -331,8 +331,11 @@ def test_device_freeze_equals_early_exit(monkeypatch):
 
 
 def test_mesh_decode_is_refused():
+    """Mesh decoding runs since the parallelism slice (its two-process
+    check is tests/test_torch_multiproc.py); a mesh that is not the port's
+    is refused."""
     _, tm, _ = _tiny()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="make_mesh"):
         BeamSearchDecoder(tm, DecodeConfig(), mesh=object())
 
 

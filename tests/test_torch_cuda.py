@@ -1189,3 +1189,78 @@ def test_greedy_bundle_exported_on_the_card_gives_live_tokens(dev, tmp_path):
         enc, el = solver.model.encode(batch, lens)
         ids, il = ctc_greedy_decode(solver.model.ctc_logits(enc), el)
     assert got == [ids[i, :int(il[i])].tolist() for i in range(2)]
+
+
+def test_world1_nccl_process_group(dev, tmp_path):
+    """A one-rank process group over 'cpu:gloo,cuda:nccl' (the card's
+    default backend): a card tensor's all-reduce runs over NCCL, a host
+    tensor's over gloo, and the mesh takes cuda:0."""
+    import torch.distributed as dist
+
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.mesh import (
+        abort,
+        initialize_multihost,
+        make_mesh,
+    )
+
+    initialize_multihost(f"file://{tmp_path / 'rdzv'}",
+                         num_processes=1, process_id=0,
+                         backend="cpu:gloo,cuda:nccl", timeout_s=120)
+    try:
+        mesh = make_mesh(1, 1, device="cuda")
+        x = torch.arange(4.0, device=dev)
+        y = torch.arange(4.0)
+        dist.all_reduce(x)
+        dist.all_reduce(y)
+        torch.cuda.synchronize()
+        assert mesh.device == torch.device("cuda", 0)
+        assert torch.equal(x.cpu(), y) and torch.equal(y, torch.arange(4.0))
+    finally:
+        abort()
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_sharded_attention_launches_on_local_heads(dev, flash):
+    """`sharded_fused_attention` at tp 2: each model rank launches the
+    forward and backward kernels once on its 2 of 4 heads (with those
+    heads' bias rows or diagonals), and its outputs and gradients equal
+    the plain version's on those heads."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        attention_kernel as ak,
+    )
+
+    B, T, H, Dh = 3, (1000 if flash else 150), 4, 64
+    q, k, v, diag, lens = _flash_inputs(dev, B, T, H, [T, 65, 1], 7)
+    bias = None if flash else ak.toeplitz_expand(diag, 256, 256, T=T).to(
+        torch.bfloat16)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    cot = (torch.randn(B, T, H * Dh, generator=g) * 0.5).to(dev, torch.bfloat16)
+    cot = cot * (torch.arange(T, device=dev)[None, :, None]
+                 < lens[:, None, None])
+    fwd, bwd = (ak.flash_fwd, ak.flash_bwd) if flash else (ak.attention_fwd,
+                                                            ak.attention_bwd)
+    w = H // 2 * Dh
+    for r in range(2):
+        cols = slice(r * w, (r + 1) * w)
+        hd = slice(2 * r, 2 * r + 2)
+        ql, kl, vl = (t[:, :, cols].clone().requires_grad_()
+                      for t in (q, k, v))
+        n_fwd, n_bwd = fwd.launches, bwd.launches
+        out = ak.sharded_fused_attention(
+            2, ql, kl, vl, None if flash else bias[hd], lens, H,
+            diag=diag[hd] if flash else None)
+        out.backward(cot[:, :, cols])
+        torch.cuda.synchronize()
+        assert (fwd.launches - n_fwd, bwd.launches - n_bwd) == (1, 1)
+        qp, kp, vp = (t[:, :, cols].detach().clone().requires_grad_()
+                      for t in (q, k, v))
+        if flash:
+            ref = ak.flash_attention(qp, kp, vp, diag[hd], lens, 2,
+                                     plain=True)
+        else:
+            ref = ak.attention_plain(qp, kp, vp, bias[hd], lens, 2)
+        ref.backward(cot[:, :, cols])
+        valid = (torch.arange(T, device=dev)[None, :] < lens[:, None])[..., None]
+        assert _rel_err(out.detach() * valid, ref.detach() * valid) < 2e-2
+        for a, b in ((ql, qp), (kl, kp), (vl, vp)):
+            assert _rel_err(a.grad, b.grad) < 2e-2

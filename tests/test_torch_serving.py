@@ -307,7 +307,10 @@ def test_meta_keys_match_the_jax_bundle(conformer, blstm, tmp_path):
 
 
 def test_export_from_a_mesh_raises(conformer, tmp_path):
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
+    """Export through a mesh runs since the parallelism slice (its
+    two-process check is tests/test_torch_multiproc.py); a mesh that is
+    not the port's is refused."""
+    with pytest.raises(TypeError, match="make_mesh"):
         export_bundle(conformer.tcfg, conformer.tok, tmp_path / "m",
                       batch_sizes=(2,), seconds=(3,), device="cpu",
                       mesh=object())

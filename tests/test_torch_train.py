@@ -13,7 +13,7 @@ import torch_train_case as case_mod
 from flax import nnx
 
 from pytorch_end2end_speech_recognition_tpu_torch import bridge
-from pytorch_end2end_speech_recognition_tpu_torch.models import encoders as tenc
+from pytorch_end2end_speech_recognition_tpu_torch.ops import attention_kernel as ak
 
 
 @pytest.fixture(scope="module")
@@ -88,14 +88,14 @@ def test_cotangent_is_zero_on_masked_attention_rows(case, monkeypatch):
     path, the mean of v in its TPU kernel) compute different outputs; so
     the parameter gradients above cannot see that difference."""
     seen = []
-    plain = tenc.attention_plain
+    plain = ak.attention_plain
 
     def spy(q, k, v, bias, lens, heads):
         out = plain(q, k, v, bias, lens, heads)
         out.register_hook(lambda g: seen.append((g.detach().clone(), lens)))
         return out
 
-    monkeypatch.setattr(tenc, "attention_plain", spy)
+    monkeypatch.setattr(ak, "attention_plain", spy)
     tsolver = case["tsolver"]
     tsolver.grads(case["batch"], spec_mask=case["mask"])
     assert len(seen) == tsolver.cfg.model.encoder_layers

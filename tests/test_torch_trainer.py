@@ -289,27 +289,33 @@ def test_cli_train_end_to_end_then_resume(tmp_path, digits_corpus):
 
 
 def test_cli_train_refuses_parallelism_and_needs_a_card(
-        tmp_path, digits_corpus, monkeypatch):
+        tmp_path, digits_corpus, monkeypatch, capsys):
+    """Since the parallelism slice the multi-process flags run (two-process
+    checks: tests/test_torch_multiproc.py); refused are the flags without a
+    rendezvous, a mesh that is not the port's, and CUDA without a card.
+    train.dp = 2 on one process trains at dp 1, as the JAX CLI's mesh
+    default does, and says so."""
     from pytorch_end2end_speech_recognition_tpu_torch.cli import train
 
-    with pytest.raises(NotImplementedError, match="parallel"):
-        train.main(cli_args(tmp_path, digits_corpus, 1,
-                            "--set", "train.dp=2"))
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="env://"):
         train.main(cli_args(tmp_path, digits_corpus, 1, "--distributed"))
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(SystemExit):
         train.main(cli_args(tmp_path, digits_corpus, 1,
                             "--process-id", "0"))
     monkeypatch.setenv("ASR_PROCESS_ID", "1")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(SystemExit):
         train.main(cli_args(tmp_path, digits_corpus, 1))
     monkeypatch.delenv("ASR_PROCESS_ID")
+    with pytest.raises(TypeError, match="make_mesh"):
+        Solver(tiny_cfg(tmp_path), CharTokenizer(charset="AB"), device="cpu",
+               mesh=object())
+    solver = train.main(cli_args(tmp_path / "dp2", digits_corpus, 1,
+                                 "--set", "train.dp=2"))
+    assert "mesh defaulted to dp=1 tp=1" in capsys.readouterr().err
+    assert solver.step == 1 and solver.mesh.dp == solver.mesh.tp == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = cli_args(tmp_path, digits_corpus, 1)
     i = args.index("--device")
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(args[:i] + args[i + 2:])
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        Solver(tiny_cfg(tmp_path), CharTokenizer(charset="AB"), device="cpu",
-               mesh=object())
     assert not Path(tmp_path / "ckpt" / "last").exists()
