@@ -234,6 +234,30 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    a timeout; one that fails or hangs fails the phase with every child's
    output printed. Its step times are no scaling numbers: two ranks share
    one card and gloo stages CUDA tensors through the host.
+21. context and pipeline parallelism without a mesh, profiling, corpus
+   prep and the native library (`cp_pp_phase`): [21a] the flagship with
+   `cp_mode='ring'` on [4]'s batch (T' 750: the float32 diagonals and the
+   flash kernels where it otherwise takes the dense pair): forward
+   launches (log-mel 1, flash 12), logits against plain torch with a
+   zeroed-diagonals control, 'ulysses' bit for bit 'ring', one hybrid
+   step against plain torch at [8]'s tolerances, a `Solver.train_step`'s
+   launches (flash 12 + 12, CTC 1 + 1), host-clock forward and step in
+   turns with the dense path (printed, not gated); [21b] `pp_stages` 2
+   with `ffn_impl=cuda`: no FFN launch in a forward or a step, logits bit
+   for bit those of `pp_stages` 1 with `ffn_impl=torch`, and the FFN
+   kernel in each of 24 blocks at `pp_stages` 1 as the control; [21c]
+   `sharded_self_attention` with no group, ring and Ulysses, at (32, 750,
+   4, 64) float32 with the diagonals against whole-row attention, their
+   `StepTimer` times and peak memory beside kernel #7's time at that
+   shape in bf16; [21d] #7's roofline on the H100 peaks under 1.05, and
+   in a fresh process (this script with `--profile-child`; late in this
+   one torch.profiler records few or no device kernels) a
+   `StepTimer.tick` no shorter than the call's device time and `trace()`
+   naming the flash kernel; [21e] an AN4 tree through `prep_an4`, the
+   native library's g++ build time, a loader batch decoded natively equal
+   to the Python reader's bit for bit, one an4_ctc `Solver.train_step`
+   from it (log-mel 1, LSTM 2 + 2, CTC 1 + 1), and the native Levenshtein
+   against Python's on [17]'s dev WER inputs.
 
 It then prints the total time, the `kernels` JSON line, the card's name and
 power limit, and last `{"ok": true, "device": {...}}`. Without a card it
@@ -3230,7 +3254,19 @@ def trainer_phase(dev, card, counted, t_start):
                 f"[17] dev batch {tuple(batch.audio.shape)}, kernels vs "
                 f"plain torch", run2.model.ctc_logits(enc),
                 ps.model.ctc_logits(penc), el))
-    wer_k, wer_p = run2.evaluate(dev_loader), ps.evaluate(dev_loader)
+    from pytorch_end2end_speech_recognition_tpu_torch.metrics import wer
+
+    scorer, wer_inputs = wer.edit_distance, []
+
+    def recorded(ref, hyp):  # [21e] holds the native scorer to these
+        wer_inputs.append((list(ref), list(hyp)))
+        return scorer(ref, hyp)
+
+    wer.edit_distance = recorded
+    try:
+        wer_k, wer_p = run2.evaluate(dev_loader), ps.evaluate(dev_loader)
+    finally:
+        wer.edit_distance = scorer
     print(f"[17] dev logits max |d| {worst:.4f} (tol {TOL_LOGITS}); greedy "
           f"dev WER kernels {wer_k:.4f}, plain torch {wer_p:.4f}", flush=True)
     check(worst <= TOL_LOGITS, "[17] dev logits of the kernels disagree")
@@ -3404,8 +3440,9 @@ def trainer_phase(dev, card, counted, t_start):
     check(d_warp <= 1e-6 and not torch.equal(w_cpu, feats),
           "[17] time warp differs on the card")
     del run2
-    # [18] trains an LM on the corpus and transcribes with the checkpoint
-    return tmp, corpus, ckpt
+    # [18] trains an LM on the corpus and transcribes with the checkpoint;
+    # [21e] scores the dev WER's inputs again
+    return (tmp, corpus, ckpt), wer_inputs
 
 
 STREAM_SECONDS, STREAM_FEED = 60, 0.5   # [18]: one stream, fed in 0.5 s
@@ -5036,6 +5073,404 @@ def cli_child(spec: dict, rank: int) -> None:
     importlib.import_module(f"{PKG}.cli.{spec['module']}").main(spec["argv"])
 
 
+# ---- [21] context and pipeline parallelism without a mesh, profiling, the
+# corpus converters and the native library
+CP_WINDOWS = 6         # host-clock calls a path in [21a]'s turns
+CP_TOL_RTOL, CP_TOL_ATOL = 2e-4, 2e-5  # tests/test_torch_cp.py's outputs
+
+
+def _plain_attention(q, k, v, diag, lens):
+    """Whole-row float32 attention on (B, T, H, D) with the dense bias of
+    `diag` and the keys past lens masked: [21c]'s reference, written apart
+    from parallel/cp.py's online softmax."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (  # noqa: E501
+        toeplitz_expand,
+    )
+
+    T, D = q.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(D)
+    s = s + toeplitz_expand(diag, T, T)[None]
+    keep = torch.arange(T, device=q.device)[None, :] < lens[:, None]
+    s = s.masked_fill(~keep[:, None, None, :], float("-inf"))
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+    return out * keep[:, :, None, None]
+
+
+def cp_pp_phase(dev, card, counted, t_start, audio, audio_lens, table,
+                batch, spec_mask, V, wer_inputs) -> None:
+    """[21] `cp_mode` and `pp_stages` 2 without a mesh at the flagship's
+    full width, `sharded_self_attention` with no group, the profiling
+    helpers, the corpus converters and the native library; `wer_inputs`
+    are [17]'s dev (reference, hypothesis) word lists."""
+    import shutil
+    import tempfile
+
+    from pytorch_end2end_speech_recognition_tpu_torch import native
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        an4_ctc,
+        flagship_conformer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import (
+        BucketedLoader,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.manifest import (
+        read_manifest,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.prep import (
+        prep_an4,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
+        CharTokenizer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.metrics import wer
+    from pytorch_end2end_speech_recognition_tpu_torch.models.asr import AsrModel
+    from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
+        FfnBlock,
+        RelPosBias,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (  # noqa: E501
+        flash_fwd,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.cp import (
+        MODES,
+        sharded_self_attention,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+
+    def cfg_of(impl: str, cp: str = "ring", pp: int = 1, ffn: str = "torch"):
+        c = flagship_conformer()
+        c.model.cp_mode, c.model.pp_stages, c.model.ffn_impl = cp, pp, ffn
+        c.model.encoder_dropout = c.model.decoder_dropout = 0.0
+        if impl == "torch":
+            c.frontend.impl = "torch"
+            c.model.attn_impl = c.model.ctc_impl = "torch"
+        return c
+
+    def model_of(c):
+        return _with_table(AsrModel(c, device=dev, seed=0).eval(), table)
+
+    def solver_of(c):
+        sv = make_solver(c, V, dev)
+        _with_table(sv.model, table)
+        return sv
+
+    def counted_run(fn):
+        for f in counted:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _launches(counted)
+
+    # [21a] cp_mode without a mesh: the diagonals at T' 750, flash kernels
+    L = flagship_conformer().model.encoder_layers
+    km = model_of(cfg_of("cuda"))
+    check(km.encoder.blocks[0].mhsa.cp_mode == "ring", "[21a] cp_mode lost")
+    with torch.inference_mode():
+        (enc, elens, logits, _, _), fwd = counted_run(
+            lambda: serve(km, audio, audio_lens))
+    print(f"[21a] cp_mode='ring' forward launches (B={B} x {SECONDS:.0f} s, "
+          f"T' {enc.shape[1]}): {fwd}", flush=True)
+    check(fwd == {"logmel": 1, "flash_fwd": L},
+          f"[21a] cp_mode forward launch counts {fwd}")
+    pm = model_of(cfg_of("torch"))
+    with torch.inference_mode():
+        plogits = serve(pm, audio, audio_lens)[2]
+    compare(f"[21a] cp_mode='ring' kernels vs plain torch (bf16, {L} L, "
+            f"ragged B={B}, T' {enc.shape[1]})", logits, plogits, elens,
+            need_sure=True)
+    um = model_of(cfg_of("cuda", cp="ulysses"))
+    with torch.inference_mode():
+        ulogits = serve(um, audio, audio_lens)[2]
+    same = torch.equal(ulogits, logits)
+    print(f"[21a] cp_mode='ulysses' logits equal to 'ring' bit for bit: "
+          f"{same} (max |d| {(ulogits - logits).abs().max().item():.3e})",
+          flush=True)
+    check(same, "[21a] ulysses and ring differ without a mesh")
+    del um
+    with torch.no_grad():
+        pm.encoder.rel.table.zero_()
+    with torch.inference_mode():
+        ctl_logits = serve(pm, audio, audio_lens)[2]
+    valid = torch.arange(logits.shape[1], device=dev)[None, :] < elens[:, None]
+    ctl = (logits - ctl_logits).abs().amax(-1)[valid].max().item()
+    print(f"[21a] control, plain model with the diagonals zeroed: max "
+          f"|dlogit| {ctl:.4f} (must exceed {TOL_LOGITS})", flush=True)
+    check(ctl > TOL_LOGITS, "[21a] the logit tolerance cannot see the bias")
+    del pm, ctl_logits, plogits
+    dm = model_of(cfg_of("cuda", cp=""))
+    with torch.inference_mode():
+        _abba(f"[21a] host-clock forward at B={B} x {SECONDS:.0f} s (not a "
+              "claim)", [("cp_mode (flash)", lambda: serve(km, audio,
+                                                          audio_lens)),
+                         ("dense path", lambda: serve(dm, audio,
+                                                      audio_lens))],
+              2 * CP_WINDOWS, B * SECONDS, card, t_start)
+    del km
+    ks = solver_of(cfg_of("cuda"))
+    (kmet, kg), step = counted_run(lambda: ks.grads(batch,
+                                                    spec_mask=spec_mask))
+    kg = {n: g.detach() for n, g in zip(ks.names, kg)}
+    ps = solver_of(cfg_of("torch"))
+    pmet, pg = ps.grads(batch, spec_mask=spec_mask)
+    pg = {n: g.detach() for n, g in zip(ps.names, pg)}
+    torch.cuda.synchronize()
+    del ps
+    d_loss = abs(float(kmet["loss"]) - float(pmet["loss"])) / float(
+        pmet["loss"])
+    cmin, rmax, cmed, n_cmp = grad_stats(kg, pg)
+    print(f"[21a] cp_mode kernels vs plain torch, one hybrid step (U<="
+          f"{U_TOKENS}): loss {float(kmet['loss']):.5f} vs "
+          f"{float(pmet['loss']):.5f}, relative |d loss| {d_loss:.2e} (tol "
+          f"{TOL_TRAIN_LOSS}); gradients of {n_cmp} parameters: cosine min "
+          f"{cmin:.5f} median {cmed:.5f} (tol {TRAIN_MIN_COS}), relative "
+          f"error max {rmax:.4f} (tol {TRAIN_MAX_REL})", flush=True)
+    check(d_loss <= TOL_TRAIN_LOSS and cmin >= TRAIN_MIN_COS
+          and rmax <= TRAIN_MAX_REL, "[21a] cp_mode step disagrees with plain")
+    del kg, pg
+    metrics, step = counted_run(lambda: ks.train_step(batch,
+                                                      spec_mask=spec_mask))
+    print(f"[21a] cp_mode Solver.train_step launches: {step}", flush=True)
+    check(step == {"logmel": 1, "flash_fwd": L, "flash_bwd": L,
+                   "ctc_alpha": 1, "ctc_beta": 1},
+          f"[21a] cp_mode train step launch counts {step}")
+    check(math.isfinite(float(metrics["loss"])), "[21a] step not finite")
+    ds = solver_of(cfg_of("cuda", cp=""))
+    _abba(f"[21a] host-clock Solver.train_step at B={B} x {SECONDS:.0f} s "
+          "(not a claim)", [("cp_mode (flash)", lambda: ks.train_step(batch)),
+                            ("dense path", lambda: ds.train_step(batch))],
+          CP_WINDOWS, B * SECONDS, card, t_start)
+    del ks, ds
+
+    # [21b] pp_stages 2 without a mesh: the plain block loop, whose FFN
+    # blocks the JAX gate keeps off the fused kernels
+    fm = model_of(cfg_of("cuda", cp="", pp=2, ffn="cuda"))
+    check(not any(m.fused for m in fm.modules() if isinstance(m, FfnBlock)),
+          "[21b] a fused FFN under pp_stages 2")
+    with torch.inference_mode():
+        pp_logits, pp_fwd = counted_run(
+            lambda: serve(fm, audio, audio_lens)[2])
+        ref_logits = serve(dm, audio, audio_lens)[2]
+    same = torch.equal(pp_logits, ref_logits)
+    print(f"[21b] pp_stages 2, ffn_impl=cuda forward launches: {pp_fwd}; "
+          f"logits equal to pp_stages 1 with ffn_impl=torch bit for bit: "
+          f"{same}", flush=True)
+    check("ffn_fwd" not in pp_fwd and pp_fwd.get("attention_fwd") == L,
+          f"[21b] pp_stages 2 launch counts {pp_fwd}")
+    check(same, "[21b] pp_stages 2 logits differ from pp_stages 1")
+    gm = model_of(cfg_of("cuda", cp="", ffn="cuda"))
+    with torch.inference_mode():
+        _, on = counted_run(lambda: serve(gm, audio, audio_lens))
+    check(on.get("ffn_fwd") == 2 * L, f"[21b] gate control: {on}")
+    del fm, gm, dm
+    fs = solver_of(cfg_of("cuda", cp="", pp=2, ffn="cuda"))
+    _, pp_step = counted_run(lambda: fs.train_step(batch))
+    print(f"[21b] pp_stages 2 Solver.train_step launches: {pp_step} (the "
+          f"control, pp_stages 1 with ffn_impl=cuda: ffn_fwd {on.get('ffn_fwd')} "
+          f"in a forward)", flush=True)
+    check("ffn_fwd" not in pp_step and "ffn_bwd" not in pp_step,
+          f"[21b] FFN kernels under pp_stages 2: {pp_step}")
+    del fs
+
+    # [21c] sharded_self_attention with no group (one ring step, Ulysses on
+    # every head) at the flagship's per-layer shape, float32
+    Bq, T, H, Dh = B, int(enc.shape[1]), 4, 64
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn(Bq, T, H, Dh, device=dev, generator=g)
+               for _ in range(3))
+    rel = RelPosBias(L, H).to(dev)
+    with torch.no_grad():
+        rel.table.copy_(table)
+        diag = rel.diags(T)[0]  # layer 0's (H, 2T-1) at BIAS_STD
+    lens = elens.to(torch.int64)
+    ref = _plain_attention(q, k, v, diag, lens)
+    times = {}
+    for mode in MODES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        timer = profiling.StepTimer()
+        for _ in range(4):
+            timer.start()
+            out = sharded_self_attention(None, q, k, v, lens, mode, diag)
+            timer.tick(out)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        err = float(((out - ref).abs()
+                     - CP_TOL_RTOL * ref.abs()).max())
+        times[mode] = timer.stats(skip_warmup=1)["p50_s"] * 1e3
+        print(f"[21c] sharded_self_attention '{mode}', no group, ({Bq}, {T}, "
+              f"{H}, {Dh}) float32 with the diagonals: max(|d| - "
+              f"{CP_TOL_RTOL} |ref|) {err:.2e} (tol {CP_TOL_ATOL}); "
+              f"StepTimer p50 {times[mode]:.3f} ms, peak "
+              f"{peak:.2f} GiB above the inputs; {card}", flush=True)
+        check(err <= CP_TOL_ATOL, f"[21c] {mode} differs from plain attention")
+    qb, kb, vb = (t.reshape(Bq, T, H * Dh).to(torch.bfloat16)
+                  for t in (q, k, v))
+    flash_ms = cuda_ms(lambda: flash_fwd(qb, kb, vb, diag, lens, H))
+    print(f"[21c] beside kernel #7 (flash forward) at the same shape in "
+          f"bf16: {flash_ms:.4f} ms (CUDA events); {card}", flush=True)
+
+    # [21d] the profiling helpers on the card: the profiler in a fresh
+    # process (in this one, after [18]'s profiles, it recorded a few or no
+    # device kernels)
+    flops = 4.0 * Bq * H * T * T * Dh
+    nbytes = 4 * Bq * T * H * Dh * 2 + diag.numel() * 4 + lens.numel() * 8
+    rf = profiling.roofline(flops, nbytes, flash_ms / 1e3)
+    print(f"[21d] roofline of #7 at that shape: {rf['achieved_tflops']:.1f} "
+          f"of {rf['peak_tflops']:.0f} TFLOP/s ({rf['compute_frac']:.3f}), "
+          f"{rf['achieved_gbs']:.1f} of {rf['peak_gbs']:.0f} GB/s "
+          f"({rf['bandwidth_frac']:.3f}); {card}", flush=True)
+    check(rf["compute_frac"] < 1.05 and rf["bandwidth_frac"] < 1.05,
+          f"[21d] roofline above the peaks: {rf}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke21_"))
+    try:
+        torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(),
+                    "diag": diag.cpu(), "lens": lens.cpu(),
+                    "out": str(tmp / "profiled.json")}, tmp / "inputs.pt")
+        root = Path(__file__).resolve().parent
+        child = subprocess.run(
+            [sys.executable, str(root / "chip_smoke.py"), "--profile-child",
+             str(tmp / "inputs.pt")], cwd=root, capture_output=True,
+            text=True, timeout=300)
+        check(child.returncode == 0, "[21d] the profiling process failed:\n"
+              + child.stderr[-3000:])
+        got = json.loads((tmp / "profiled.json").read_text())
+        print(f"[21d] StepTimer.tick after one ring call: {got['tick_ms']:.3f}"
+              f" ms; its device time under torch.profiler "
+              f"{got['device_ms']:.3f} ms ({got['kernels']} kernels); "
+              f"trace(): {got['trace_bytes']} bytes of Chrome trace, the "
+              f"flash kernel named: {got['named']} (a fresh process)",
+              flush=True)
+        check(got["device_ms"] > 0 and got["tick_ms"] >= got["device_ms"],
+              "[21d] StepTimer.tick did not wait")
+        check(got["named"], "[21d] no flash kernel in trace")
+        del q, k, v, ref, out, qb, kb, vb
+
+        # [21e] an AN4 tree -> manifests, the native library, the loader
+        root = tmp / "an4"
+        (root / "etc").mkdir(parents=True)
+        (root / "wav").mkdir()
+        from pytorch_end2end_speech_recognition_tpu_torch.data.audio import (
+            write_wav,
+        )
+
+        rng = np.random.default_rng(21)
+        lines = {"train": [], "test": []}
+        for split, n in (("train", 10), ("test", 2)):
+            for i in range(n):
+                uid = f"{split[:2]}{i:03d}-spk1-b"
+                x = (np.sin(np.arange(16000 + 3200 * i) * (0.02 + 0.003 * i))
+                     * 0.4 + rng.standard_normal(16000 + 3200 * i) * 0.01)
+                write_wav(root / "wav" / f"{uid}.wav", x.astype(np.float32),
+                          16000)
+                lines[split].append(f"<s> WORD{i} UTT </s> ({uid})")
+        for split in lines:
+            (root / "etc" / f"an4_{split}.transcription").write_text(
+                "\n".join(lines[split]))
+        prep_an4.main(["--root", str(root), "--out", str(tmp / "man"),
+                       "--dev-fraction", "0.2"])
+        utts = read_manifest(tmp / "man" / "train.jsonl")
+        check(len(utts) == 8, f"[21e] prep_an4 wrote {len(utts)} train utts")
+        saved = native.BUILD_ROOT
+        native.BUILD_ROOT = tmp / "native"
+        t0 = time.perf_counter()
+        native.build()
+        build_s = time.perf_counter() - t0
+        native.BUILD_ROOT = saved
+        print(f"[21e] prep_an4: {len(utts)} train utterances; the native "
+              f"library built with g++ in {build_s:.2f} s", flush=True)
+        cfg = an4_ctc()
+        cfg.train.metrics_path = ""
+        tok = CharTokenizer([u.text for u in utts])
+        loader = BucketedLoader(utts, tok, cfg.data)
+        paths = [u.audio for u in utts]
+        n_native = native.load_batch_native(
+            paths, np.zeros((len(paths), 64000), np.float32),
+            np.zeros(len(paths), np.int32))
+        nb = next(loader.epoch(0))
+        os.environ["ASR_TPU_NO_NATIVE"] = "1"
+        try:
+            pb = next(loader.epoch(0))
+        finally:
+            del os.environ["ASR_TPU_NO_NATIVE"]
+        same = all(np.array_equal(getattr(nb, f), getattr(pb, f)) for f in
+                   ("audio", "audio_lens", "tokens", "token_lens"))
+        print(f"[21e] loader batch {nb.audio.shape}: {n_native}/{len(paths)} "
+              f"rows decoded natively; native and Python batches equal bit "
+              f"for bit: {same}", flush=True)
+        check(n_native == len(paths) and same, "[21e] native batch differs")
+        solver = Solver(cfg, tok, device=dev)
+        metrics, an4 = counted_run(lambda: solver.train_step(nb))
+        print(f"[21e] an4_ctc Solver.train_step from that batch: loss "
+              f"{float(metrics['loss']):.4f}, launches {an4}", flush=True)
+        check(an4 == {"logmel": 1, "lstm_fwd": cfg.model.encoder_layers,
+                      "lstm_bwd": cfg.model.encoder_layers, "ctc_alpha": 1,
+                      "ctc_beta": 1} and math.isfinite(float(metrics["loss"])),
+              f"[21e] an4_ctc step launch counts {an4}")
+        del solver
+        diff = sum(native.levenshtein(r, h) != wer.edit_distance_np(r, h)
+                   for r, h in wer_inputs)
+        print(f"[21e] native levenshtein on [17]'s {len(wer_inputs)} dev "
+              f"(reference, hypothesis) pairs: {diff} differ from Python's",
+              flush=True)
+        check(wer_inputs and diff == 0, "[21e] native levenshtein differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[21] done in {time.perf_counter() - t_phase:.1f} s; "
+          f"{time.perf_counter() - t_start:.0f} s since start", flush=True)
+
+
+def profile_child(spec_path: str) -> int:
+    """[21d]'s profiling, run as `python3 chip_smoke.py --profile-child
+    INPUTS` in a fresh process: one ring `sharded_self_attention` call's
+    device time under torch.profiler, a `StepTimer.tick` after another,
+    and `profiling.trace` of kernel #7 on the same inputs in bf16; writes
+    the results as JSON where INPUTS says."""
+    import tempfile
+
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (  # noqa: E501
+        flash_fwd,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.cp import (
+        sharded_self_attention,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils import profiling
+
+    data = torch.load(spec_path, weights_only=False)
+    dev = torch.device("cuda")
+    q, k, v, diag, lens = (data[n].to(dev) for n in
+                           ("q", "k", "v", "diag", "lens"))
+    B, T, H, Dh = q.shape
+
+    def call():
+        return sharded_self_attention(None, q, k, v, lens, "ring", diag)
+
+    _, kernel_ms, n = profile_step(call, 1)
+    timer = profiling.StepTimer()
+    call()
+    torch.cuda.synchronize()
+    timer.start()
+    tick_ms = timer.tick(call()) * 1e3
+    qb, kb, vb = (t.reshape(B, T, H * Dh).to(torch.bfloat16)
+                  for t in (q, k, v))
+    flash_fwd(qb, kb, vb, diag, lens, H)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            flash_fwd(qb, kb, vb, diag, lens, H)
+            torch.cuda.synchronize()
+        text = (Path(tmp) / "trace.json").read_text()
+    Path(data["out"]).write_text(json.dumps({
+        "device_ms": sum(kernel_ms.values()), "kernels": n,
+        "tick_ms": tick_ms, "trace_bytes": len(text),
+        "named": "attention_fwd_kernel" in text}))
+    return 0
+
+
 def counted_wrappers():
     """The kernel wrappers with launch counters, as main() counts them."""
     from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (  # noqa: E501
@@ -6435,7 +6870,7 @@ def main() -> int:
                 spec_mask)
 
     # ---- [17] the trainer from a manifest: cli.train and --resume
-    trained = trainer_phase(dev, card, COUNTED, t_start)
+    trained, wer_inputs = trainer_phase(dev, card, COUNTED, t_start)
     # ---- [18] streaming: rung 4's encoder and chunk beam, an4_ctc, the CLIs
     stream_phase(dev, torch.Generator(device=dev).manual_seed(18), peaks,
                  card, COUNTED, t_start, trained)
@@ -6444,6 +6879,9 @@ def main() -> int:
                  COUNTED, t_start, live_rate)
     # ---- [20] data and tensor parallelism: rung 5, two ranks, the CLIs
     rung5_phase(dev, card, COUNTED, t_start, audio, audio_lens)
+    # ---- [21] cp_mode and pp_stages without a mesh, profiling, prep, native
+    cp_pp_phase(dev, card, COUNTED, t_start, audio, audio_lens, table, batch,
+                spec_mask, V, wer_inputs)
 
     order = ("logmel", "toeplitz", "attention", "attention_bwd",
              "toeplitz_reduce", "flash_attention", "flash_attention_bwd",
@@ -6462,6 +6900,8 @@ if __name__ == "__main__":
         sys.exit(train_seed_sweep([int(s) for s in sys.argv[2].split(",")]))
     if sys.argv[1:2] == ["--bundle-child"]:
         sys.exit(bundle_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--profile-child"]:
+        sys.exit(profile_child(sys.argv[2]))
     if sys.argv[1:2] == ["--dist-child"]:
         sys.exit(dist_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

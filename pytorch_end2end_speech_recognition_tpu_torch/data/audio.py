@@ -3,8 +3,8 @@ the JAX package's `data/audio.py`).
 
 WAV parsing is pure numpy (PCM 8/16/24/32 and float); resampling is
 polyphase via scipy; `read_audio` sniffs the container and decodes FLAC
-with `data/flac.py`. The JAX package's C++ decoder (`native/`) is not
-ported: the loader reads audio through this Python path only.
+with `data/flac.py`. The loader decodes a batch with the C++ decoder
+(`native/`) first, and reads here the rows it leaves.
 """
 
 from __future__ import annotations

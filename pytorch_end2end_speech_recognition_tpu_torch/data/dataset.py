@@ -12,8 +12,10 @@ the host decodes and pads; features run on the device.
   index) is an exact position to resume from.
 
 For a given (data.seed, epoch) the port yields the JAX loader's batches in
-its order, bit for bit. Audio is read through `data/audio.py` only (the JAX
-package's C++ batch decoder is not ported). `prefetch` runs a loader in a
+its order, bit for bit. A batch's audio is decoded by the C++ batch decoder
+(`native/`, multithreaded, straight into the padded buffer), as in the JAX
+package; the rows it leaves (another container or sample rate) are read
+through `data/audio.py`, row by row. `prefetch` runs a loader in a
 background thread; on CUDA the Solver pins each batch there (`pin_batch`)
 so that its copy to the card is asynchronous.
 """
@@ -34,6 +36,9 @@ from pytorch_end2end_speech_recognition_tpu_torch.data.manifest import (
 )
 from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
     Tokenizer,
+)
+from pytorch_end2end_speech_recognition_tpu_torch.native import (
+    load_batch_native,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
     DataConfig,
@@ -157,10 +162,14 @@ class BucketedLoader:
         tokens = np.zeros((B, U), np.int32)
         tlens = np.zeros((B,), np.int32)
         ids, texts = [], []
+        load_batch_native([self.utts[i].audio for i in idxs],
+                          audio[:len(idxs)], alens[:len(idxs)],
+                          expect_sr=self.sr)
         for row, i in enumerate(idxs):
-            x = load_audio(self.utts[i].audio, self.sr)[:Ts]
-            audio[row, :len(x)] = x
-            alens[row] = len(x)
+            if alens[row] == 0:  # left by the native decoder
+                x = load_audio(self.utts[i].audio, self.sr)[:Ts]
+                audio[row, :len(x)] = x
+                alens[row] = len(x)
             t = self.token_ids[i]
             tokens[row, :len(t)] = t
             tlens[row] = len(t)

@@ -1,6 +1,6 @@
 """Edit-distance scoring: WER / CER (the port's copy of the JAX package's
-`metrics/wer.py`). Vectorized numpy DP over the hypothesis; the JAX
-package's C++ path (`native/`) is not ported.
+`metrics/wer.py`). The distance is the C++ scorer's (`native/`), or with
+`ASR_TPU_NO_NATIVE` set a vectorized numpy DP over the hypothesis.
 """
 
 from __future__ import annotations
@@ -9,9 +9,18 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from pytorch_end2end_speech_recognition_tpu_torch import native
+
 
 def edit_distance(ref: list, hyp: list) -> int:
     """Levenshtein distance between token sequences."""
+    if native.enabled():
+        return native.levenshtein(ref, hyp)
+    return edit_distance_np(ref, hyp)
+
+
+def edit_distance_np(ref: list, hyp: list) -> int:
+    """`edit_distance` in numpy."""
     n, m = len(ref), len(hyp)
     if n == 0:
         return m

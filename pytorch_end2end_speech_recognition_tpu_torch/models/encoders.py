@@ -31,6 +31,17 @@ the row-parallel biases), enters through `copy_to`, so its gradient is
 summed over the 'model' group. With `model.sp` the residual stream between
 blocks is split along time over the 'model' group (Megatron sequence
 parallelism: the JAX package's `sp_constrain`), when tp divides T.
+
+Context and pipeline parallelism (`model.cp_mode`, `model.pp_stages`), as
+the JAX encoders run them: without a mesh, `cp_mode` sends the relative
+bias to the float32 diagonals and attention takes its ordinary (flash)
+path, and `pp_stages > 1` is the plain block loop (no fused FFN). On a
+mesh, `cp_mode` ('ring' or 'ulysses') runs `MhsaBlock`'s attention with
+the time axis split over the 'model' group (`parallel/cp.py`; under
+tensor parallelism the projections stay split by heads, and the heads are
+gathered around it), and `pp_stages > 1` runs the blocks as a GPipe
+pipeline over that group (`parallel/pp.py`), whose size must equal
+`pp_stages`.
 """
 
 from __future__ import annotations
@@ -53,14 +64,22 @@ from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
 from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn import bilstm_layer
 from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (
     copy_to,
+    gather_features,
     gather_time,
     gather_time_replicated,
     group_rank,
     reduce_from,
     reduce_scatter_time,
     size,
+    split_features,
     split_time,
     sum_both,
+)
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.cp import (
+    sharded_self_attention,
+)
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.pp import (
+    pipeline_blocks,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.parallel.sharding import (
     shard_tensor,
@@ -384,13 +403,15 @@ class RelPosBias(nn.Module):
         big = torch.clamp(big, max=nb - 1)
         return sign + torch.where(exact, arel.to(torch.int32), big)
 
-    def diags(self, T: int, dtype=torch.float32) -> torch.Tensor:
+    def diags(self, T: int, dtype=torch.float32,
+              whole: bool = False) -> torch.Tensor:
         """(L, H, 2T-1) diagonal vectors: diag[..., (T-1) + r] is the bias
         of relative offset r = j - i; under tensor parallelism, this rank's
-        H/tp heads."""
+        H/tp heads, unless `whole` (context parallelism attends over every
+        head on every rank)."""
         rel = torch.arange(-(T - 1), T, device=self.table.device)
-        return _part(self.table, self.tp_group, 1)[
-            :, :, self._bucket(rel)].to(dtype)
+        table = self.table if whole else _part(self.table, self.tp_group, 1)
+        return table[:, :, self._bucket(rel)].to(dtype)
 
     def forward(self, T: int, dtype=torch.float32, pad_to: int | None = None,
                 impl: str = "torch") -> torch.Tensor:
@@ -420,26 +441,37 @@ def _rel_bias_repr(rel: RelPosBias | None, cfg: ModelConfig, T: int):
     The rule is the JAX package's `_rel_bias_repr`, formula and itemsize
     included, kept so that one config takes one path in both packages: its
     15 MiB is the TPU whole-row kernel's VMEM budget, not a statement about
-    the H100's memory. (The JAX rule also sends CP to the diagonals; the
-    port refuses CP at construction.)"""
+    the H100's memory. Any `cp_mode` takes the diagonals too, of every
+    head (context parallelism attends over all of them on every rank)."""
     if rel is None:
         return None, None
     Tp = -(-T // 128) * 128
     H, D = cfg.encoder_heads, cfg.encoder_dim
     itemsize = 2 if cfg.dtype == "bfloat16" else 4
     dense_vmem = (H * Tp * Tp + 4 * Tp * D) * itemsize + Tp * Tp * 4
-    if T > FLASH_T or dense_vmem > 15 * 1024 * 1024:
-        return None, rel.diags(T)
+    if cfg.cp_mode or T > FLASH_T or dense_vmem > 15 * 1024 * 1024:
+        return None, rel.diags(T, whole=bool(cfg.cp_mode))
+    return _dense_biases(rel, cfg, T), None
+
+
+def _dense_biases(rel: RelPosBias, cfg: ModelConfig, T: int) -> torch.Tensor:
+    """The stacked dense biases in `cfg.dtype`: padded to a 128 multiple by
+    the Toeplitz kernel on the kernel path, else (L, H, T, T)."""
     if cfg.attn_impl == "cuda":
-        return rel(T, dtype=_dt(cfg), pad_to=Tp, impl="cuda"), None
-    return rel(T, dtype=_dt(cfg)), None
+        return rel(T, dtype=_dt(cfg), pad_to=-(-T // 128) * 128, impl="cuda")
+    return rel(T, dtype=_dt(cfg))
 
 
 class MhsaBlock(nn.Module):
     """Pre-LN multi-head self-attention with key padding mask and an
     optional per-head additive bias. The attention runs through
     `sharded_fused_attention`: under tensor parallelism on this rank's
-    heads alone, with no collective, on the dense and the flash path."""
+    heads alone, with no collective, on the dense and the flash path. With
+    `cp_mode` and a 'model' group it runs context-parallel instead
+    (`sharded_self_attention` in float32, the JAX package's CP path): the
+    column-parallel projections' heads are gathered, the attention splits
+    the time axis over the group, and each rank keeps its heads' columns
+    of the result for the row-parallel `o`."""
 
     tp_group = None
 
@@ -453,15 +485,16 @@ class MhsaBlock(nn.Module):
         self.o = nn.Linear(D, D)
         self.heads = cfg.encoder_heads
         self.attn_impl = cfg.attn_impl
+        self.cp_mode = cfg.cp_mode
         self.rate = cfg.encoder_dropout
         self.dt, self.rdt = _dt(cfg), _rdt(cfg)
 
     def forward(self, x, mask, bias=None, diag=None, train=False, gen=None,
                 sp=False):
         """`bias`: this block's (H, P, P) slice of the stacked dense biases;
-        `diag`: its (H, 2T-1) float32 diagonals on the flash path (this
-        rank's heads under tensor parallelism); `sp`: x is this rank's time
-        slice (mask stays whole)."""
+        `diag`: its (H, 2T-1) float32 diagonals on the flash and CP paths
+        (this rank's heads under tensor parallelism, every head under CP);
+        `sp`: x is this rank's time slice (mask stays whole)."""
         g = self.tp_group
         h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt), g,
                    sp)
@@ -469,9 +502,16 @@ class MhsaBlock(nn.Module):
         kf = _col(h, self.k, self.dt, g)
         vf = _col(h, self.v, self.dt, g)
         lens = mask.sum(dim=1).to(torch.int32)
-        y = sharded_fused_attention(size(g), qf, kf, vf, bias, lens,
-                                    self.heads, diag=diag,
-                                    plain=self.attn_impl != "cuda")
+        if self.cp_mode and g is not None:
+            B, T = mask.shape
+            q, k, v = (gather_features(t, g).float().reshape(
+                B, T, self.heads, -1) for t in (qf, kf, vf))
+            y = split_features(sharded_self_attention(
+                g, q, k, v, lens, self.cp_mode, diag).reshape(B, T, -1), g)
+        else:
+            y = sharded_fused_attention(size(g), qf, kf, vf, bias, lens,
+                                        self.heads, diag=diag,
+                                        plain=self.attn_impl != "cuda")
         y = _row(y, self.o, self.dt, g, sp).to(self.rdt)
         return x + dropout(y, self.rate, gen, train, g if sp else None)
 
@@ -621,7 +661,7 @@ def sp_enabled(cfg: ModelConfig, group, T: int) -> bool:
     """Whether the residual stream runs time-split over the 'model' group
     (the JAX package's `sp_constrain` test): `model.sp`, a group, and T a
     multiple of its size; a no-op otherwise, and under `cp_mode` (which
-    the port refuses)."""
+    lays the time axis out itself)."""
     return (cfg.sp and not cfg.cp_mode and group is not None
             and T % size(group) == 0)
 
@@ -632,14 +672,10 @@ class _BlockEncoder(nn.Module):
     `pos_encoding='relative'`, `cfg.encoder_layers` blocks of `block`."""
 
     tp_group = None
+    mesh = None  # set by `shard_model`: the pipeline runs over its 'model'
 
     def __init__(self, d_in: int, cfg: ModelConfig, block):
         super().__init__()
-        if cfg.cp_mode or cfg.pp_stages > 1:
-            raise NotImplementedError(
-                "context (cp_mode) and pipeline (pp_stages > 1) parallelism "
-                "come with the next parallelism slice (parallel/cp.py, "
-                "parallel/pp.py)")
         self.cfg = cfg
         self.sub = ConvSubsample(d_in, cfg.encoder_dim, cfg)
         self.rel = (RelPosBias(cfg.encoder_layers, cfg.encoder_heads)
@@ -649,14 +685,29 @@ class _BlockEncoder(nn.Module):
         self.rate = cfg.encoder_dropout
         self.d_out = cfg.encoder_dim
 
+    def set_mesh(self, mesh) -> None:
+        self.mesh = mesh
+
     def _apply_blocks(self, x, mask, train, generator):
         """The blocks in order, each with its layer's slice of the relative
-        bias (dense, or the diagonals past FLASH_T; none for absolute PE),
-        the residual stream split along time between them under sequence
-        parallelism."""
+        bias (dense, or the diagonals past FLASH_T or under `cp_mode`; none
+        for absolute PE), the residual stream split along time between them
+        under sequence parallelism; with `pp_stages > 1` on a mesh, the
+        GPipe pipeline over its 'model' group (dense biases, no dropout,
+        no remat: the JAX package's pipeline path)."""
         g = self.tp_group
         T = mask.shape[1]
-        biases, diags = _rel_bias_repr(self.rel, self.cfg, T)
+        cfg = self.cfg
+        if cfg.pp_stages > 1 and self.mesh is not None:
+            if self.mesh.tp != cfg.pp_stages:
+                raise ValueError(
+                    f"pp_stages={cfg.pp_stages} must equal the 'model' mesh "
+                    f"axis size {self.mesh.tp} (set train.tp=pp_stages)")
+            biases = (None if self.rel is None
+                      else _dense_biases(self.rel, cfg, T))
+            return pipeline_blocks(self.mesh.model_group, list(self.blocks),
+                                   x, mask, cfg.pp_microbatches, biases)
+        biases, diags = _rel_bias_repr(self.rel, cfg, T)
         # unbind: one stacked gradient for all layers in the backward
         none = [None] * len(self.blocks)
         biases = biases.unbind(0) if biases is not None else none

@@ -15,7 +15,15 @@ backward that its use needs (Megatron-LM's pairs):
 - `split_time` (this rank's time slice; all-gather backward) and
   `gather_time_replicated` (all-gather; the backward keeps this rank's
   slice) where the residual stream enters and leaves the time-sharded
-  region from and to work that every rank does alike.
+  region from and to work that every rank does alike; `split_features`
+  and `gather_features` are the same pair over the last dimension
+  (context parallelism under tensor parallelism: the heads);
+- `ring_shift` (send to the next rank of the group, receive from the
+  previous one: the JAX package's `ppermute` i -> i+1; the backward
+  shifts the gradient the other way) for ring attention and the
+  pipeline, and `all_to_all` (tiled: split one dimension over the ranks,
+  concatenate what arrives along another; the backward is the inverse
+  exchange) for Ulysses attention.
 
 `torch.distributed.nn.functional` is not used: its `all_reduce` also
 all-reduces the gradient, which scales a loss that every rank computes
@@ -95,17 +103,17 @@ class _SumBoth(torch.autograd.Function):
         return all_reduce_(g.clone(), ctx.group), None
 
 
-class _GatherTime(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, replicated):
-        ctx.group, ctx.replicated = group, replicated
-        return _all_gather(x, group, 1)
+    def forward(ctx, x, group, dim, replicated):
+        ctx.group, ctx.dim, ctx.replicated = group, dim, replicated
+        return _all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.replicated:
-            return _slice(g, ctx.group, 1), None, None
-        return _reduce_scatter(g, ctx.group, 1), None, None
+            return _slice(g, ctx.group, ctx.dim), None, None, None
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None, None
 
 
 class _ReduceScatterTime(torch.autograd.Function):
@@ -119,15 +127,61 @@ class _ReduceScatterTime(torch.autograd.Function):
         return _all_gather(g, ctx.group, 1), None
 
 
-class _SplitTime(torch.autograd.Function):
+class _Split(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _slice(x, group, 1)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _slice(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.group, 1), None
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """Send x to the rank `step` places on in the group, receive the one
+    sent from `step` places back (one batched send/recv pair)."""
+    n, r = size(group), group_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    peer = lambda i: dist.get_global_rank(group, i % n)  # noqa: E731
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, peer(r + step), group),
+        dist.P2POp(dist.irecv, out, peer(r - step), group)])
+    for req in reqs:
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -1), None
+
+
+def _exchange(x: torch.Tensor, group, split: int, cat: int) -> torch.Tensor:
+    """Tiled all-to-all: x's `split` dimension in n parts, part j to rank
+    j; the parts received, in rank order, concatenated along `cat`."""
+    parts = [p.contiguous() for p in x.chunk(size(group), dim=split)]
+    got = [torch.empty_like(parts[0]) for _ in parts]
+    dist.all_to_all(got, parts, group=group)
+    return torch.cat(got, dim=cat)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split, cat):
+        ctx.group, ctx.split, ctx.cat = group, split, cat
+        return _exchange(x, group, split, cat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group, ctx.cat, ctx.split), None, None, None
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -144,12 +198,17 @@ def sum_both(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_time(x: torch.Tensor, group) -> torch.Tensor:
     """(B, T/n, ...) -> (B, T, ...) before a column-parallel linear."""
-    return x if group is None else _GatherTime.apply(x, group, False)
+    return x if group is None else _Gather.apply(x, group, 1, False)
 
 
 def gather_time_replicated(x: torch.Tensor, group) -> torch.Tensor:
     """(B, T/n, ...) -> (B, T, ...) where every rank goes on alike."""
-    return x if group is None else _GatherTime.apply(x, group, True)
+    return x if group is None else _Gather.apply(x, group, 1, True)
+
+
+def gather_features(x: torch.Tensor, group) -> torch.Tensor:
+    """(..., F/n) -> (..., F) where every rank goes on alike."""
+    return x if group is None else _Gather.apply(x, group, -1, True)
 
 
 def reduce_scatter_time(x: torch.Tensor, group) -> torch.Tensor:
@@ -159,7 +218,24 @@ def reduce_scatter_time(x: torch.Tensor, group) -> torch.Tensor:
 
 def split_time(x: torch.Tensor, group) -> torch.Tensor:
     """(B, T, ...) alike on every rank -> this rank's (B, T/n, ...)."""
-    return x if group is None else _SplitTime.apply(x, group)
+    return x if group is None else _Split.apply(x, group, 1)
+
+
+def split_features(x: torch.Tensor, group) -> torch.Tensor:
+    """(..., F) alike on every rank -> this rank's (..., F/n)."""
+    return x if group is None else _Split.apply(x, group, -1)
+
+
+def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
+    """The previous rank's x (rank i's goes to i + 1, the last's to 0)."""
+    return x if group is None else _RingShift.apply(x, group)
+
+
+def all_to_all(x: torch.Tensor, group, split: int, cat: int) -> torch.Tensor:
+    """Tiled all-to-all: `split` divided over the ranks, what arrives
+    concatenated along `cat` (Ulysses: (B, T/n, H, D) -> (B, T, H/n, D)
+    with split 2, cat 1)."""
+    return x if group is None else _AllToAll.apply(x, group, split, cat)
 
 
 # ---------------------------------------------------------------- host side

@@ -29,6 +29,18 @@ Two deliberate differences from the JAX layout:
 Each rank keeps only its slices of the sharded parameters and of their Adam
 moments (`shard_model`, `shard_tensor`); `full_tensor` gathers them back
 (through host tensors) for checkpoints, export and decoding.
+
+Under pipeline parallelism (`model.pp_stages > 1`) every parameter is
+replicated, as the JAX Solver's `tp_rules=False`: the 'model' group holds
+the pipeline's stages, each rank running its stage's blocks whole
+(`parallel/pp.py`). Under context parallelism (`model.cp_mode`) the TP
+rules stay, as in the JAX package, and the 'model' group carries both
+splits: the linears by heads (q/k/v column-parallel, o row-parallel, as
+above) and the attention between them by time. `MhsaBlock` gathers the
+heads' columns of q, k and v, runs `parallel/cp.py` on the whole heads
+with each rank holding a time slice, and hands each rank its heads'
+columns of the result for `o`; the relative bias enters as the diagonals
+of every head. The loss and gradients are the unsharded model's.
 """
 
 from __future__ import annotations
@@ -182,18 +194,32 @@ def full_tensor(mesh: Mesh | None, t: torch.Tensor,
     return unshard_tensor(all_gather_host(t, mesh.model_group), *how)
 
 
+def tp_rules_of(model: nn.Module) -> bool:
+    """The JAX Solver's `tp_rules=cfg.model.pp_stages <= 1` for `model`
+    (an `AsrModel`, whose `cfg` is an AsrConfig, or an encoder, whose `cfg`
+    is a ModelConfig)."""
+    cfg = getattr(model, "cfg", None)
+    cfg = getattr(cfg, "model", cfg)
+    return getattr(cfg, "pp_stages", 1) <= 1
+
+
 def shard_model(model: nn.Module, mesh: Mesh) -> dict:
     """Keep only this rank's slices of `model`'s sharded parameters (in
     place) and point its tensor-parallel modules at the 'model' group;
     returns `shard_dims`, kept with `param_specs` (both of the whole model)
     as `model.shard_dims` and `model.param_specs`. Raises where a
     tensor-parallel module's widths do not split tp ways (heads,
-    features), which the port does not run."""
-    dims = shard_dims(mesh, model)
-    specs = param_specs(mesh, model)
+    features), which the port does not run. Under pipeline parallelism
+    (`tp_rules_of(model)` false) every parameter stays whole and no
+    module gets a group; the encoder still learns the mesh, for its
+    pipeline."""
+    tp_rules = tp_rules_of(model)
+    dims = shard_dims(mesh, model) if tp_rules else {}
+    specs = (param_specs(mesh, model) if tp_rules else
+             [(path, ()) for path, _ in param_specs(mesh, model)])
     tp_mods = [(n, m) for n, m in model.named_modules()
                if hasattr(m, "tp_group")]
-    for mn, mod in tp_mods if mesh.tp > 1 else ():
+    for mn, mod in tp_mods if mesh.tp > 1 and tp_rules else ():
         heads = getattr(mod, "heads", None)
         if heads and heads % mesh.tp:
             raise ValueError(f"{mn}: {heads} heads do not split over "
@@ -209,7 +235,7 @@ def shard_model(model: nn.Module, mesh: Mesh) -> dict:
             if name in dims:
                 p.data = shard_tensor(p.data, *dims[name], mesh.tp,
                                       mesh.model_rank).contiguous()
-    group = mesh.model_group if mesh.tp > 1 else None
+    group = mesh.model_group if mesh.tp > 1 and tp_rules else None
     for _, mod in tp_mods:
         mod.tp_group = group
         if hasattr(mod, "set_mesh"):
@@ -235,11 +261,11 @@ def shard_train_state(mesh: Mesh, model: nn.Module,
 
 
 def gather_model(model: nn.Module) -> nn.Module:
-    """A whole copy of a sharded `AsrModel` on this rank's device (a
-    collective of its 'model' group); the model itself when it is not
-    sharded."""
+    """A whole copy of a sharded or pipelined `AsrModel` on this rank's
+    device, off the mesh (a collective of its 'model' group); the model
+    itself when it is neither."""
     mesh = getattr(model, "mesh", None)
-    if mesh is None or not model.shard_dims:
+    if mesh is None or (not model.shard_dims and tp_rules_of(model)):
         return model
     from pytorch_end2end_speech_recognition_tpu_torch.models.asr import (
         AsrModel,

@@ -33,6 +33,10 @@ shard's rows, and:
   batch's (summed over 'data'); only rank 0 writes metrics;
 - a checkpoint holds whole tensors, gathered from the shards and written
   by rank 0, and restores on any mesh;
+- under pipeline parallelism (`model.pp_stages > 1`) every parameter is
+  replicated, and the gradients of the encoder's blocks, which each stage
+  holds for its own blocks alone, are summed over 'model' before the
+  data sum (`parallel/pp.py`);
 - each data rank draws from its own generator, seeded train.seed + data
   rank (the ranks of one 'model' group draw alike: their SpecAugment masks
   and dropout on replicated activations must agree). A checkpoint keeps
@@ -70,6 +74,9 @@ from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (
 )
 from pytorch_end2end_speech_recognition_tpu_torch.parallel.mesh import (
     require_mesh,
+)
+from pytorch_end2end_speech_recognition_tpu_torch.parallel.pp import (
+    sum_stage_grads,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.training import checkpoint
 from pytorch_end2end_speech_recognition_tpu_torch.training.losses import (
@@ -116,9 +123,13 @@ class Solver:
         self.dims = self.model.shard_dims if mesh is not None else {}
         self.data_group = mesh.data_group if mesh is not None else None
         data_rank = mesh.data_rank if mesh is not None else 0
-        if mesh is not None and mesh.tp > 1:
+        if self.dims:
             self.opt.shards = (sharding.sharded_mask(self.names, self.dims),
                                mesh.model_group)
+        # the pipeline's stages: each rank's blocks' gradients, to be summed
+        self.stage_group = (mesh.model_group if mesh is not None
+                            and cfg.model.pp_stages > 1 else None)
+        self.staged = [n.startswith("encoder.blocks.") for n in self.names]
         self.generator = torch.Generator(device=dev).manual_seed(
             cfg.train.seed + data_rank)
         self.step = 0
@@ -196,6 +207,8 @@ class Solver:
         grads = list(torch.autograd.grad(loss, self.params,
                                          allow_unused=True))
         metrics = {k: v.detach() for k, v in metrics.items()}
+        grads = sum_stage_grads(grads, self.params, self.staged,
+                                self.stage_group)
         if self.data_group is not None:
             grads = self._sum_over_data(grads)
             vals = all_reduce_(torch.stack(list(metrics.values())),

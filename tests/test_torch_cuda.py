@@ -1264,3 +1264,124 @@ def test_sharded_attention_launches_on_local_heads(dev, flash):
         assert _rel_err(out.detach() * valid, ref.detach() * valid) < 2e-2
         for a, b in ((ql, qp), (kl, kp), (vl, vp)):
             assert _rel_err(a.grad, b.grad) < 2e-2
+
+
+def _counted():
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        attention_kernel as ak,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        ctc_kernel as ck,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        ffn_kernel as fk,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        frontend_kernel as fr,
+    )
+
+    return (fr.logmel, ak.toeplitz_fwd, ak.toeplitz_reduce, ak.attention_fwd,
+            ak.attention_bwd, ak.flash_fwd, ak.flash_bwd, ck.ctc_alpha,
+            ck.ctc_beta, fk.ffn_fwd, fk.ffn_bwd)
+
+
+def _launches_of(fn):
+    counted = _counted()
+    for f in counted:
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {f.__name__: f.launches for f in counted if f.launches}
+
+
+def _small_flagship(dev, **model):
+    """A 2-layer flagship (d256, H4, bf16, the kernels), its relative bias
+    at std 4, dropout 0, as a Solver on the card, and a ragged batch of 2
+    rows of 4 s with 12 tokens."""
+    from pytorch_end2end_speech_recognition_tpu_torch.configs.presets import (
+        flagship_conformer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.dataset import (
+        Batch,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.data.tokenizer import (
+        CharTokenizer,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.training.solver import (
+        Solver,
+    )
+
+    cfg = flagship_conformer()
+    cfg.model.encoder_layers = 2
+    cfg.model.encoder_dropout = cfg.model.decoder_dropout = 0.0
+    cfg.frontend.spec_augment = False
+    cfg.train.metrics_path = ""
+    for k, v in model.items():
+        setattr(cfg.model, k, v)
+    solver = Solver(cfg, CharTokenizer(charset="abcdefghijklmnopqrstuvwxyz'"),
+                    device=dev)
+    with torch.no_grad():
+        solver.model.encoder.rel.table.copy_(torch.randn(
+            solver.model.encoder.rel.table.shape,
+            generator=torch.Generator().manual_seed(5)).to(dev) * 4.0)
+    rng = np.random.default_rng(11)
+    audio = (rng.standard_normal((2, 64000)) * 0.1).astype(np.float32)
+    lens = np.asarray([64000, 41000], np.int32)
+    audio[1, 41000:] = 0
+    tokens = rng.integers(3, 20, (2, 12)).astype(np.int32)
+    return solver, Batch(audio, lens, tokens, np.asarray([12, 9], np.int32))
+
+
+def test_cp_mode_without_a_mesh_runs_the_flash_kernels(dev):
+    """`cp_mode` with no mesh sends the relative bias to the float32
+    diagonals at any T (JAX `models/encoders.py:389`): a Solver step of a
+    2-layer flagship launches flash 2 + 2, log-mel 1 and CTC 1 + 1, no
+    Toeplitz or dense-attention kernel; 'ulysses' gives 'ring's logits bit
+    for bit, and both the dense path's within [4]'s logit tolerance."""
+    ring, batch = _small_flagship(dev, cp_mode="ring")
+    uly, _ = _small_flagship(dev, cp_mode="ulysses")
+    dense, _ = _small_flagship(dev)
+    _, step = _launches_of(lambda: ring.train_step(batch))
+    assert step == {"logmel": 1, "flash_fwd": 2, "flash_bwd": 2,
+                    "ctc_alpha": 1, "ctc_beta": 1}
+    audio = torch.from_numpy(batch.audio).to(dev)
+    lens = torch.from_numpy(batch.audio_lens).to(dev)
+    uly.model.load_state_dict(ring.model.state_dict())
+    dense.model.load_state_dict(ring.model.state_dict())
+    with torch.no_grad():
+        (enc, el), fwd = _launches_of(lambda: ring.model.encode(audio, lens))
+        got = ring.model.ctc_logits(enc)
+        assert torch.equal(uly.model.ctc_logits(uly.model.encode(audio,
+                                                                 lens)[0]),
+                           got)
+        want = dense.model.ctc_logits(dense.model.encode(audio, lens)[0])
+    assert fwd == {"logmel": 1, "flash_fwd": 2}
+    valid = torch.arange(got.shape[1], device=dev)[None, :] < el[:, None]
+    assert float((got - want).abs().amax(-1)[valid].max()) <= 0.1
+
+
+def test_pp_stages_keep_the_fused_ffn_off(dev):
+    """`pp_stages` 2 with no mesh is the plain block loop, and the JAX gate
+    (`models/encoders.py:507`) keeps its FFN blocks off the fused kernels:
+    with ffn_impl='cuda' a forward and a step launch no FFN kernel, and the
+    logits equal pp_stages 1 with ffn_impl='torch' bit for bit; the same
+    model at pp_stages 1 launches the FFN kernel in each of its 4 FFN
+    blocks."""
+    pp, batch = _small_flagship(dev, pp_stages=2, ffn_impl="cuda")
+    ref, _ = _small_flagship(dev)
+    on, _ = _small_flagship(dev, ffn_impl="cuda")
+    for s in (ref, on):
+        s.model.load_state_dict(pp.model.state_dict())
+    audio = torch.from_numpy(batch.audio).to(dev)
+    lens = torch.from_numpy(batch.audio_lens).to(dev)
+    with torch.no_grad():
+        got, fwd = _launches_of(
+            lambda: pp.model.ctc_logits(pp.model.encode(audio, lens)[0]))
+        want = ref.model.ctc_logits(ref.model.encode(audio, lens)[0])
+        _, fused = _launches_of(lambda: on.model.encode(audio, lens))
+    assert "ffn_fwd" not in fwd and fwd["attention_fwd"] == 2
+    assert torch.equal(got, want)
+    assert fused["ffn_fwd"] == 4
+    _, step = _launches_of(lambda: pp.train_step(batch))
+    assert "ffn_fwd" not in step and "ffn_bwd" not in step
+    assert step["attention_bwd"] == 2

@@ -116,6 +116,25 @@ def test_serving_and_cli_modules_stand_alone(module):
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", [
+    "parallel.cp", "parallel.pp", "utils.profiling", "data.prep",
+    "data.prep.prep_an4", "data.prep.prep_wsj",
+    "data.prep.prep_librispeech", "native"])
+def test_cp_pp_and_host_modules_stand_alone(module):
+    """Context and pipeline parallelism, profiling, the corpus converters
+    and the native bindings exist, are among the modules imported with
+    JAX blocked below, and import neither JAX nor the JAX package; the
+    native source is the port's own copy."""
+    name = f"{PKG.name}.{module}"
+    assert name in MODULES
+    path = PKG.joinpath(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    bad = [n for n in _imported(path) if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    if module == "native":
+        assert (PKG / "native" / "asrnative.cpp").is_file()
+
+
 def test_every_module_imports_with_jax_blocked():
     blocked = "; ".join(f"sys.modules[{n!r}] = None" for n in FORBIDDEN)
     code = (f"import sys; {blocked}; import importlib; "

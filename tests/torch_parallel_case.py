@@ -1,5 +1,6 @@
 """The ranks of the port's parallelism tests (`test_torch_parallel.py`,
-`test_torch_multiproc.py`), spawned as
+`test_torch_multiproc.py`, `test_torch_cp.py`, `test_torch_pp.py`),
+spawned as
 
     python -m tests.torch_parallel_case SPEC RANK WORLD
 
@@ -309,9 +310,132 @@ def case_fit(case, data, mesh):
             "params": solver._params()}
 
 
+def case_cp_attention(case, data, mesh):
+    """`sharded_self_attention` over the 'model' group on inputs alike on
+    every rank: the output and the gradients of sum(out^2) with respect
+    to q, k, v (and the diagonals)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.cp import (
+        sharded_self_attention,
+    )
+
+    a = data[case["inputs"]]
+    q, k, v = (a[n].clone().requires_grad_() for n in ("q", "k", "v"))
+    diag = a["diag"].clone().requires_grad_() if case["bias"] else None
+    out = sharded_self_attention(mesh.model_group, q, k, v, a["lens"],
+                                 case["mode"], diag)
+    (out ** 2).sum().backward()
+    res = {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    if diag is not None:
+        res["ddiag"] = diag.grad
+    return res
+
+
+def _encoder(case, data, mesh):
+    """An encoder of `case['cfg']` (ModelConfig fields) with the weights
+    `data['sd'][case['model']]`, sharded over the mesh."""
+    from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
+        build_encoder,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.sharding import (
+        shard_model,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        ModelConfig,
+    )
+
+    enc = build_encoder(80, ModelConfig(**case["cfg"]))
+    enc.load_state_dict(data["sd"][case["model"]])
+    shard_model(enc, mesh)
+    return enc
+
+
+def case_encoder(case, data, mesh):
+    """The encoder's output on the case's features; with `grads`, also
+    every parameter's gradient of sum(y^2) in training (the pipelined
+    blocks' summed over the 'model' group, as the Solver sums them)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.pp import (
+        sum_stage_grads,
+    )
+
+    enc = _encoder(case, data, mesh)
+    x, lens = data[case["feats"]]
+    if not case.get("grads"):
+        with torch.no_grad():
+            y, out_lens = enc(x, lens)
+        return {"enc": y, "lens": out_lens}
+    y, out_lens = enc(x, lens, train=True)
+    names, params = zip(*enc.named_parameters())
+    grads = torch.autograd.grad((y ** 2).sum(), params, allow_unused=True)
+    grads = sum_stage_grads(grads, params,
+                            [n.startswith("blocks.") for n in names],
+                            mesh.model_group)
+    return {"enc": y.detach(), "lens": out_lens,
+            "grads": {n: g for n, g in zip(names, grads)}}
+
+
+def case_raises(case, data, mesh):
+    """The encoder's forward must raise ValueError on this rank: its
+    message, or None."""
+    enc = _encoder(case, data, mesh)
+    x, lens = data[case["feats"]]
+    try:
+        enc(x, lens)
+    except ValueError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
+def case_pipeline_apply(case, data, mesh):
+    """`pipeline_apply` of tanh(h W_s) over the 'model' group: the output
+    and the gradient of sum(out^2) with respect to the stacked W, summed
+    over the group (each stage holds its own W's)."""
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (  # noqa: E501
+        all_reduce_,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.pp import (
+        pipeline_apply,
+    )
+
+    Ws = data["pipe"]["Ws"].clone().requires_grad_()
+    out = pipeline_apply(mesh.model_group, lambda W, h: torch.tanh(h @ W),
+                         Ws, data["pipe"]["x"], n_micro=4)
+    (out ** 2).sum().backward()
+    return {"out": out.detach(),
+            "dW": all_reduce_(Ws.grad.clone(), mesh.model_group)}
+
+
+def case_pipeline_blocks(case, data, mesh):
+    """`pipeline_blocks` of TransformerBlocks with the JAX blocks' weights
+    (and dense relative biases) over the 'model' group: the output."""
+    from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
+        TransformerBlock,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.parallel.pp import (
+        pipeline_blocks,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        ModelConfig,
+    )
+
+    d = data[case["inputs"]]
+    cfg = ModelConfig(**case["cfg"])
+    blocks = []
+    for sd in d["sds"]:
+        blk = TransformerBlock(cfg)
+        blk.load_state_dict(sd)
+        blocks.append(blk)
+    with torch.no_grad():
+        out = pipeline_blocks(mesh.model_group, blocks, d["x"], d["mask"],
+                              n_micro=4, biases=d.get("biases"))
+    return {"out": out}
+
+
 CASES = {"fit": case_fit, "grads": case_grads, "encode": case_encode,
          "attention": case_attention, "clip": case_clip,
-         "checkpoint": case_checkpoint, "consistency": case_consistency}
+         "checkpoint": case_checkpoint, "consistency": case_consistency,
+         "cp_attention": case_cp_attention, "encoder": case_encoder,
+         "raises": case_raises, "pipeline_apply": case_pipeline_apply,
+         "pipeline_blocks": case_pipeline_blocks}
 
 
 def main(spec_path: str, rank: int, world: int) -> int:
