@@ -1,0 +1,11 @@
+"""Device milliseconds a profiled request in the elementwise, cast,
+copy, reduction and layer-norm kernel classes."""
+
+from portbench.trace import GLUE
+
+
+def read(ctx):
+    t = ctx.tracer
+    if t is None or ctx.mix["mode"] != "serve" or t.steps == 0:
+        return None
+    return 1e3 * t.group_seconds(GLUE) / t.steps

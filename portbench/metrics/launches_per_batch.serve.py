@@ -1,0 +1,8 @@
+"""Device kernels a profiled request, counted in the trace."""
+
+
+def read(ctx):
+    t = ctx.tracer
+    if t is None or ctx.mix["mode"] != "serve" or t.steps == 0:
+        return None
+    return t.launches() / t.steps

@@ -1,0 +1,11 @@
+"""The model FLOPs of the traced requests or steps (the configuration's
+`train` count, from real lengths) over the traced spans' seconds, as a
+percent of the H100's bf16 peak."""
+
+from portbench.roofline import mfu
+
+
+def read(ctx):
+    if ctx.mix["mode"] != "train":
+        return None
+    return mfu(ctx)
