@@ -34,6 +34,7 @@ from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
     AsrConfig,
     resolve_device,
 )
+from pytorch_end2end_speech_recognition_tpu_torch.utils.profiling import span
 
 
 class CtcHead(nn.Module):
@@ -145,10 +146,12 @@ class AsrModel(nn.Module):
             raise ValueError("SpecAugment in training needs a generator or "
                              "a spec_mask")
         with torch.no_grad():
-            feats, flens = self.frontend(audio, audio_lens)
+            with span("asr.frontend"):
+                feats, flens = self.frontend(audio, audio_lens)
             if augment:
-                feats = spec_augment(feats, flens, self.cfg.frontend,
-                                     generator, spec_mask)
+                with span("asr.specaugment"):
+                    feats = spec_augment(feats, flens, self.cfg.frontend,
+                                         generator, spec_mask)
         return feats, flens
 
     def encode(self, audio: torch.Tensor, audio_lens: torch.Tensor,
@@ -164,4 +167,5 @@ class AsrModel(nn.Module):
         return self.encoder(feats, flens, train=train, generator=generator)
 
     def ctc_logits(self, enc: torch.Tensor) -> torch.Tensor:
-        return self.ctc_head(enc)
+        with span("asr.ctc_head"):
+            return self.ctc_head(enc)

@@ -30,6 +30,7 @@ from pytorch_end2end_speech_recognition_tpu_torch.models.encoders import (
 )
 from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn import lstm_cell
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import ModelConfig
+from pytorch_end2end_speech_recognition_tpu_torch.utils.profiling import span
 
 
 class LocationAwareAttention(nn.Module):
@@ -133,33 +134,34 @@ class AttentionDecoder(nn.Module):
         the input of step s is the previous step's argmax where coins[:, s]
         (B, U+1) bool is set; the coins are drawn from `generator` unless
         given."""
-        B, T, _ = enc.shape
-        U1 = tokens.shape[1] + 1
-        dev = enc.device
-        keys = self.precompute(enc)
-        mask = torch.arange(T, device=dev)[None, :] < enc_lens[:, None]
-        state = self.init_state(B, T, device=dev)
-        sos = torch.full((B, 1), SOS_EOS_ID, dtype=torch.long, device=dev)
-        inputs = torch.cat([sos, tokens.long()], dim=1)
-        if not (train and scheduled_sampling > 0.0):
-            coins = None
-        elif coins is None:
-            if generator is None:
-                raise ValueError("scheduled sampling in training needs a "
-                                 "generator or coins")
-            coins = torch.rand((B, U1), generator=generator,
-                               device=dev) < scheduled_sampling
-        pred = torch.zeros(B, dtype=torch.long, device=dev)
-        logps, attns = [], []
-        for s in range(U1):
-            tok = inputs[:, s]
-            if coins is not None:
-                tok = torch.where(coins[:, s], pred, tok)
-            logp, state, attn = self.step(tok, state, keys, enc, mask)
-            pred = logp.argmax(dim=-1)
-            logps.append(logp)
-            attns.append(attn)
-        logps = torch.stack(logps, dim=1)
-        if return_attn:
-            return logps, torch.stack(attns, dim=1)
-        return logps
+        with span("asr.decoder"):
+            B, T, _ = enc.shape
+            U1 = tokens.shape[1] + 1
+            dev = enc.device
+            keys = self.precompute(enc)
+            mask = torch.arange(T, device=dev)[None, :] < enc_lens[:, None]
+            state = self.init_state(B, T, device=dev)
+            sos = torch.full((B, 1), SOS_EOS_ID, dtype=torch.long, device=dev)
+            inputs = torch.cat([sos, tokens.long()], dim=1)
+            if not (train and scheduled_sampling > 0.0):
+                coins = None
+            elif coins is None:
+                if generator is None:
+                    raise ValueError("scheduled sampling in training needs a "
+                                     "generator or coins")
+                coins = torch.rand((B, U1), generator=generator,
+                                   device=dev) < scheduled_sampling
+            pred = torch.zeros(B, dtype=torch.long, device=dev)
+            logps, attns = [], []
+            for s in range(U1):
+                tok = inputs[:, s]
+                if coins is not None:
+                    tok = torch.where(coins[:, s], pred, tok)
+                logp, state, attn = self.step(tok, state, keys, enc, mask)
+                pred = logp.argmax(dim=-1)
+                logps.append(logp)
+                attns.append(attn)
+            logps = torch.stack(logps, dim=1)
+            if return_attn:
+                return logps, torch.stack(attns, dim=1)
+            return logps

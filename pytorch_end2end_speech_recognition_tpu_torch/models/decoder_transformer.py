@@ -43,6 +43,7 @@ from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (
     size,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import ModelConfig
+from pytorch_end2end_speech_recognition_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30
 SOS_EOS_ID = 1  # the tokenizers' shared <sos>/<eos> id (blank is 0)
@@ -174,29 +175,30 @@ class TransformerDecoder(nn.Module):
         the frames t < enc_lens[b]; with `return_attn` also the last
         block's cross-attention weights averaged over heads (B, U+1, T;
         over this rank's heads under tensor parallelism)."""
-        B, T, _ = enc.shape
-        U1 = tokens.shape[1] + 1
-        sos = torch.full((B, 1), SOS_EOS_ID, dtype=torch.long,
-                         device=enc.device)
-        inputs = torch.cat([sos, tokens.long()], dim=1)
-        x = (self.embed(inputs).float() * math.sqrt(self.D)
-             + pe_table(U1, self.D, enc.device))
-        x = dropout(x, self.rate, generator, train)
-        self_mask = torch.tril(torch.ones((U1, U1), dtype=torch.bool,
-                                          device=enc.device))[None, None]
-        cross_mask = (torch.arange(T, device=enc.device)[None, :]
-                      < enc_lens[:, None])[:, None, None, :]
-        if self.blocks and self.blocks[0].tp_group is not None:
-            enc = copy_to(enc.to(self.dt), self.blocks[0].tp_group)
-        for blk in self.blocks:
-            q, sk, sv = blk.self_qkv(x)
-            ck, cv = blk.cross_kv(enc)
-            x, w = blk.run(x, q, sk, sv, self_mask, ck, cv, cross_mask, train,
-                           generator)
-        logps = F.log_softmax(self._logits(x), dim=-1)
-        if return_attn:
-            return logps, w.mean(dim=1)
-        return logps
+        with span("asr.decoder"):
+            B, T, _ = enc.shape
+            U1 = tokens.shape[1] + 1
+            sos = torch.full((B, 1), SOS_EOS_ID, dtype=torch.long,
+                             device=enc.device)
+            inputs = torch.cat([sos, tokens.long()], dim=1)
+            x = (self.embed(inputs).float() * math.sqrt(self.D)
+                 + pe_table(U1, self.D, enc.device))
+            x = dropout(x, self.rate, generator, train)
+            self_mask = torch.tril(torch.ones((U1, U1), dtype=torch.bool,
+                                              device=enc.device))[None, None]
+            cross_mask = (torch.arange(T, device=enc.device)[None, :]
+                          < enc_lens[:, None])[:, None, None, :]
+            if self.blocks and self.blocks[0].tp_group is not None:
+                enc = copy_to(enc.to(self.dt), self.blocks[0].tp_group)
+            for blk in self.blocks:
+                q, sk, sv = blk.self_qkv(x)
+                ck, cv = blk.cross_kv(enc)
+                x, w = blk.run(x, q, sk, sv, self_mask, ck, cv, cross_mask,
+                               train, generator)
+            logps = F.log_softmax(self._logits(x), dim=-1)
+            if return_attn:
+                return logps, w.mean(dim=1)
+            return logps
 
     def _logits(self, x):
         return _linear(_layer_norm(x, self.ln_out), self.proj, self.dt).float()

@@ -85,6 +85,7 @@ from pytorch_end2end_speech_recognition_tpu_torch.parallel.sharding import (
     shard_tensor,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.utils.config import ModelConfig
+from pytorch_end2end_speech_recognition_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6
 FLASH_T = 768  # beyond this the relative bias travels as diagonals and
@@ -252,21 +253,23 @@ class VggExtractor(nn.Module):
                                conv.bias.to(self.dt), padding=1))
 
     def forward(self, x: torch.Tensor, lens: torch.Tensor):
-        def mask4(h, l):
-            return _masked(h, length_mask(l, h.shape[2])[:, None, :, None])
+        with span("asr.subsample"):
+            def mask4(h, l):
+                return _masked(h,
+                               length_mask(l, h.shape[2])[:, None, :, None])
 
-        h = mask4(x[:, None], lens)                      # (B, 1, T, F)
-        h = mask4(self._conv(h, self.conv1a), lens)
-        h = mask4(self._conv(h, self.conv1b), lens)
-        lens = lens // 2
-        h = mask4(F.max_pool2d(h, 2), lens)
-        h = mask4(self._conv(h, self.conv2a), lens)
-        h = mask4(self._conv(h, self.conv2b), lens)
-        lens = lens // 2
-        h = mask4(F.max_pool2d(h, 2), lens)
-        B, C, T, Fo = h.shape
-        # Flax is NHWC and flattens (F, C) with C fastest
-        return h.permute(0, 2, 3, 1).reshape(B, T, Fo * C).float(), lens
+            h = mask4(x[:, None], lens)                  # (B, 1, T, F)
+            h = mask4(self._conv(h, self.conv1a), lens)
+            h = mask4(self._conv(h, self.conv1b), lens)
+            lens = lens // 2
+            h = mask4(F.max_pool2d(h, 2), lens)
+            h = mask4(self._conv(h, self.conv2a), lens)
+            h = mask4(self._conv(h, self.conv2b), lens)
+            lens = lens // 2
+            h = mask4(F.max_pool2d(h, 2), lens)
+            B, C, T, Fo = h.shape
+            # Flax is NHWC and flattens (F, C) with C fastest
+            return h.permute(0, 2, 3, 1).reshape(B, T, Fo * C).float(), lens
 
 
 class PyramidalBiLstmEncoder(nn.Module):
@@ -332,17 +335,18 @@ class ConvSubsample(nn.Module):
                                conv.bias.to(self.dt), stride=2))
 
     def forward(self, x: torch.Tensor, lens: torch.Tensor):
-        h = _masked(x, length_mask(lens, x.shape[1])[:, :, None])[:, None]
-        h = self._conv(h, self.conv1)                    # (B, C, T/2, F/2)
-        lens = (lens + 1) // 2
-        h = _masked(h, length_mask(lens, h.shape[2])[:, None, :, None])
-        h = self._conv(h, self.conv2)
-        lens = (lens + 1) // 2
-        h = _masked(h, length_mask(lens, h.shape[2])[:, None, :, None])
-        B, C, T, Fo = h.shape
-        # Flax is NHWC and flattens (F, C) with C fastest
-        h = h.permute(0, 2, 3, 1).reshape(B, T, Fo * C)
-        return _linear(h, self.proj, self.dt).to(self.rdt), lens
+        with span("asr.subsample"):
+            h = _masked(x, length_mask(lens, x.shape[1])[:, :, None])[:, None]
+            h = self._conv(h, self.conv1)                # (B, C, T/2, F/2)
+            lens = (lens + 1) // 2
+            h = _masked(h, length_mask(lens, h.shape[2])[:, None, :, None])
+            h = self._conv(h, self.conv2)
+            lens = (lens + 1) // 2
+            h = _masked(h, length_mask(lens, h.shape[2])[:, None, :, None])
+            B, C, T, Fo = h.shape
+            # Flax is NHWC and flattens (F, C) with C fastest
+            h = h.permute(0, 2, 3, 1).reshape(B, T, Fo * C)
+            return _linear(h, self.proj, self.dt).to(self.rdt), lens
 
 
 def sinusoidal_pe(T: int, D: int) -> np.ndarray:
@@ -495,25 +499,26 @@ class MhsaBlock(nn.Module):
         `diag`: its (H, 2T-1) float32 diagonals on the flash and CP paths
         (this rank's heads under tensor parallelism, every head under CP);
         `sp`: x is this rank's time slice (mask stays whole)."""
-        g = self.tp_group
-        h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt), g,
-                   sp)
-        qf = _col(h, self.q, self.dt, g)
-        kf = _col(h, self.k, self.dt, g)
-        vf = _col(h, self.v, self.dt, g)
-        lens = mask.sum(dim=1).to(torch.int32)
-        if self.cp_mode and g is not None:
-            B, T = mask.shape
-            q, k, v = (gather_features(t, g).float().reshape(
-                B, T, self.heads, -1) for t in (qf, kf, vf))
-            y = split_features(sharded_self_attention(
-                g, q, k, v, lens, self.cp_mode, diag).reshape(B, T, -1), g)
-        else:
-            y = sharded_fused_attention(size(g), qf, kf, vf, bias, lens,
-                                        self.heads, diag=diag,
-                                        plain=self.attn_impl != "cuda")
-        y = _row(y, self.o, self.dt, g, sp).to(self.rdt)
-        return x + dropout(y, self.rate, gen, train, g if sp else None)
+        with span("asr.mhsa"):
+            g = self.tp_group
+            h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt),
+                       g, sp)
+            qf = _col(h, self.q, self.dt, g)
+            kf = _col(h, self.k, self.dt, g)
+            vf = _col(h, self.v, self.dt, g)
+            lens = mask.sum(dim=1).to(torch.int32)
+            if self.cp_mode and g is not None:
+                B, T = mask.shape
+                q, k, v = (gather_features(t, g).float().reshape(
+                    B, T, self.heads, -1) for t in (qf, kf, vf))
+                y = split_features(sharded_self_attention(
+                    g, q, k, v, lens, self.cp_mode, diag).reshape(B, T, -1), g)
+            else:
+                y = sharded_fused_attention(size(g), qf, kf, vf, bias, lens,
+                                            self.heads, diag=diag,
+                                            plain=self.attn_impl != "cuda")
+            y = _row(y, self.o, self.dt, g, sp).to(self.rdt)
+            return x + dropout(y, self.rate, gen, train, g if sp else None)
 
 
 def ffn_fused(cfg: ModelConfig, mesh=None) -> bool:
@@ -557,20 +562,21 @@ class FfnBlock(nn.Module):
         self.fused = ffn_fused(self.cfg, mesh)
 
     def forward(self, x, train=False, gen=None, sp=False):
-        if self.fused:
-            dt = self.dt
-            return ffn_block_fused(
-                x, self.ln.weight, self.ln.bias, self.fc1.weight.to(dt),
-                self.fc1.bias.to(dt), self.fc2.weight.to(dt),
-                self.fc2.bias.to(dt), rate=self.rate, scale=self.scale,
-                train=train, generator=gen)
-        g = self.tp_group
-        h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt), g,
-                   sp)
-        h = _row(F.silu(_col(h, self.fc1, self.dt, g)), self.fc2, self.dt, g,
-                 sp).to(self.rdt)
-        return x + self.scale * dropout(h, self.rate, gen, train,
-                                        g if sp else None)
+        with span("asr.ffn"):
+            if self.fused:
+                dt = self.dt
+                return ffn_block_fused(
+                    x, self.ln.weight, self.ln.bias, self.fc1.weight.to(dt),
+                    self.fc1.bias.to(dt), self.fc2.weight.to(dt),
+                    self.fc2.bias.to(dt), rate=self.rate, scale=self.scale,
+                    train=train, generator=gen)
+            g = self.tp_group
+            h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt),
+                       g, sp)
+            h = _row(F.silu(_col(h, self.fc1, self.dt, g)), self.fc2,
+                     self.dt, g, sp).to(self.rdt)
+            return x + self.scale * dropout(h, self.rate, gen, train,
+                                            g if sp else None)
 
 
 class ConvModule(nn.Module):
@@ -593,19 +599,21 @@ class ConvModule(nn.Module):
         self.dt, self.rdt = _dt(cfg), _rdt(cfg)
 
     def forward(self, x, mask, train=False, gen=None, sp=False):
-        g = self.tp_group
-        h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt), g,
-                   sp)
-        h = F.glu(_col(h, self.pw1, self.dt, g, glu=True), dim=-1)
-        h = _masked(h, mask[..., None])  # the depthwise conv must not see pad
-        K = self.dw.kernel_size[0]
-        h = F.pad(h.transpose(1, 2), ((K - 1) // 2, K - 1 - (K - 1) // 2))
-        h = F.conv1d(h, _part(self.dw.weight, g).to(self.dt),
-                     _part(self.dw.bias, g).to(self.dt),
-                     groups=h.shape[1]).transpose(1, 2)
-        h = F.silu(_channel_ln(h, self.norm, g))
-        h = _row(h, self.pw2, self.dt, g, sp).to(self.rdt)
-        return x + dropout(h, self.rate, gen, train, g if sp else None)
+        with span("asr.conv"):
+            g = self.tp_group
+            h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt),
+                       g, sp)
+            h = F.glu(_col(h, self.pw1, self.dt, g, glu=True), dim=-1)
+            # the depthwise conv must not see pad
+            h = _masked(h, mask[..., None])
+            K = self.dw.kernel_size[0]
+            h = F.pad(h.transpose(1, 2), ((K - 1) // 2, K - 1 - (K - 1) // 2))
+            h = F.conv1d(h, _part(self.dw.weight, g).to(self.dt),
+                         _part(self.dw.bias, g).to(self.dt),
+                         groups=h.shape[1]).transpose(1, 2)
+            h = F.silu(_channel_ln(h, self.norm, g))
+            h = _row(h, self.pw2, self.dt, g, sp).to(self.rdt)
+            return x + dropout(h, self.rate, gen, train, g if sp else None)
 
 
 def _channel_ln(h: torch.Tensor, ln: nn.LayerNorm, group) -> torch.Tensor:
@@ -636,13 +644,14 @@ class ConformerBlock(nn.Module):
 
     def forward(self, x, mask, bias=None, diag=None, train=False, gen=None,
                 sp=False):
-        x = self.ff1(x, train, gen, sp)
-        x = self.mhsa(x, mask, bias, diag, train, gen, sp)
-        x = self.conv(x, mask, train, gen, sp)
-        x = self.ff2(x, train, gen, sp)
-        # keep the residual dtype
-        return _layer_norm(x, self.ln, self.tp_group if sp else None).to(
-            x.dtype)
+        with span("asr.block"):
+            x = self.ff1(x, train, gen, sp)
+            x = self.mhsa(x, mask, bias, diag, train, gen, sp)
+            x = self.conv(x, mask, train, gen, sp)
+            x = self.ff2(x, train, gen, sp)
+            # keep the residual dtype
+            return _layer_norm(x, self.ln, self.tp_group if sp else None).to(
+                x.dtype)
 
 
 class TransformerBlock(nn.Module):
@@ -653,8 +662,9 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x, mask, bias=None, diag=None, train=False, gen=None,
                 sp=False):
-        return self.ffn(self.mhsa(x, mask, bias, diag, train, gen, sp), train,
-                        gen, sp)
+        with span("asr.block"):
+            return self.ffn(self.mhsa(x, mask, bias, diag, train, gen, sp),
+                            train, gen, sp)
 
 
 def sp_enabled(cfg: ModelConfig, group, T: int) -> bool:
@@ -703,15 +713,17 @@ class _BlockEncoder(nn.Module):
                 raise ValueError(
                     f"pp_stages={cfg.pp_stages} must equal the 'model' mesh "
                     f"axis size {self.mesh.tp} (set train.tp=pp_stages)")
-            biases = (None if self.rel is None
-                      else _dense_biases(self.rel, cfg, T))
+            with span("asr.rel_bias"):
+                biases = (None if self.rel is None
+                          else _dense_biases(self.rel, cfg, T))
             return pipeline_blocks(self.mesh.model_group, list(self.blocks),
                                    x, mask, cfg.pp_microbatches, biases)
-        biases, diags = _rel_bias_repr(self.rel, cfg, T)
-        # unbind: one stacked gradient for all layers in the backward
-        none = [None] * len(self.blocks)
-        biases = biases.unbind(0) if biases is not None else none
-        diags = diags.unbind(0) if diags is not None else none
+        with span("asr.rel_bias"):
+            biases, diags = _rel_bias_repr(self.rel, cfg, T)
+            # unbind: one stacked gradient for all layers in the backward
+            none = [None] * len(self.blocks)
+            biases = biases.unbind(0) if biases is not None else none
+            diags = diags.unbind(0) if diags is not None else none
         remat = self.cfg.remat and train
         sp = sp_enabled(self.cfg, g, T)
         if sp:

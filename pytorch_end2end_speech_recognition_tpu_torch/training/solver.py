@@ -93,6 +93,7 @@ from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
 from pytorch_end2end_speech_recognition_tpu_torch.utils.metrics_log import (
     MetricsLogger,
 )
+from pytorch_end2end_speech_recognition_tpu_torch.utils.profiling import span
 
 
 class Solver:
@@ -187,33 +188,40 @@ class Solver:
         loss, backward. On a mesh: the global batch's metrics and
         gradients (this rank's slices of the sharded ones)."""
         m, mc = self.model, self.cfg.model
-        audio, audio_lens, tokens, token_lens = self._put(batch)
-        enc, enc_lens = m.encode(audio, audio_lens, train=True,
-                                 generator=self.generator, spec_mask=spec_mask)
-        logits = m.ctc_logits(enc)
-        att = None
-        if isinstance(m.decoder, AttentionDecoder):
-            att = m.decoder(enc, enc_lens, tokens, train=True,
-                            generator=self.generator,
-                            scheduled_sampling=self.cfg.train.scheduled_sampling,
-                            coins=coins)
-        elif m.decoder is not None:
-            att = m.decoder(enc, enc_lens, tokens, train=True,
-                            generator=self.generator)
-        loss, metrics = hybrid_loss(logits, enc_lens, att, tokens, token_lens,
-                                    mc.ctc_weight, mc.label_smoothing,
-                                    ctc_impl=mc.ctc_impl,
-                                    data_group=self.data_group)
-        grads = list(torch.autograd.grad(loss, self.params,
-                                         allow_unused=True))
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        grads = sum_stage_grads(grads, self.params, self.staged,
-                                self.stage_group)
-        if self.data_group is not None:
-            grads = self._sum_over_data(grads)
-            vals = all_reduce_(torch.stack(list(metrics.values())),
-                               self.data_group)
-            metrics = dict(zip(metrics, vals.unbind(0)))
+        with span("train.put"):
+            audio, audio_lens, tokens, token_lens = self._put(batch)
+        with span("train.forward"):
+            enc, enc_lens = m.encode(audio, audio_lens, train=True,
+                                     generator=self.generator,
+                                     spec_mask=spec_mask)
+            logits = m.ctc_logits(enc)
+            att = None
+            if isinstance(m.decoder, AttentionDecoder):
+                att = m.decoder(
+                    enc, enc_lens, tokens, train=True,
+                    generator=self.generator,
+                    scheduled_sampling=self.cfg.train.scheduled_sampling,
+                    coins=coins)
+            elif m.decoder is not None:
+                att = m.decoder(enc, enc_lens, tokens, train=True,
+                                generator=self.generator)
+        with span("train.loss"):
+            loss, metrics = hybrid_loss(logits, enc_lens, att, tokens,
+                                        token_lens, mc.ctc_weight,
+                                        mc.label_smoothing,
+                                        ctc_impl=mc.ctc_impl,
+                                        data_group=self.data_group)
+        with span("train.backward"):
+            grads = list(torch.autograd.grad(loss, self.params,
+                                             allow_unused=True))
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            grads = sum_stage_grads(grads, self.params, self.staged,
+                                    self.stage_group)
+            if self.data_group is not None:
+                grads = self._sum_over_data(grads)
+                vals = all_reduce_(torch.stack(list(metrics.values())),
+                                   self.data_group)
+                metrics = dict(zip(metrics, vals.unbind(0)))
         return metrics, grads
 
     def _sum_over_data(self, grads: list) -> list[torch.Tensor]:
@@ -232,7 +240,8 @@ class Solver:
         grad_norm, the global norm of this batch's gradients before the
         clip."""
         metrics, grads = self.grads(batch, spec_mask, coins)
-        metrics["grad_norm"] = self.opt.step(grads, self.lr_scale)
+        with span("train.optimizer"):
+            metrics["grad_norm"] = self.opt.step(grads, self.lr_scale)
         self.step += 1
         return metrics
 
@@ -241,15 +250,18 @@ class Solver:
             steps: int | None = None) -> dict:
         """Train from the loader's cursor until `steps` (default
         train.steps). Every train.log_every steps and at the last one, the
-        metrics and audio_s_per_s (seconds of audio trained per wall second
-        since fit began) are logged and appended to `self.log`; every
-        train.eval_every steps, with a dev loader, the evaluation (see the
-        module's docstring). Returns {'loss': [...]} of the train records."""
+        metrics, audio_s_per_s (seconds of audio trained per wall second
+        since fit began) and data_wait_s (host seconds the loop has waited
+        for the next batch from the prefetch thread since fit began: near
+        wall_s, training is input-bound) are logged and appended to
+        `self.log`; every train.eval_every steps, with a dev loader, the
+        evaluation (see the module's docstring). Returns {'loss': [...]} of
+        the train records."""
         cfg = self.cfg.train
         steps = steps or cfg.steps
         sr = self.cfg.frontend.sample_rate
         t0 = time.perf_counter()
-        audio_s = 0.0
+        audio_s = waited = 0.0
         history = {"loss": []}
         batches = train_loader.repeat(self.cursor_epoch, self.cursor_batch,
                                       with_cursor=True)
@@ -258,9 +270,14 @@ class Solver:
             batches = ((ep, bi, pin_batch(b)) for ep, bi, b in batches)
         it = prefetch(batches, depth=2)
         try:
-            for ep, bi, batch in it:
-                if self.step >= steps:
+            while True:
+                t = time.perf_counter()
+                with span("fit.data_wait"):
+                    item = next(it, None)
+                waited += time.perf_counter() - t
+                if item is None or self.step >= steps:
                     break
+                ep, bi, batch = item
                 self.cursor_epoch, self.cursor_batch = ep, bi + 1
                 metrics = self.train_step(batch)
                 audio_s += float(batch.audio_lens.sum()) / sr
@@ -272,7 +289,7 @@ class Solver:
                     wall = time.perf_counter() - t0
                     rec.update(step=self.step,
                                audio_s_per_s=total_s / max(wall, 1e-9),
-                               wall_s=wall)
+                               wall_s=wall, data_wait_s=waited)
                     self.logger.log("train", rec)
                     self.log.append(rec)
                     history["loss"].append(rec["loss"])
