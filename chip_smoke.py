@@ -37,7 +37,10 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    SDPA (5 windows of 50 launches, medians) with their TFLOP/s and bound /
    kernel; the three gradient sums (Toeplitz reduce, attention backward's
    dbias, flash backward's ddiag) launched twice on the same inputs, the
-   count of elements whose bits differ printed, which must be 0;
+   count of elements whose bits differ printed, which must be 0; [3k] the
+   subsampling kernel at the serving cells' shapes (M 30 s, L 30 s, M 65
+   s), held to its plain version and timed in turns with it and with
+   cuDNN's bare convolutions;
 4. the main path: the `flagship_conformer` preset at full width (12 L, d256,
    H4, FFN 1024, vocab 64), bf16, seeded random weights, encode -> CTC
    logits -> greedy decode on a ragged batch of 32 requests padded to 30 s;
@@ -1617,6 +1620,106 @@ def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
     kernels["ffn_bwd"]["max_abs_err"] = err_b
 
 
+# the serving cells' subsampling shapes: (tag, B, T frames, C); n_mels 80
+SUB_SHAPES = (("M 30 s", 256, 2998, 256), ("L 30 s", 128, 2998, 512),
+              ("M 65 s", 128, 6551, 256))
+
+
+def sub_excess(out, ref) -> float:
+    """max |out - ref| / (2^-5 |ref| + 2^-4 rms(ref)), as the card tests
+    hold the subsampling kernel: above 1 fails (bf16 outputs; the plain
+    version rounds each convolution before its bias, up to 2^-7 |ref| at
+    the output, and conv1 activations may differ by an ulp, of which conv2
+    sums 9 C)."""
+    out, ref = out.float(), ref.float()
+    rms = ref.pow(2).mean().sqrt()
+    return float(((out - ref).abs() / (2.0 ** -5 * ref.abs()
+                                       + 2.0 ** -4 * rms)).max())
+
+
+def subsample_library(x, lens, w1, b1, w2, b2):
+    """The yardstick: the two convolutions as cuDNN runs them at best, bf16
+    in channels_last, SAME pads and ReLU, without the masks, casts and the
+    layout copy that `subsample_plain` adds."""
+    import torch.nn.functional as F
+
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.subsample_kernel import (  # noqa: E501
+        _same_pad_s2,
+    )
+
+    h = x.to(w1.dtype)[:, None].contiguous(memory_format=torch.channels_last)
+    for w, b in ((w1, b1), (w2, b2)):
+        (t0, t1), (f0, f1) = _same_pad_s2(h.shape[2]), _same_pad_s2(h.shape[3])
+        h = F.relu(F.conv2d(F.pad(h, (f0, f1, t0, t1)), w, b, stride=2))
+    return h
+
+
+def subsample_kernel_phase(dev, peaks, card, kernels) -> None:
+    """[3k] the subsampling kernel (`csrc/subsample.cu`, no TPU kernel: XLA's
+    convolutions there) at the serving cells' shapes: held to
+    `subsample_plain` (B 8, ragged lengths with 1 and T) and timed in turns
+    at the cells' B beside the plain version (the port's sequence before the
+    kernel) and cuDNN's bare convolutions (`library_ms`), with its bound.
+    Draws from a generator of its own."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.subsample_kernel import (  # noqa: E501
+        kernel_plan,
+        subsample,
+        subsample_plain,
+    )
+
+    gen = torch.Generator().manual_seed(20)
+    n_mels = 80
+
+    def inputs(B, T, C):
+        x = (torch.randn(B, T, n_mels, generator=gen) * 2.0).to(dev)
+        lens = [T, 1] + torch.randint(1, T + 1, (B - 2,),
+                                      generator=gen).tolist()
+        w = (torch.randn(C, 1, 3, 3, generator=gen) / 3.0,
+             torch.randn(C, generator=gen) * 0.3,
+             torch.randn(C, C, 3, 3, generator=gen) / (3.0 * C ** 0.5),
+             torch.randn(C, generator=gen) * 0.1)
+        return (x, torch.tensor(lens, device=dev),
+                *(a.to(dev, torch.bfloat16) for a in w))
+
+    rows, worst = [], 0.0
+    for tag, B, T, C in SUB_SHAPES:
+        plan = kernel_plan(n_mels, C)
+        small = inputs(8, T, C)
+        exc = sub_excess(subsample(*small), subsample_plain(*small))
+        worst = max(worst, exc)
+        check(exc <= 1.0, f"[3k] subsample {tag}: kernel vs plain excess "
+              f"{exc:.3f} > 1")
+        args = inputs(B, T, C)
+        turns = turns_ms({"kernel": lambda: subsample(*args),
+                          "plain": lambda: subsample_plain(*args),
+                          "library": lambda: subsample_library(*args)},
+                         windows=3, iters=5, warmup=1)
+        T1, F1 = (T + 1) // 2, (n_mels + 1) // 2
+        T2, F2 = (T1 + 1) // 2, (F1 + 1) // 2
+        flops = 2.0 * 9 * C * (C * T2 * F2 + T1 * F1) * B
+        n_bytes = nbytes(args[0]) + B * T2 * F2 * C * 2 + 9 * C * (C + 1) * 2
+        b_ms, b_by = bound(n_bytes, flops / peaks["bf16_flops"], peaks)
+        k = turns["kernel"]
+        print(f"[3k] subsample {tag} (B {B}, T {T}, n_mels {n_mels}, C {C}; "
+              f"plan NW {plan['nw']} x {plan['pieces']}, "
+              f"{plan['smem_bytes']} B shared): kernel {k:.3f} ms, "
+              f"plain {turns['plain']:.3f} ms, library (cuDNN convolutions "
+              f"alone) {turns['library']:.3f} ms (medians of 3 windows x 5 "
+              f"launches in turns), bound {b_ms:.3f} ms ({b_by}), "
+              f"{flops / k / 1e9:.1f} TFLOP/s, bound / kernel {b_ms / k:.3f};"
+              f" B 8 vs plain: excess {exc:.3f}; {card}", flush=True)
+        rows.append(dict(shape=tag, ms=k, plain_ms=turns["plain"],
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=turns["library"]))
+        del args, small
+        torch.cuda.empty_cache()
+    kernels["subsample"] = dict(
+        name="subsample", route="cuda", source=f"{PKG}/csrc/subsample.cu",
+        replaces="none (XLA's convolutions in the JAX package)",
+        **{k: v for k, v in rows[0].items() if k != "shape"},
+        shapes=rows, max_excess=worst)
+
+
 def serve(m, a, al):
     """encode -> CTC logits -> greedy decode: (enc, enc_lens, logits,
     tokens, n_tokens)."""
@@ -1916,6 +2019,30 @@ def _with_table(model, table):
     return model
 
 
+def plain_subsampling(model):
+    """`model` with each `ConvSubsample` on `subsample_plain`. It takes the
+    operator `asr_port::subsample` (the kernel, on the card) whenever it
+    records no gradient at bf16, whatever the config's impls: a plain
+    reference left so would hold the kernel against itself."""
+    from unittest import mock
+
+    from pytorch_end2end_speech_recognition_tpu_torch.models import encoders
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.subsample_kernel import (  # noqa: E501
+        subsample_plain,
+    )
+
+    def plain(forward):
+        def run(x, lens):
+            with mock.patch.object(encoders, "subsample", subsample_plain):
+                return forward(x, lens)
+        return run
+
+    for mod in model.modules():
+        if isinstance(mod, encoders.ConvSubsample):
+            mod.forward = plain(mod.forward)
+    return model
+
+
 def _abba(tag, runs, windows, seconds_per_call, card, t_start):
     """Throughput of each (name, fn) in `runs`, timed in turns (A B, B A,
     ...): audio-seconds per second per window of fn(), median per name."""
@@ -1967,8 +2094,8 @@ def flagship_ffn_phase(dev, card, kernels, counted, t_start, audio,
     L = flagship_conformer().model.encoder_layers
     mk = _with_table(AsrModel(cfg("cuda"), device=dev, seed=0).eval(), table)
     mt = _with_table(AsrModel(cfg("torch"), device=dev, seed=0).eval(), table)
-    mp = _with_table(AsrModel(cfg("torch", "torch"), device=dev,
-                              seed=0).eval(), table)
+    mp = plain_subsampling(_with_table(
+        AsrModel(cfg("torch", "torch"), device=dev, seed=0).eval(), table))
     r4 = libri960_conformer().model
     r4.ffn_impl = "cuda"
     r4_fused = FfnBlock(r4).fused
@@ -1990,7 +2117,8 @@ def flagship_ffn_phase(dev, card, kernels, counted, t_start, audio,
     print(f"[13] flagship ffn_impl=cuda serving launches: {counts}",
           flush=True)
     check(counts == {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
-                     "ffn_fwd": 2 * L}, f"[13] serving launch counts {counts}")
+                     "ffn_fwd": 2 * L, "subsample": 1},
+          f"[13] serving launch counts {counts}")
     kernels["ffn_fwd"]["launches"] = counts["ffn_fwd"]
     check(bool(torch.isfinite(logits).all()) and enc.dtype == torch.bfloat16,
           "[13] logits not finite")
@@ -2156,7 +2284,8 @@ def rung3_phase(dev, gen, card, kernels, counted, t_start, audio, audio_lens,
     table = torch.randn(L, m0.encoder_heads, 64, device=dev,
                         generator=gen) * BIAS_STD
     mk = _with_table(AsrModel(cfg("cuda"), device=dev, seed=0).eval(), table)
-    mp = _with_table(AsrModel(cfg("torch"), device=dev, seed=0).eval(), table)
+    mp = plain_subsampling(_with_table(
+        AsrModel(cfg("torch"), device=dev, seed=0).eval(), table))
     mc = mk.cfg.model
     check(isinstance(mk.encoder, TransformerEncoder) and mc.attn_impl == "cuda"
           and mc.dtype == "bfloat16" and mk.decoder is not None
@@ -2171,7 +2300,8 @@ def rung3_phase(dev, gen, card, kernels, counted, t_start, audio, audio_lens,
     counts = _launches(counted)
     print(f"[14] rung 3 serving launches: {counts}", flush=True)
     check(counts == {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
-                     "ffn_fwd": L}, f"[14] serving launch counts {counts}")
+                     "ffn_fwd": L, "subsample": 1},
+          f"[14] serving launch counts {counts}")
     T_enc = enc.shape[1]
     check(tuple(enc.shape) == (B, T_enc, mc.encoder_dim)
           and enc.dtype == torch.float32 and T_enc <= 768
@@ -2817,7 +2947,8 @@ def rung4_phase(dev, gen, peaks, card, kernels, counted, t_start, audio,
     L, H, V = m0.encoder_layers, m0.encoder_heads, V_RUNG4
     table = torch.randn(L, H, 64, device=dev, generator=gen) * BIAS_STD
     mk = _with_table(AsrModel(cfg("cuda"), device=dev, seed=0).eval(), table)
-    mp = _with_table(AsrModel(cfg("torch"), device=dev, seed=0).eval(), table)
+    mp = plain_subsampling(_with_table(
+        AsrModel(cfg("torch"), device=dev, seed=0).eval(), table))
     mc = mk.cfg.model
     check(isinstance(mk.encoder, ConformerEncoder) and mc.encoder_dim == 512
           and H == 8 and L == 16 and mc.subsample_channels == 128
@@ -2834,8 +2965,8 @@ def rung4_phase(dev, gen, peaks, card, kernels, counted, t_start, audio,
     torch.cuda.synchronize()
     counts = _launches(counted)
     print(f"[16] rung 4 serving launches: {counts}", flush=True)
-    check(counts == {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L},
-          f"[16] serving launch counts {counts}")
+    check(counts == {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
+                     "subsample": 1}, f"[16] serving launch counts {counts}")
     T_enc = enc.shape[1]
     check(tuple(logits.shape) == (B, T_enc, V) and T_enc <= 768
           and bool(torch.isfinite(logits).all()),
@@ -3129,7 +3260,8 @@ def trainer_phase(dev, card, counted, t_start):
     want_step = {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
                  "attention_bwd": L, "toeplitz_reduce": 1, "ctc_alpha": 1,
                  "ctc_beta": 1}
-    want_dev = {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L}
+    want_dev = {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
+                "subsample": 1}
     n_dev_batches = len(dev_loader)
     print(f"[17] cli.train to step 20 in {t_run1:.1f} s ({n_step1} train "
           f"steps, {n_dev1} dev forwards = 2 evaluations x {n_dev_batches} "
@@ -3242,6 +3374,7 @@ def trainer_phase(dev, card, counted, t_start):
     pcfg.model.attn_impl = pcfg.model.ctc_impl = "torch"
     ps = Solver(pcfg, tok, device=dev)
     ps.model.load_state_dict(run2.model.state_dict())
+    plain_subsampling(ps.model)
     worst = 0.0
     with torch.inference_mode():
         for batch in dev_loader.epoch(0):
@@ -3605,7 +3738,8 @@ def stream_phase(dev, gen, peaks, card, counted, t_start, trained) -> None:
         zero()
         enc_k, log_k, windows = _stream_frames(mk, pieces)
         counts = launches()
-        per_window = {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L}
+        per_window = {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": L,
+                      "subsample": 1}
         print(f"[18] rung 4 streaming encode of {STREAM_SECONDS} s in "
               f"{len(pieces)} feeds of {STREAM_FEED} s (chunk 8 s, overlap "
               f"2 s): {windows} windows, launches {counts}", flush=True)
@@ -3625,8 +3759,8 @@ def stream_phase(dev, gen, peaks, card, counted, t_start, trained) -> None:
         check(abs(len(enc_k) - len(full)) <= 2 and full_counts.get(
             "flash_fwd", 0) == L, "[18] the emitted frames do not tile the "
               "stream, or the full pass missed the flash path")
-        mp = _with_table(AsrModel(cfg("torch"), device=dev, seed=0).eval(),
-                         table)
+        mp = plain_subsampling(_with_table(
+            AsrModel(cfg("torch"), device=dev, seed=0).eval(), table))
         _, log_p, _ = _stream_frames(mp, pieces)
         n_t = torch.tensor([len(log_k)], device=dev)
         compare(f"[18] rung 4 streamed logits, kernels vs plain torch on the "
@@ -3972,10 +4106,12 @@ def stream_phase(dev, gen, peaks, card, counted, t_start, trained) -> None:
         gl, gc, _ = outs["greedy"]
         bl, bc, _ = outs["beam"]
         kern_only = all(k in ("logmel", "toeplitz_fwd", "attention_fwd",
-                              "ctc_prefix_score", "ctc_prefix_select")
+                              "ctc_prefix_score", "ctc_prefix_select",
+                              "subsample")
                         for c in (gc, bc) for k in c)
         check([x["file"] for x in gl] == wavs and [x["file"] for x in bl]
               == wavs and kern_only and gc.get("attention_fwd", 0) > 0
+              and gc.get("subsample", 0) > 0
               and bc.get("ctc_prefix_score", 0) > 0
               and bc.get("ctc_prefix_score") == bc.get("ctc_prefix_select"),
               "[18] cli.transcribe --streaming output or launches")
@@ -3998,12 +4134,16 @@ BUNDLE_SETS = (  # request set: (bundle, seconds of each request)
 )
 # the launches of one transcribe call of each bucket's program (no plain
 # version runs): the 10 s and 30 s buckets (T' 250, 750) take the dense
-# bias, the 60 s bucket (T' 1,498) the flash path, an4_ctc's LSTM 2 layers
+# bias, the 60 s bucket (T' 1,498) the flash path, each Conformer bucket
+# one subsampling launch, an4_ctc's LSTM 2 layers
 BUNDLE_LAUNCHES = {
-    (1, 10): {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": 12},
-    (8, 30): {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": 12},
-    (32, 30): {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": 12},
-    (1, 60): {"logmel": 1, "flash_fwd": 12},
+    (1, 10): {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": 12,
+              "subsample": 1},
+    (8, 30): {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": 12,
+              "subsample": 1},
+    (32, 30): {"logmel": 1, "toeplitz_fwd": 1, "attention_fwd": 12,
+               "subsample": 1},
+    (1, 60): {"logmel": 1, "flash_fwd": 12, "subsample": 1},
     (8, 8): {"logmel": 1, "lstm_fwd": 2},
 }
 # the operators' wrappers (their launch counters) and the plain versions
@@ -4012,13 +4152,15 @@ BUNDLE_KERNELS = (("frontend_kernel", "logmel"),
                   ("attention_kernel", "toeplitz_fwd"),
                   ("attention_kernel", "attention_fwd"),
                   ("attention_kernel", "flash_fwd"),
-                  ("rnn_kernel", "lstm_fwd"), ("ffn_kernel", "ffn_fwd"))
+                  ("rnn_kernel", "lstm_fwd"), ("ffn_kernel", "ffn_fwd"),
+                  ("subsample_kernel", "subsample"))
 BUNDLE_PLAIN = (("frontend_kernel", "logmel_plain"),
                 ("attention_kernel", "toeplitz_expand"),
                 ("attention_kernel", "attention_plain"),
                 ("attention_kernel", "flash_fwd_plain"),
                 ("rnn_kernel", "lstm_fwd_plain"),
-                ("ffn_kernel", "ffn_fwd_plain"))
+                ("ffn_kernel", "ffn_fwd_plain"),
+                ("subsample_kernel", "subsample_plain"))
 V_AN4 = 32  # an4_ctc's character vocabulary
 
 
@@ -4427,7 +4569,8 @@ def bundle_phase(dev, gen, card, counted, t_start, live_rate) -> None:
         check(r4_texts == [r[0]["text"] for r in live]
               and r4_launch.get("ctc_prefix_score") == steps
               and r4_launch.get("ctc_prefix_select") == steps
-              and r4_launch.get("attention_fwd") == 16,
+              and r4_launch.get("attention_fwd") == 16
+              and r4_launch.get("subsample") == 1,
               "[19] rung 4 beam bundle against the live decoder")
         del r4, r4_bundle, live_dec
 
@@ -5174,9 +5317,9 @@ def cp_pp_phase(dev, card, counted, t_start, audio, audio_lens, table,
             lambda: serve(km, audio, audio_lens))
     print(f"[21a] cp_mode='ring' forward launches (B={B} x {SECONDS:.0f} s, "
           f"T' {enc.shape[1]}): {fwd}", flush=True)
-    check(fwd == {"logmel": 1, "flash_fwd": L},
+    check(fwd == {"logmel": 1, "flash_fwd": L, "subsample": 1},
           f"[21a] cp_mode forward launch counts {fwd}")
-    pm = model_of(cfg_of("torch"))
+    pm = plain_subsampling(model_of(cfg_of("torch")))
     with torch.inference_mode():
         plogits = serve(pm, audio, audio_lens)[2]
     compare(f"[21a] cp_mode='ring' kernels vs plain torch (bf16, {L} L, "
@@ -5490,11 +5633,14 @@ def counted_wrappers():
         lstm_bwd,
         lstm_fwd,
     )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.subsample_kernel import (  # noqa: E501
+        subsample,
+    )
 
     return (logmel, toeplitz_fwd, attention_fwd, attention_bwd,
             toeplitz_reduce, ctc_alpha, ctc_beta, flash_fwd, flash_bwd,
             lstm_fwd, lstm_bwd, ffn_fwd, ffn_bwd, ctc_prefix_score,
-            ctc_prefix_select)
+            ctc_prefix_select, subsample)
 
 
 def dist_child(spec_path: str, rank: int) -> int:
@@ -5671,11 +5817,14 @@ def main() -> int:
         ctc_prefix_score,
         ctc_prefix_select,
     )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.subsample_kernel import (  # noqa: E501
+        subsample,
+    )
 
     COUNTED = (logmel, toeplitz_fwd, attention_fwd, attention_bwd,
                toeplitz_reduce, ctc_alpha, ctc_beta, flash_fwd, flash_bwd,
                lstm_fwd, lstm_bwd, ffn_fwd, ffn_bwd, ctc_prefix_score,
-               ctc_prefix_select)
+               ctc_prefix_select, subsample)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     dv.set_tf32(False)
@@ -5705,7 +5854,8 @@ def main() -> int:
                   "attn_bwd_dbias_kernel": 384,
                   "ffn_bwd_rows_wgmma_kernel": 384,
                   "ffn_bwd_weights_wgmma_kernel": 384,
-                  "logmel_wgmma_kernel": 384}
+                  "logmel_wgmma_kernel": 384,
+                  "subsample_conv_wgmma_kernel": 384}
     for i, line in enumerate(lines):
         m = re.search(r"hop\d+([a-z_]+)(?:I(Li(\d+)E|f|13__nv_bfloat16)|E)",
                       line)
@@ -5713,7 +5863,8 @@ def main() -> int:
             info = " ".join(lines[i + 1:i + 5])
             regs = re.search(r"Used (\d+) registers", info)
             spill = re.search(r"(\d+) bytes spill stores", info)
-            targ = (f"bias mode {m.group(3)}" if m.group(3) else
+            targ = (f"NW {m.group(3)}" if m.group(1).startswith("subsample")
+                    else f"bias mode {m.group(3)}" if m.group(3) else
                     {"f": "float32 x", "13__nv_bfloat16": "bf16 x",
                      None: "dense bias" if m.group(1).startswith("attn")
                      else "bf16"}[m.group(2)])
@@ -6304,6 +6455,8 @@ def main() -> int:
     # before it was added
     ffn_kernel_phase(dev, torch.Generator(device=dev).manual_seed(13), peaks,
                      card, kernels)
+    # ---- [3k] the subsampling kernel at the serving cells' shapes
+    subsample_kernel_phase(dev, peaks, card, kernels)
 
     # ---- [4] the main path, full width, bf16, through the kernels
     model = AsrModel(flagship_conformer(), device=dev, seed=0).eval()
@@ -6313,7 +6466,7 @@ def main() -> int:
     cfg_ref = flagship_conformer()
     cfg_ref.frontend.impl = "torch"
     cfg_ref.model.attn_impl = "torch"
-    ref_model = AsrModel(cfg_ref, device=dev, seed=0).eval()
+    ref_model = plain_subsampling(AsrModel(cfg_ref, device=dev, seed=0).eval())
     with torch.no_grad():
         model.encoder.rel.table.copy_(table)
         ref_model.encoder.rel.table.copy_(table)
@@ -6336,12 +6489,13 @@ def main() -> int:
         enc, elens, logits, tokens, tlens = serve(model, audio, audio_lens)
     torch.cuda.synchronize()
     counts = {"logmel": logmel.launches, "toeplitz": toeplitz_fwd.launches,
-              "attention": attention_fwd.launches}
-    check(all(fn.launches == 0 for fn in COUNTED[3:]),
+              "attention": attention_fwd.launches,
+              "subsample": subsample.launches}
+    check(all(fn.launches == 0 for fn in COUNTED[3:-1]),
           "a backward or flash kernel launched in the short forward")
     print(f"[4] main path launches: {counts}", flush=True)
     check(counts == {"logmel": 1, "toeplitz": 1,
-                     "attention": mcfg.encoder_layers},
+                     "attention": mcfg.encoder_layers, "subsample": 1},
           f"main path launch counts {counts}")
     for key, n in counts.items():
         kernels[key]["launches"] = n
@@ -6510,12 +6664,13 @@ def main() -> int:
                    "attention_bwd": attention_bwd.launches,
                    "toeplitz_reduce": toeplitz_reduce.launches,
                    "ctc_alpha": ctc_alpha.launches,
-                   "ctc_beta": ctc_beta.launches}
+                   "ctc_beta": ctc_beta.launches,
+                   "subsample": subsample.launches}
     print(f"[8] hybrid step launches: {step_counts}", flush=True)
     L = mcfg.encoder_layers
     check(step_counts == {"logmel": 1, "toeplitz": 1, "attention": L,
                           "attention_bwd": L, "toeplitz_reduce": 1,
-                          "ctc_alpha": 1, "ctc_beta": 1},
+                          "ctc_alpha": 1, "ctc_beta": 1, "subsample": 0},
           f"train step launch counts {step_counts}")
     for key in ("attention_bwd", "toeplitz_reduce", "ctc_alpha", "ctc_beta"):
         kernels[key]["launches"] = step_counts[key]
@@ -6644,7 +6799,7 @@ def main() -> int:
                          < lens_l[:, None])          # zero padding
     full_l = torch.full((Bl,), Tsl, dtype=torch.int64, device=dev)
     model = AsrModel(flagship_conformer(), device=dev, seed=0).eval()
-    ref_model = AsrModel(cfg_ref, device=dev, seed=0).eval()
+    ref_model = plain_subsampling(AsrModel(cfg_ref, device=dev, seed=0).eval())
     with torch.no_grad():
         model.encoder.rel.table.copy_(table)
         ref_model.encoder.rel.table.copy_(table)
@@ -6661,7 +6816,8 @@ def main() -> int:
                           "flash_fwd": mcfg.encoder_layers, "flash_bwd": 0,
                           "lstm_fwd": 0, "lstm_bwd": 0,
                           "ffn_fwd": 0, "ffn_bwd": 0,
-                          "ctc_prefix_score": 0, "ctc_prefix_select": 0},
+                          "ctc_prefix_score": 0, "ctc_prefix_select": 0,
+                          "subsample": 1},
           f"long-audio forward launch counts {long_counts}")
     kernels["flash_attention"]["launches"] = long_counts["flash_fwd"]
     check(tuple(enc.shape) == (Bl, T_long, D) and bool(
@@ -6816,7 +6972,7 @@ def main() -> int:
                      "ctc_alpha": 1, "ctc_beta": 1, "flash_fwd": L,
                      "flash_bwd": L, "lstm_fwd": 0, "lstm_bwd": 0,
                      "ffn_fwd": 0, "ffn_bwd": 0, "ctc_prefix_score": 0,
-                     "ctc_prefix_select": 0},
+                     "ctc_prefix_select": 0, "subsample": 0},
           f"long train step launch counts {step_l}")
     check(math.isfinite(float(metrics["loss"])), "long train step not finite")
     kernels["flash_attention_bwd"]["launches"] = step_l["flash_bwd"]
@@ -6876,7 +7032,7 @@ def main() -> int:
     order = ("logmel", "toeplitz", "attention", "attention_bwd",
              "toeplitz_reduce", "flash_attention", "flash_attention_bwd",
              "ctc_alpha", "ctc_beta", "lstm_fwd", "lstm_bwd", "ffn_fwd",
-             "ffn_bwd", "ctc_prefix_score", "ctc_prefix_select")
+             "ffn_bwd", "ctc_prefix_score", "ctc_prefix_select", "subsample")
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(card)

@@ -61,7 +61,15 @@ from pytorch_end2end_speech_recognition_tpu_torch.ops.ffn_kernel import (
     ffn_block_fused,
     fits_vmem,
 )
+from pytorch_end2end_speech_recognition_tpu_torch.ops.masks import (
+    length_mask,
+    masked,
+)
 from pytorch_end2end_speech_recognition_tpu_torch.ops.rnn import bilstm_layer
+from pytorch_end2end_speech_recognition_tpu_torch.ops.subsample_kernel import (
+    subsample,
+    subsample_plain,
+)
 from pytorch_end2end_speech_recognition_tpu_torch.parallel.collectives import (
     copy_to,
     gather_features,
@@ -99,15 +107,6 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 def _rdt(cfg: ModelConfig) -> torch.dtype:
     """Residual-stream dtype (see ModelConfig.residual_dtype)."""
     return torch.bfloat16 if cfg.residual_dtype == "bfloat16" else torch.float32
-
-
-def length_mask(lens: torch.Tensor, T: int) -> torch.Tensor:
-    return torch.arange(T, device=lens.device)[None, :] < lens[:, None]
-
-
-def _masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Zero x where mask (broadcast from the left over x's leading dims)."""
-    return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
@@ -227,7 +226,7 @@ class BiLstmEncoder(nn.Module):
 
     def forward(self, x, lens, train: bool = False,
                 generator: torch.Generator | None = None):
-        x = _masked(x, length_mask(lens, x.shape[1])[..., None])
+        x = masked(x, length_mask(lens, x.shape[1])[..., None])
         for layer in self.layers:
             x = layer(x, lens, _dt(self.cfg), self.cfg.lstm_impl)
             x = dropout(x, self.cfg.encoder_dropout, generator, train)
@@ -255,7 +254,7 @@ class VggExtractor(nn.Module):
     def forward(self, x: torch.Tensor, lens: torch.Tensor):
         with span("asr.subsample"):
             def mask4(h, l):
-                return _masked(h,
+                return masked(h,
                                length_mask(l, h.shape[2])[:, None, :, None])
 
             h = mask4(x[:, None], lens)                  # (B, 1, T, F)
@@ -295,7 +294,7 @@ class PyramidalBiLstmEncoder(nn.Module):
 
     def forward(self, x, lens, train: bool = False,
                 generator: torch.Generator | None = None):
-        x = _masked(x, length_mask(lens, x.shape[1])[..., None])
+        x = masked(x, length_mask(lens, x.shape[1])[..., None])
         if self.vgg is not None:
             x, lens = self.vgg(x, lens)
         for layer in self.layers:
@@ -306,18 +305,14 @@ class PyramidalBiLstmEncoder(nn.Module):
             x = layer(x, lens, _dt(self.cfg), self.cfg.lstm_impl)
             x = dropout(x, self.cfg.encoder_dropout, generator, train)
         # a pyramid pair that straddles a row's end is half valid: re-mask
-        return _masked(x, length_mask(lens, x.shape[1])[..., None]), lens
-
-
-def _same_pad_s2(n: int) -> tuple[int, int]:
-    """Flax 'SAME' padding for kernel 3, stride 2: (0, 1) when n is even,
-    (1, 1) when odd."""
-    total = max((-(-n // 2) - 1) * 2 + 3 - n, 0)
-    return total // 2, total - total // 2
+        return masked(x, length_mask(lens, x.shape[1])[..., None]), lens
 
 
 class ConvSubsample(nn.Module):
-    """2-layer stride-2 conv2d subsampling (x4) over (time, mel)."""
+    """2-layer stride-2 conv2d subsampling (x4) over (time, mel). Recording
+    no gradient at dtype bfloat16 (serving), both convolutions run as the
+    operator `asr_port::subsample` (`ops/subsample_kernel.py`: one kernel on
+    the card); otherwise as its plain version, under autograd."""
 
     def __init__(self, n_mels: int, d_model: int, cfg: ModelConfig):
         super().__init__()
@@ -328,24 +323,15 @@ class ConvSubsample(nn.Module):
         self.proj = nn.Linear(f_out * C, d_model)
         self.dt, self.rdt = _dt(cfg), _rdt(cfg)
 
-    def _conv(self, h: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-        (t0, t1), (f0, f1) = _same_pad_s2(h.shape[2]), _same_pad_s2(h.shape[3])
-        h = F.pad(h.to(self.dt), (f0, f1, t0, t1))
-        return F.relu(F.conv2d(h, conv.weight.to(self.dt),
-                               conv.bias.to(self.dt), stride=2))
-
     def forward(self, x: torch.Tensor, lens: torch.Tensor):
         with span("asr.subsample"):
-            h = _masked(x, length_mask(lens, x.shape[1])[:, :, None])[:, None]
-            h = self._conv(h, self.conv1)                # (B, C, T/2, F/2)
-            lens = (lens + 1) // 2
-            h = _masked(h, length_mask(lens, h.shape[2])[:, None, :, None])
-            h = self._conv(h, self.conv2)
-            lens = (lens + 1) // 2
-            h = _masked(h, length_mask(lens, h.shape[2])[:, None, :, None])
-            B, C, T, Fo = h.shape
-            # Flax is NHWC and flattens (F, C) with C fastest
-            h = h.permute(0, 2, 3, 1).reshape(B, T, Fo * C)
+            w = (self.conv1.weight.to(self.dt), self.conv1.bias.to(self.dt),
+                 self.conv2.weight.to(self.dt), self.conv2.bias.to(self.dt))
+            if torch.is_grad_enabled() or self.dt != torch.bfloat16:
+                h = subsample_plain(x, lens, *w)
+            else:
+                h = subsample(x, lens, *w)
+            lens = ((lens + 1) // 2 + 1) // 2
             return _linear(h, self.proj, self.dt).to(self.rdt), lens
 
 
@@ -605,7 +591,7 @@ class ConvModule(nn.Module):
                        g, sp)
             h = F.glu(_col(h, self.pw1, self.dt, g, glu=True), dim=-1)
             # the depthwise conv must not see pad
-            h = _masked(h, mask[..., None])
+            h = masked(h, mask[..., None])
             K = self.dw.kernel_size[0]
             h = F.pad(h.transpose(1, 2), ((K - 1) // 2, K - 1 - (K - 1) // 2))
             h = F.conv1d(h, _part(self.dw.weight, g).to(self.dt),
@@ -772,7 +758,7 @@ class TransformerEncoder(_BlockEncoder):
 
     def forward(self, x, lens, train: bool = False,
                 generator: torch.Generator | None = None):
-        x = _masked(x, length_mask(lens, x.shape[1])[..., None])
+        x = masked(x, length_mask(lens, x.shape[1])[..., None])
         x, lens = self.sub(x, lens)
         T = x.shape[1]
         if self.rel is None:
@@ -782,7 +768,7 @@ class TransformerEncoder(_BlockEncoder):
         mask = length_mask(lens, T)
         x = _layer_norm(self._apply_blocks(x, mask, train, generator),
                         self.ln_out)
-        return _masked(x, mask[..., None]), lens
+        return masked(x, mask[..., None]), lens
 
 
 class ConformerEncoder(_BlockEncoder):
@@ -791,12 +777,12 @@ class ConformerEncoder(_BlockEncoder):
 
     def forward(self, x, lens, train: bool = False,
                 generator: torch.Generator | None = None):
-        x = _masked(x, length_mask(lens, x.shape[1])[..., None])
+        x = masked(x, length_mask(lens, x.shape[1])[..., None])
         x, lens = self.sub(x, lens)
         x = dropout(x, self.rate, generator, train)
         mask = length_mask(lens, x.shape[1])
         x = self._apply_blocks(x, mask, train, generator)
-        return _masked(x, mask[..., None]), lens
+        return masked(x, mask[..., None]), lens
 
 
 def build_encoder(d_in: int, cfg: ModelConfig) -> nn.Module:

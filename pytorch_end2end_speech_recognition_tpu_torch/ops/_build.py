@@ -90,6 +90,10 @@ SIGNATURES = {
     # dw2p, db1p, dgamma, dbeta, dw1, db1, dw2, db2, x_is_bf16, R, D, F, S,
     # scale, rate, keep_scale, stream
     "ffn_bwd_launch": [_P] * 23 + [_I, _I, _I, _I, _I, _F, _F, _F, _P],
+    # x, lens, w1p, w2r, b2p, out, B, T, n_mels, C, stream
+    "subsample_launch": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # n_mels, C, out (int[5]): the subsampling kernel's plan
+    "subsample_plan": [_I, _I, _P],
 }
 
 

@@ -4,10 +4,11 @@ seconds) bucket (the port of the JAX package's `serving/export.py`).
 A greedy bundle holds, for each bucket, a `torch.export` program of encode
 -> CTC logits -> greedy collapse with the weights inside, saved with
 `torch.export.save`. The hand-written kernels on that path are registered
-operators (`asr_port::logmel`, `toeplitz_expand`, `attention_fwd`,
-`flash_fwd`, `lstm_fwd`, `ffn_fwd`; `ops/*_kernel.py`), so the program
-calls them as nodes of its graph: a serving host loads it without the
-model code (`ops`' registrations and the tokenizer are all it imports).
+operators (`asr_port::logmel`, `subsample`, `toeplitz_expand`,
+`attention_fwd`, `flash_fwd`, `lstm_fwd`, `ffn_fwd`; `ops/*_kernel.py`),
+so the program calls them as nodes of its graph: a serving host loads it
+without the model code (`ops`' registrations and the tokenizer are all it
+imports).
 The path gates are static per bucket, so each bucket's program has its path
 fixed: a 30 s bucket (T' 750) takes the dense-bias attention, a 60 s bucket
 (T' 1,498) the flash attention.
@@ -60,6 +61,7 @@ from pytorch_end2end_speech_recognition_tpu_torch.ops import (  # noqa: F401
     ffn_kernel,
     frontend_kernel,
     rnn_kernel,
+    subsample_kernel,
 )
 from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc import (
     ctc_greedy_decode,

@@ -1029,6 +1029,9 @@ def _op_case(name, dev):
     from pytorch_end2end_speech_recognition_tpu_torch.ops import (
         rnn_kernel as rk,
     )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        subsample_kernel as sk,
+    )
     from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend import (
         Frontend,
     )
@@ -1068,6 +1071,11 @@ def _op_case(name, dev):
         return rk.lstm_fwd_op, (mk(2, B, 40, 4 * 64, dt=torch.float32),
                                 mk(2, 64, 4 * 64, dt=torch.float32, scale=0.1),
                                 torch.tensor([40, 23, 0], device=dev))
+    if name == "subsample":
+        C = 64
+        return sk.subsample_op, (mk(B, T, 80, dt=torch.float32, scale=2.0),
+                                 lens, mk(C, 1, 3, 3), mk(C, scale=0.1),
+                                 mk(C, C, 3, 3, scale=0.05), mk(C, scale=0.1))
     if name == "ffn_fwd":
         R, D, F = 300, 256, 1024
         return fk.ffn_fwd_op, (
@@ -1079,7 +1087,7 @@ def _op_case(name, dev):
 
 
 OPS = ["logmel", "toeplitz_expand", "attention_fwd", "attention_fwd_lse",
-       "flash_fwd", "flash_fwd_lse", "lstm_fwd", "ffn_fwd"]
+       "flash_fwd", "flash_fwd_lse", "lstm_fwd", "ffn_fwd", "subsample"]
 
 
 def _outs(x):
@@ -1279,10 +1287,13 @@ def _counted():
     from pytorch_end2end_speech_recognition_tpu_torch.ops import (
         frontend_kernel as fr,
     )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        subsample_kernel as sk,
+    )
 
     return (fr.logmel, ak.toeplitz_fwd, ak.toeplitz_reduce, ak.attention_fwd,
             ak.attention_bwd, ak.flash_fwd, ak.flash_bwd, ck.ctc_alpha,
-            ck.ctc_beta, fk.ffn_fwd, fk.ffn_bwd)
+            ck.ctc_beta, fk.ffn_fwd, fk.ffn_bwd, sk.subsample)
 
 
 def _launches_of(fn):
@@ -1355,7 +1366,7 @@ def test_cp_mode_without_a_mesh_runs_the_flash_kernels(dev):
                                                                  lens)[0]),
                            got)
         want = dense.model.ctc_logits(dense.model.encode(audio, lens)[0])
-    assert fwd == {"logmel": 1, "flash_fwd": 2}
+    assert fwd == {"logmel": 1, "flash_fwd": 2, "subsample": 1}
     valid = torch.arange(got.shape[1], device=dev)[None, :] < el[:, None]
     assert float((got - want).abs().amax(-1)[valid].max()) <= 0.1
 
@@ -1385,3 +1396,172 @@ def test_pp_stages_keep_the_fused_ffn_off(dev):
     _, step = _launches_of(lambda: pp.train_step(batch))
     assert "ffn_fwd" not in step and "ffn_bwd" not in step
     assert step["attention_bwd"] == 2
+
+
+# ---------------------------------------------------------------- subsampling
+def _sub_inputs(dev, B, T, n_mels, C, seed, lens=None, b1_shift=0.0):
+    """x (B, T, n_mels) float32, lens (T, 1, then random, unless given) and
+    bf16 weights at the scales of a trained layer (activations O(1))."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T, n_mels, generator=g) * 2.0
+    w1 = torch.randn(C, 1, 3, 3, generator=g) / 3.0
+    b1 = torch.randn(C, generator=g) * 0.3 + b1_shift
+    w2 = torch.randn(C, C, 3, 3, generator=g) / (3.0 * C ** 0.5)
+    b2 = torch.randn(C, generator=g) * 0.1
+    if lens is None:
+        lens = [T, 1] + torch.randint(1, T + 1, (B - 2,), generator=g).tolist()
+    return (x.to(dev), torch.tensor(lens[:B], device=dev),
+            *(w.to(dev, torch.bfloat16) for w in (w1, b1, w2, b2)))
+
+
+def _sub_excess(out, ref) -> float:
+    """max |out - ref| / (2^-5 |ref| + 2^-4 rms(ref)): above 1 fails. Both
+    are bf16; the plain version rounds each convolution before its bias
+    (cuDNN, then the add), so an output may differ by up to 2^-7 |ref| from
+    that alone, and each conv1 activation by an ulp, of which conv2 sums
+    9 C: at B 8 x 30 s the worst element read 0.91-0.94 of half this
+    bound. A wrong tap, mask or channel moves outputs by a sizeable share
+    of rms(ref)."""
+    out, ref = out.float(), ref.float()
+    rms = ref.pow(2).mean().sqrt()
+    return float(((out - ref).abs() / (2.0 ** -5 * ref.abs()
+                                       + 2.0 ** -4 * rms)).max())
+
+
+@pytest.mark.parametrize("B,T,n_mels,C", [
+    (4, 37, 80, 32), (4, 40, 81, 64), (4, 101, 13, 128), (3, 64, 80, 256),
+    (3, 63, 79, 512), (2, 50, 80, 1024), (3, 33, 80, 48),
+    (2, 2998, 80, 256), (2, 2998, 80, 512), (2, 6551, 80, 256)])
+def test_subsample_kernel_matches_plain(dev, B, T, n_mels, C):
+    """The kernel against `subsample_plain` at every preset width, the
+    card tests' 32, odd and even T and n_mels, lengths 1 and T, and the
+    serving cells' shapes (30 s: T 2,998; 65.5 s: 6,551) at B 2."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        subsample_kernel as sk,
+    )
+
+    args = _sub_inputs(dev, B, T, n_mels, C, seed=C + T)
+    out = sk.subsample(*args)
+    ref = sk.subsample_plain(*args)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert _sub_excess(out, ref) <= 1.0
+    lens2 = ((args[1] + 1) // 2 + 1) // 2
+    for b in range(B):
+        assert torch.all(out[b, int(lens2[b]):] == 0)
+    assert torch.count_nonzero(out[0]) > out[0].numel() // 4
+
+
+def _sub_control(x, lens, w1, b1, w2, b2, conv1_mask=True, flip_pad=False):
+    """`subsample_plain` with a fault: conv1's mask dropped, or the SAME
+    padding of an even extent put before it instead of after."""
+    import torch.nn.functional as F
+
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        subsample_kernel as sk,
+    )
+
+    def pad(n):
+        p = sk._same_pad_s2(n)
+        return p[::-1] if flip_pad and n % 2 == 0 else p
+
+    def conv(h, w, b):
+        (t0, t1), (f0, f1) = pad(h.shape[2]), pad(h.shape[3])
+        h = F.pad(h.to(w.dtype), (f0, f1, t0, t1))
+        return F.relu(F.conv2d(h, w, b, stride=2))
+
+    def mask(h, n):
+        valid = torch.arange(h.shape[2], device=n.device)[None, :] < n[:, None]
+        return torch.where(valid[:, None, :, None], h, torch.zeros_like(h))
+
+    h = torch.where((torch.arange(x.shape[1], device=x.device)[None, :]
+                     < lens[:, None])[..., None], x, 0.0)[:, None]
+    h = conv(h, w1, b1)
+    lens = (lens + 1) // 2
+    if conv1_mask:
+        h = mask(h, lens)
+    h = mask(conv(h, w2, b2), (lens + 1) // 2)
+    B, C, T, Fo = h.shape
+    return h.permute(0, 2, 3, 1).reshape(B, T, Fo * C)
+
+
+def test_subsample_kernel_comparison_fails_its_controls(dev):
+    """The comparison above fails the plain version with conv1's mask
+    dropped, with the SAME padding's parity flipped (even T and n_mels:
+    the pad before, not after) and with lens ignored, and passes the plain
+    version itself. conv1's bias is shifted positive, so that positions past
+    lens1 would read relu(b1) != 0 without the mask."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        subsample_kernel as sk,
+    )
+
+    T = 40
+    args = _sub_inputs(dev, 6, T, 80, 64, seed=5,
+                       lens=[T, 1, 13, 17, 22, 30], b1_shift=0.5)
+    out = sk.subsample(*args)
+    assert _sub_excess(out, sk.subsample_plain(*args)) <= 1.0
+    x, lens, *w = args
+    controls = {
+        "conv1 mask dropped": _sub_control(*args, conv1_mask=False),
+        "pad parity flipped": _sub_control(*args, flip_pad=True),
+        "lens ignored": sk.subsample_plain(x, torch.full_like(lens, T), *w),
+    }
+    torch.cuda.synchronize()
+    for name, ref in controls.items():
+        assert _sub_excess(out, ref) > 1.0, name
+
+
+def test_subsample_launches_once_a_serving_forward_and_not_in_training(dev):
+    """`ConvSubsample` launches the kernel once a forward that records no
+    gradient at bf16 and never under autograd; a Solver step of a 2-layer
+    flagship launches none, its serving forward one."""
+    from pytorch_end2end_speech_recognition_tpu_torch.models import (
+        encoders as enc,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        subsample_kernel as sk,
+    )
+    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+        ModelConfig,
+    )
+
+    cfg = ModelConfig(encoder_dim=256, subsample_channels=256,
+                      dtype="bfloat16", residual_dtype="bfloat16")
+    sub = enc.ConvSubsample(80, 256, cfg).to(dev)
+    x, lens, *_ = _sub_inputs(dev, 3, 301, 80, 256, seed=1)
+    sk.subsample.launches = 0
+    with torch.no_grad():
+        got, got_lens = sub(x, lens)
+    assert sk.subsample.launches == 1
+    want, want_lens = sub(x, lens)
+    assert sk.subsample.launches == 1 and want.requires_grad
+    assert torch.equal(got_lens, want_lens)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want.detach()) < 2e-2  # after the bf16 projection
+    solver, batch = _small_flagship(dev)
+    _, step = _launches_of(lambda: solver.train_step(batch))
+    assert "subsample" not in step
+    audio = torch.from_numpy(batch.audio).to(dev)
+    alens = torch.from_numpy(batch.audio_lens).to(dev)
+    with torch.no_grad():
+        _, fwd = _launches_of(lambda: solver.model.encode(audio, alens))
+    assert fwd["subsample"] == 1
+
+
+@pytest.mark.parametrize("case", ["c24", "c1040", "f32_weights", "bf16_x",
+                                  "n_mels_900"])
+def test_subsample_kernel_raises_on_what_it_does_not_take(dev, case):
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        subsample_kernel as sk,
+    )
+
+    C = {"c24": 24, "c1040": 1040}.get(case, 64)
+    n_mels = 900 if case == "n_mels_900" else 80  # conv1 window too wide
+    x, lens, *w = _sub_inputs(dev, 2, 20, n_mels, C, seed=0)
+    if case == "f32_weights":
+        w = [t.float() for t in w]
+    if case == "bf16_x":
+        x = x.bfloat16()
+    err = TypeError if case in ("f32_weights", "bf16_x") else ValueError
+    with pytest.raises(err, match="subsample"):
+        sk.subsample(x, lens, *w)

@@ -147,6 +147,9 @@ def _wrapper_case(name):
     from pytorch_end2end_speech_recognition_tpu_torch.ops import (
         rnn_kernel as rk,
     )
+    from pytorch_end2end_speech_recognition_tpu_torch.ops import (
+        subsample_kernel as sk,
+    )
 
     g = torch.Generator().manual_seed(14)
 
@@ -169,6 +172,10 @@ def _wrapper_case(name):
         return (lambda x, *p: fk.ffn_block_fused(x, *p, rate=0.0, scale=0.5),
                 (r(B, T, D), r(D), r(D), r(4 * D, D), r(4 * D), r(D, 4 * D),
                  r(D)))
+    if name == "subsample":
+        return (sk.subsample,
+                (r(B, T, D), lens, *(t.to(torch.bfloat16) for t in (
+                    r(8, 1, 3, 3), r(8), r(8, 8, 3, 3), r(8)))))
     return (lambda x, n, *p: torch.cat(
         rk.bilstm_kernel(x, n, p[:3], p[3:]), dim=-1),
         (r(B, T, D), lens, r(D, 32), r(8, 32), r(32), r(D, 32), r(8, 32),
@@ -176,7 +183,8 @@ def _wrapper_case(name):
 
 
 @pytest.mark.parametrize("name", ["toeplitz_expand", "attention_fwd",
-                                  "flash_fwd", "ffn_fwd", "lstm_fwd"])
+                                  "flash_fwd", "ffn_fwd", "lstm_fwd",
+                                  "subsample"])
 def test_wrappers_export_as_their_operator(name):
     """Under no_grad, `torch.export` traces each kernel wrapper's
     autograd.Function into one node of its operator. The saved and loaded
