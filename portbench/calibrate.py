@@ -5,10 +5,12 @@
 
 For each seed: the program's readings, as a run takes them (a short window
 at the cell's own load, the same judged requests or compared steps), and
-with --controls the lower-precision control's: the reference computed with
-its products in float8 (`reference.model.Prec('fp8')`) in the program's
-place; for training also the fault of half the batch left out (the loss's
-mean over the other half). One JSON line a seed. Needs the card.
+with --controls the lower-precision control's: the configuration's family
+reference computed with its products in float8
+(`reference.common.Prec('fp8')`) in the program's place, read by the
+family path's `control_readings`; for training also the fault of half the
+batch left out (the loss's mean over the other half). One JSON line a
+seed. Needs the card.
 """
 
 from __future__ import annotations
@@ -20,35 +22,31 @@ import sys
 import torch
 
 from portbench import harness, judge, traffic
-from portbench.reference import model as ref
+from portbench.reference.common import Prec, no_tf32
 from portbench.weights import make_weights
 
 
-def serve_controls(cfg_doc, seed, pool, win, dev) -> dict:
-    """The float8 reference's readings on the requests a run judges: its
-    logits' relative error, and the gap of the label it puts first at each
-    frame."""
-    w = make_weights(cfg_doc["config"], cfg_doc["init"],
+def serve_controls(fam, cfg_doc, seed, pool, win, dev) -> dict:
+    """The float8 reference's readings on the batches of the requests a run
+    judges (`control_readings` of the float32 and float8 references, each
+    given the first judged request's served ids of the batch)."""
+    w = make_weights(fam.ref, cfg_doc["config"], cfg_doc["init"],
                      traffic.sub_seed(seed, "weights"), dev)
-    gaps, d2, r2 = [], 0.0, 0.0
-    with ref.no_tf32():
-        for b in {win["records"][i][0] for i in win["logits"]}:
-            args = (w, pool[b]["audio"], pool[b]["audio_lens"],
-                    cfg_doc["config"])
-            want, lens = ref.serve_logits(*args, ref.Prec("fp32"),
-                                          harness.REF_BLOCK_ROWS)
-            low, _ = ref.serve_logits(*args, ref.Prec("fp8"),
-                                      harness.REF_BLOCK_ROWS)
-            gaps.append(judge.argmax_gap(want, lens, low))
-            valid = (torch.arange(want.shape[1], device=dev)[None, :]
-                     < lens[:, None])
-            d2 += float(((low - want)[valid] ** 2).sum())
-            r2 += float((want[valid] ** 2).sum())
-    return {"max_logit_gap": max(gaps), "logit_rel_err": (d2 / r2) ** 0.5}
+    served = {}
+    for i in sorted(win["judged"]):
+        b, _, out = win["records"][i]
+        served.setdefault(b, out)
+    pairs = []
+    with no_tf32():
+        for b, out in served.items():
+            pairs.append(tuple(fam.ref.serve_reference(
+                w, pool[b], out, cfg_doc["config"], Prec(p),
+                harness.REF_BLOCK_ROWS) for p in ("fp32", "fp8")))
+    return fam.path.control_readings(pairs)
 
 
-def train_controls(cfg_doc, seed, pool, n, dev) -> dict:
-    w = make_weights(cfg_doc["config"], cfg_doc["init"],
+def train_controls(fam, cfg_doc, seed, pool, n, dev) -> dict:
+    w = make_weights(fam.ref, cfg_doc["config"], cfg_doc["init"],
                      traffic.sub_seed(seed, "weights"), dev)
     batches = [tuple(pool[k][f] for f in ("audio", "audio_lens", "tokens",
                                           "token_lens", "spec_mask"))
@@ -58,14 +56,14 @@ def train_controls(cfg_doc, seed, pool, n, dev) -> dict:
             for a, al, t, tl, s in batches]
     dseed = traffic.sub_seed(seed, "dropout")
     out = {}
-    with ref.no_tf32():
-        want = ref.train_steps(w, batches, cfg_doc["config"],
-                               ref.Prec("fp32"), dseed,
-                               harness.REF_BLOCK_ROWS)
+    with no_tf32():
+        want = fam.ref.train_steps(w, batches, cfg_doc["config"],
+                                   Prec("fp32"), dseed,
+                                   harness.REF_BLOCK_ROWS)
         for tag, prec, bs in (("fp8", "fp8", batches),
                               ("half_batch", "fp32", half)):
-            got = ref.train_steps(w, bs, cfg_doc["config"], ref.Prec(prec),
-                                  dseed, harness.REF_BLOCK_ROWS)
+            got = fam.ref.train_steps(w, bs, cfg_doc["config"], Prec(prec),
+                                      dseed, harness.REF_BLOCK_ROWS)
             out[tag] = judge.train_readings(got, want)
             out[tag]["worst_grad_leaves"] = judge.leaf_table(
                 got["grad_norms"], want["grad_norms"], list(want["grad_norms"]))[:4]
@@ -85,9 +83,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     bench = json.loads(harness.BENCH.read_text())
     cfg_doc, mix, _ = harness.load_cell(args.workload, bench)
-    cfg, model = harness.build_program(cfg_doc, dev)
+    fam = harness.load_family(cfg_doc["family"])
+    cfg, model = fam.path.build(cfg_doc["config"], dev)
     for seed in (int(s) for s in args.seeds.split(",")):
-        w = make_weights(cfg_doc["config"], cfg_doc["init"],
+        w = make_weights(fam.ref, cfg_doc["config"], cfg_doc["init"],
                          traffic.sub_seed(seed, "weights"), dev)
         harness.load_weights(model, w)
         pool = traffic.make_pool(mix, cfg_doc["config"], seed, dev)
@@ -98,12 +97,13 @@ def main(argv=None) -> int:
                                    .manual_seed(traffic.sub_seed(
                                        seed, "order2"))).tolist()
             keep = harness.judged(mix, seed, pool, order)
-            win = harness.serve_window(model, pool, order, args.seconds,
-                                       keep=keep)
-            row["program"] = harness.judge_serve(cfg_doc, seed, pool, win,
-                                                 dev)
+            win = harness.serve_window(fam.path.serve_request, model, pool,
+                                       order, args.seconds, keep=keep)
+            row["program"] = harness.judge_serve(fam, cfg_doc, seed, pool,
+                                                 win, dev)
             if args.controls:
-                row["fp8"] = serve_controls(cfg_doc, seed, pool, win, dev)
+                row["fp8"] = serve_controls(fam, cfg_doc, seed, pool, win,
+                                            dev)
         else:
             n = mix["compared_steps"]
             solver = harness.build_solver(cfg, model,
@@ -114,10 +114,10 @@ def main(argv=None) -> int:
             prog = harness.first_steps(solver, batches, masks, w, n)
             del solver, batches, w
             torch.cuda.empty_cache()
-            row["program"] = harness.judge_train(cfg_doc, seed, pool, prog, n,
-                                                 dev, detail=True)
+            row["program"] = harness.judge_train(fam, cfg_doc, seed, pool,
+                                                 prog, n, dev, detail=True)
             if args.controls:
-                row.update(train_controls(cfg_doc, seed, pool, n, dev))
+                row.update(train_controls(fam, cfg_doc, seed, pool, n, dev))
         print(json.dumps(row), flush=True)
         del pool
         torch.cuda.empty_cache()

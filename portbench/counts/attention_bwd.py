@@ -7,14 +7,11 @@ its gradient read once, dq, dk, dv written once (bf16), the float32 row
 statistics (H, T) read once and the diagonals' gradient (H, 2T'-1)
 written once."""
 
-from portbench import shapes
-
 
 def work(cfg: dict, batch: dict) -> dict:
     m = cfg["model"]
     L, D, H = m["encoder_layers"], m["encoder_dim"], m["encoder_heads"]
-    ts = shapes.enc_lens(cfg, batch)
-    tg = shapes.grid_enc_len(cfg, batch)
+    ts, tg = batch["enc_lens"], batch["enc_grid"]
     flops = L * sum(10 * t * t * D for t in ts)
     nbytes = L * (sum(8 * t * D * 2 + H * t * 4 for t in ts)
                   + H * (2 * tg - 1) * 4)

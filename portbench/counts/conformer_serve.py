@@ -37,8 +37,8 @@ def encoder(cfg: dict, t: int) -> int:
 
 def work(cfg: dict, batch: dict) -> dict:
     total = 0
-    for s in batch["audio_lens"]:
+    for s, t in zip(batch["audio_lens"], batch["enc_lens"]):
         n = shapes.frames(s, cfg["frontend"])
         c1, c2 = subsample(cfg, n)
-        total += frontend(cfg, n) + c1 + c2 + encoder(cfg, shapes.enc_len(n))
+        total += frontend(cfg, n) + c1 + c2 + encoder(cfg, t)
     return {"flops": total, "bytes": 0, "precision": "bf16"}

@@ -29,9 +29,9 @@ def decoder(cfg: dict, t: int, u1: int) -> int:
 
 def work(cfg: dict, batch: dict) -> dict:
     total = 0
-    for s, u in zip(batch["audio_lens"], batch["token_lens"]):
+    for s, t, u in zip(batch["audio_lens"], batch["enc_lens"],
+                       batch["token_lens"]):
         n = shapes.frames(s, cfg["frontend"])
-        t = shapes.enc_len(n)
         c1, c2 = serve.subsample(cfg, n)
         fwd = c1 + c2 + serve.encoder(cfg, t) + decoder(cfg, t, u + 1)
         total += serve.frontend(cfg, n) + 3 * fwd - c1

@@ -4,10 +4,8 @@ log-probs read once and the alphas written once; a log-sum-exp of up to
 three terms a cell, counted as 8 float32 operations. A dependent chain of
 T steps: latency, not these counts, bounds it."""
 
-from portbench import shapes
-
 
 def work(cfg: dict, batch: dict) -> dict:
-    cells = sum(t * (2 * u + 1) for t, u in zip(shapes.enc_lens(cfg, batch),
+    cells = sum(t * (2 * u + 1) for t, u in zip(batch["enc_lens"],
                                                  batch["token_lens"]))
     return {"flops": 8 * cells, "bytes": 2 * 4 * cells, "precision": "fp32"}

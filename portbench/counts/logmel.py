@@ -4,7 +4,7 @@ filterbank's nonzero weights; the real audio read once, the bf16 basis of
 those bins read once, the float32 features written once."""
 
 from portbench import shapes
-from portbench.reference.model import mel_filterbank
+from portbench.reference.common import mel_filterbank
 
 
 def work(cfg: dict, batch: dict) -> dict:

@@ -2,29 +2,34 @@
 window produced, and the result line.
 
 A cell of `BENCHMARK.json` names a configuration (`configs/<name>.json`)
-and a traffic mix (`traffic/<name>.json`); the mix's `mode` says which
-path the window drives:
+and a traffic mix (`traffic/<name>.json`). The configuration names its
+model family (`family`), whose plain reference is `reference/<family>.py`
+and whose serving path through the program is `paths/<family>.py`. The
+mix's `mode` says which path the window drives:
 
 - serve: one closed-loop client sends requests of one padded batch each,
   in a seeded order over a pool of distinct batches staged on the card;
-  a request is `AsrModel.encode`, `AsrModel.ctc_logits`,
-  `ctc_greedy_decode` and the copy of the token ids to the host. Set-up
-  warms the path on two requests. After the window, a seeded sample of the
-  finished requests is judged against the reference (`judge.path_gap`).
+  a request is the family path's `serve_request`, which ends with the
+  served ids on the host. Set-up warms the path on two requests. After the
+  window, a seeded sample of the finished requests is judged against the
+  family reference's `serve_reference` by the path's `serve_readings`.
 - train: `Solver.train_step` on pinned host batches from a pool, each with
   a SpecAugment mask drawn from the seed. Set-up drives the Solver through
   its first `compared_steps` steps; their losses, the first gradient (from
   Adam's state) and each leaf's change are kept, and the window goes on
-  with the same Solver. After the window, the reference takes the same
-  steps from the same weights.
+  with the same Solver. After the window, the family reference's
+  `train_steps` takes the same steps from the same weights.
 
-Metric values come from readers found by name in `metrics/<name>.py`,
-work counts from `counts/<name>.py`.
+A traced run profiles the mix's `trace` schedule ({wait, active, cycles}),
+or where it gives none its mode's (`TRACE`). Metric values come from
+readers found by name in `metrics/<name>.py`, work counts from
+`counts/<name>.py`.
 """
 
 from __future__ import annotations
 
 import gc
+import importlib
 import importlib.util
 import json
 import os
@@ -32,11 +37,13 @@ import random
 import sys
 import time
 from pathlib import Path
+from types import ModuleType
+from typing import NamedTuple
 
 import torch
 
-from portbench import judge, traffic
-from portbench.reference import model as ref
+from portbench import judge, shapes, traffic
+from portbench.reference.common import Prec, no_tf32
 from portbench.weights import make_weights
 
 ROOT = Path(__file__).resolve().parent
@@ -64,6 +71,20 @@ def load_module(kind: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+class Family(NamedTuple):
+    """A model family's two modules: its plain reference and the path that
+    drives the program."""
+
+    ref: ModuleType
+    path: ModuleType
+
+
+def load_family(name: str) -> Family:
+    """`reference/<name>.py` and `paths/<name>.py`."""
+    return Family(importlib.import_module(f"portbench.reference.{name}"),
+                  importlib.import_module(f"portbench.paths.{name}"))
 
 
 def count(name: str, cfg: dict, batch: dict) -> dict:
@@ -118,19 +139,6 @@ class Context:
 
 
 # ---------------------------------------------------------------- program
-def build_program(cfg_doc: dict, dev):
-    """The program's model for the configuration, on `dev`."""
-    from pytorch_end2end_speech_recognition_tpu_torch.models.asr import (
-        AsrModel,
-    )
-    from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
-        AsrConfig,
-    )
-
-    cfg = AsrConfig.from_dict(cfg_doc["config"])
-    return cfg, AsrModel(cfg, device=dev, seed=0)
-
-
 @torch.no_grad()
 def load_weights(model, weights: dict) -> None:
     params = dict(model.named_parameters())
@@ -142,25 +150,12 @@ def load_weights(model, weights: dict) -> None:
         p.copy_(weights[n])
 
 
-def serve_request(model, batch):
-    """One request on the program's serving path: (token counts and ids
-    (B, 1 + T') on the host, the CTC logits on the device)."""
-    from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc import (
-        ctc_greedy_decode,
-    )
-
-    enc, enc_lens = model.encode(batch["audio"], batch["audio_lens"])
-    logits = model.ctc_logits(enc)
-    hyp, hyp_lens = ctc_greedy_decode(logits, enc_lens)
-    return torch.cat([hyp_lens[:, None], hyp], dim=1).cpu(), logits
-
-
-def serve_window(model, pool, order, seconds, tracer=None,
+def serve_window(request, model, pool, order, seconds, tracer=None,
                  keep=()) -> dict:
-    """Requests of the closed-loop client until `seconds` have passed:
-    records (batch, latency, host ids), and the logits of the requests in
-    `keep`."""
-    recs, logits = [], {}
+    """Requests (`request(model, batch)`) of the closed-loop client until
+    `seconds` have passed: records (batch, latency, host ids), and what is
+    judged of the requests in `keep`."""
+    recs, kept = [], {}
     with torch.inference_mode():
         t0 = time.perf_counter()
         t1 = t0
@@ -170,15 +165,15 @@ def serve_window(model, pool, order, seconds, tracer=None,
             if tracer:
                 tracer.before(i)
             sent = time.perf_counter()
-            out, lg = serve_request(model, pool[b])
+            out, lg = request(model, pool[b])
             t1 = time.perf_counter()
             if tracer:
                 tracer.after(i)
             recs.append((b, t1 - sent, out))
             if i in keep:
-                logits[i] = lg
+                kept[i] = lg
             i += 1
-    return {"records": recs, "logits": logits, "seconds": t1 - t0}
+    return {"records": recs, "judged": kept, "seconds": t1 - t0}
 
 
 class _Vocab:
@@ -261,35 +256,36 @@ def judged(mix, seed, pool, order) -> set[int]:
     return {first, *rng.sample(rest, mix["judged_requests"] - 1)}
 
 
-def judge_serve(cfg_doc, seed, pool, win, dev) -> dict:
-    """The judged requests' readings (`judge.serve_readings`) against the
-    reference's logits of their batches."""
-    weights = make_weights(cfg_doc["config"], cfg_doc["init"],
+def judge_serve(fam: Family, cfg_doc, seed, pool, win, dev) -> dict:
+    """The judged requests' readings (the path's `serve_readings`) against
+    the reference's `serve_reference` of their batches and served ids (once
+    a batch while its served ids repeat)."""
+    weights = make_weights(fam.ref, cfg_doc["config"], cfg_doc["init"],
                            traffic.sub_seed(seed, "weights"), dev)
     want, pairs = {}, []
-    with ref.no_tf32():
-        for i, got in sorted(win["logits"].items()):
+    with no_tf32():
+        for i, got in sorted(win["judged"].items()):
             b, _, out = win["records"][i]
-            if b not in want:
-                want[b] = ref.serve_logits(
-                    weights, pool[b]["audio"], pool[b]["audio_lens"],
-                    cfg_doc["config"], ref.Prec("fp32"), REF_BLOCK_ROWS)
-            pairs.append((out, got, *want[b]))
-        return judge.serve_readings(pairs)
+            if b not in want or not torch.equal(want[b][0], out):
+                want[b] = out, fam.ref.serve_reference(
+                    weights, pool[b], out, cfg_doc["config"], Prec("fp32"),
+                    REF_BLOCK_ROWS)
+            pairs.append((out, got, *want[b][1]))
+        return fam.path.serve_readings(pairs)
 
 
-def judge_train(cfg_doc, seed, pool, prog: dict, n: int, dev,
+def judge_train(fam: Family, cfg_doc, seed, pool, prog: dict, n: int, dev,
                 detail: bool = False) -> dict:
-    weights = make_weights(cfg_doc["config"], cfg_doc["init"],
+    weights = make_weights(fam.ref, cfg_doc["config"], cfg_doc["init"],
                            traffic.sub_seed(seed, "weights"), dev)
     batches = [tuple(pool[k][f] for f in ("audio", "audio_lens", "tokens",
                                           "token_lens", "spec_mask"))
                for k in range(n)]
-    with ref.no_tf32():
-        want = ref.train_steps(weights, batches, cfg_doc["config"],
-                               ref.Prec("fp32"),
-                               traffic.sub_seed(seed, "dropout"),
-                               REF_BLOCK_ROWS)
+    with no_tf32():
+        want = fam.ref.train_steps(weights, batches, cfg_doc["config"],
+                                   Prec("fp32"),
+                                   traffic.sub_seed(seed, "dropout"),
+                                   REF_BLOCK_ROWS)
     out = judge.train_readings(prog, want)
     if detail:
         out["worst_grad_leaves"] = judge.leaf_table(
@@ -320,36 +316,40 @@ def load_cell(cell: str, bench: dict) -> tuple[dict, dict, dict]:
 
 
 def run(cell: str, seed: int, seconds: float, trace: bool, dev,
-        bench: dict | None = None, files: tuple | None = None) -> dict:
+        bench: dict | None = None, files: tuple | None = None,
+        family: Family | None = None) -> dict:
     """One run of `cell`; returns the result (without printing it).
-    `files` replaces what `load_cell` would read (the tests' small
-    configurations)."""
+    `files` replaces what `load_cell` would read, and `family` the family
+    that the configuration names (the tests' small configurations and
+    families)."""
     bench = bench or json.loads(BENCH.read_text())
     cfg_doc, mix, limits = files or load_cell(cell, bench)
+    fam = family or load_family(cfg_doc["family"])
     # one thread of host work: the program's work on the host is Python
     # dispatch, and idle intra-op threads only take cores from it
     torch.set_num_threads(1)
-    cfg, model = build_program(cfg_doc, dev)
-    weights = make_weights(cfg_doc["config"], cfg_doc["init"],
+    cfg, model = fam.path.build(cfg_doc["config"], dev)
+    weights = make_weights(fam.ref, cfg_doc["config"], cfg_doc["init"],
                            traffic.sub_seed(seed, "weights"), dev)
     load_weights(model, weights)
     pool = traffic.make_pool(mix, cfg_doc["config"], seed, dev)
-    descs = [traffic.describe(b) for b in pool]
+    descs = [shapes.describe(b, cfg_doc["config"], fam.ref) for b in pool]
     cuda = torch.device(dev).type == "cuda"
     tracer = None
     if trace:
         from portbench.trace import Tracer
 
-        tracer = Tracer(**TRACE[mix["mode"]])
+        tracer = Tracer(**{**TRACE[mix["mode"]], **mix.get("trace", {})})
     if mix["mode"] == "serve":
         del weights
         order = torch.randperm(len(pool), generator=torch.Generator()
                                .manual_seed(traffic.sub_seed(seed, "order2")))
         order = order.tolist()
         keep = judged(mix, seed, pool, order)
+        request = fam.path.serve_request
         with torch.inference_mode():
             for k in range(SERVE_WARMUP):
-                serve_request(model, pool[order[k % len(order)]])
+                request(model, pool[order[k % len(order)]])
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -357,10 +357,11 @@ def run(cell: str, seed: int, seconds: float, trace: bool, dev,
         quiet_collector()
         if tracer:
             with tracer:
-                win = serve_window(model, pool, order, seconds, tracer,
-                                   keep)
+                win = serve_window(request, model, pool, order, seconds,
+                                   tracer, keep)
         else:
-            win = serve_window(model, pool, order, seconds, keep=keep)
+            win = serve_window(request, model, pool, order, seconds,
+                               keep=keep)
         recs = win["records"]
         win.update(attempted=len(recs), failed=0,
                    latencies=[lat for _, lat, _ in recs],
@@ -406,9 +407,9 @@ def run(cell: str, seed: int, seconds: float, trace: bool, dev,
     if cuda:
         torch.cuda.empty_cache()
     if mix["mode"] == "serve":
-        readings = judge_serve(cfg_doc, seed, pool, win, dev)
+        readings = judge_serve(fam, cfg_doc, seed, pool, win, dev)
     else:
-        readings = judge_train(cfg_doc, seed, pool, prog, n, dev)
+        readings = judge_train(fam, cfg_doc, seed, pool, prog, n, dev)
     ok, checks = judge.verdict(readings, limits)
     result = {"correct": ok, "attempted": win["attempted"],
               "failed": win["failed"], "metrics": metrics,

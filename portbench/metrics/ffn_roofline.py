@@ -1,7 +1,8 @@
 """Percent of their roofline of both FFN halves of every block, read by
 the span `asr.ffn` whatever kernels run inside it: `counts/ffn` of the
 traced cycle's requests over the span's self device time
-(`portbench/spans.py`)."""
+(`portbench/spans.py`). Only a cycle that ran to its end is read: where
+the window closed inside it, nothing."""
 
 from portbench.roofline import least_seconds
 from portbench.spans import cycle_of
@@ -11,7 +12,8 @@ def read(ctx):
     if ctx.mix["mode"] != "serve":
         return None
     cyc = cycle_of(ctx)
-    if cyc is None or cyc.self_us.get("asr.ffn", 0.0) <= 0:
+    if (cyc is None or cyc.self_us.get("asr.ffn", 0.0) <= 0
+            or not ctx.tracer.finished.issuperset(cyc.steps)):
         return None
     least = sum(least_seconds(ctx.count("ffn", ctx.batches[k]))
                 for k in cyc.steps)

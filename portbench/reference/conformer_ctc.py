@@ -1,78 +1,44 @@
-"""Plain PyTorch reference of the benchmarked models, in float32.
+"""Plain PyTorch reference of the Conformer CTC family, in float32.
 
 The Conformer CTC/attention model as the benchmarked configurations
-describe it: log-mel with per-utterance CMVN, the two-layer stride-2 conv
-subsampling, Conformer blocks (macaron FFNs, relative-bias self-attention,
-the convolution module), the CTC head, greedy decoding, the Transformer
-decoder, the hybrid CTC/label-smoothed-CE loss, the global-norm clip and
-AdamW on the Noam schedule. Written from the configuration alone: it
-imports no module of the measured program, derives its own DFT basis, mel
-filterbank and relative-position buckets, and reads the weights from a
+describe it: log-mel with per-utterance CMVN (`common.logmel`), the
+two-layer stride-2 conv subsampling, Conformer blocks (macaron FFNs,
+relative-bias self-attention, the convolution module), the CTC head,
+greedy decoding, the Transformer decoder, the hybrid CTC/label-smoothed-CE
+loss, the global-norm clip and AdamW on the Noam schedule. Written from
+the configuration alone: it imports no module of the measured program,
+derives its own relative-position buckets, and reads the weights from a
 state dict keyed by the program's parameter names.
 
-Every matrix product and convolution goes through `Prec.q`, so one switch
-runs the whole model with its operands rounded to float8 (e4m3, one scale
-a tensor): the lower-precision control that the correctness limits are set
-against. With `Prec("fp32")` nothing is rounded; the caller turns TF32 off
-(`no_tf32`).
+What the harness takes of a family's reference: `param_spec`, `enc_len`,
+`serve_reference` (what a served request is judged against) and
+`train_steps`.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from portbench.reference.common import Prec, frame_count, logmel
+
 LN_EPS = 1e-6
-LOG_EPS = 1e-10
 NEG = -1e30
 SOS_EOS = 1
-FP8_MAX = 448.0
-
-
-class Prec:
-    """The precision of every matrix product's operands: 'fp32' (as they
-    are) or 'fp8' (rounded to float8 e4m3 with one scale a tensor; the
-    gradient passes straight through the rounding)."""
-
-    def __init__(self, kind: str = "fp32"):
-        if kind not in ("fp32", "fp8"):
-            raise ValueError(f"unknown precision {kind!r}")
-        self.kind = kind
-
-    def q(self, t: torch.Tensor) -> torch.Tensor:
-        t = t.float()
-        if self.kind == "fp32":
-            return t
-        scale = FP8_MAX / t.detach().abs().amax().clamp(min=1e-30)
-        r = (t.detach() * scale).to(torch.float8_e4m3fn).float() / scale
-        return t + (r - t.detach())
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """float32 products in float32: both TF32 switches off, then restored."""
-    old = (torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = old
 
 
 # ------------------------------------------------------------ parameters
-def param_spec(m: dict, table_std: float) -> list[tuple[str, tuple, str,
-                                                      float]]:
-    """(name, shape, init, scale) of every parameter, in the program's
-    order and names. init: 'normal' (N(0, scale^2)), 'zeros', 'ones'.
-    Weights are LeCun-normal, embeddings N(0, 1/dim), the relative-bias
-    table N(0, table_std^2); biases 0, LayerNorm scales 1."""
+def param_spec(cfg: dict, init: dict) -> list[tuple[str, tuple, str,
+                                                    float]]:
+    """(name, shape, init, scale) of every parameter of the configuration
+    `cfg`, in the program's order and names. init: 'normal' (N(0,
+    scale^2)), 'zeros', 'ones'. Weights are LeCun-normal, embeddings N(0,
+    1/dim), the relative-bias table N(0, init['rel_table_std']^2); biases
+    0, LayerNorm scales 1."""
+    m = cfg["model"]
     D, Fd, H, L = (m["encoder_dim"], m["encoder_ffn_dim"], m["encoder_heads"],
                    m["encoder_layers"])
     C = m["subsample_channels"] or D
@@ -95,9 +61,10 @@ def param_spec(m: dict, table_std: float) -> list[tuple[str, tuple, str,
     spec.append(("encoder.sub.conv2.weight", (C, C, 3, 3), "normal",
                  1 / math.sqrt(9 * C)))
     spec.append(("encoder.sub.conv2.bias", (C,), "zeros", 0.0))
-    f_out = ((80 + 1) // 2 + 1) // 2
+    f_out = ((cfg["frontend"]["n_mels"] + 1) // 2 + 1) // 2
     lin("encoder.sub.proj", D, f_out * C)
-    spec.append(("encoder.rel.table", (L, H, 64), "normal", table_std))
+    spec.append(("encoder.rel.table", (L, H, 64), "normal",
+                 init["rel_table_std"]))
     for i in range(L):
         b = f"encoder.blocks.{i}"
         ln(f"{b}.ff1.ln", D)
@@ -141,88 +108,12 @@ def param_spec(m: dict, table_std: float) -> list[tuple[str, tuple, str,
     return spec
 
 
-# ------------------------------------------------------------ front end
-def _hz_to_mel(f):
-    return 2595.0 * np.log10(1.0 + np.asarray(f, np.float64) / 700.0)
-
-
-def _mel_to_hz(m):
-    return 700.0 * (10.0 ** (np.asarray(m, np.float64) / 2595.0) - 1.0)
-
-
-def mel_filterbank(n_mels: int, n_fft: int, sr: int, fmin: float,
-                   fmax: float | None) -> np.ndarray:
-    """HTK-scale triangular filters, (n_fft // 2 + 1, n_mels), unnormalized."""
-    fmax = fmax or sr / 2.0
-    freqs = np.linspace(0.0, sr / 2.0, n_fft // 2 + 1)
-    hz = _mel_to_hz(np.linspace(_hz_to_mel(fmin), _hz_to_mel(fmax),
-                                n_mels + 2))
-    fb = np.zeros((freqs.size, n_mels))
-    for i in range(n_mels):
-        lo, c, hi = hz[i], hz[i + 1], hz[i + 2]
-        up = (freqs - lo) / max(c - lo, 1e-10)
-        down = (hi - freqs) / max(hi - c, 1e-10)
-        fb[:, i] = np.maximum(0.0, np.minimum(up, down))
-    return fb
-
-
-def dft_basis(n_fft: int, win: int) -> np.ndarray:
-    """(win, 2 * (n_fft // 2 + 1)): the periodic Hann window times cos and
-    -sin of the real DFT, so frames @ basis gives (Re | Im)."""
-    n = np.arange(win)[:, None]
-    k = np.arange(n_fft // 2 + 1)[None, :]
-    w = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(win) / win)
-    ang = 2 * np.pi * n * k / n_fft
-    return np.concatenate([w[:, None] * np.cos(ang),
-                           -w[:, None] * np.sin(ang)], axis=1)
-
-
-def frame_count(samples, fe: dict):
-    """Frames of `samples` (int or tensor), no centring."""
-    win = round(fe["sample_rate"] * fe["win_ms"] / 1000)
-    hop = round(fe["sample_rate"] * fe["hop_ms"] / 1000)
-    if isinstance(samples, torch.Tensor):
-        return torch.clamp((samples - win) // hop + 1, min=0)
-    return max(0, (int(samples) - win) // hop + 1)
-
-
-def enc_frames(n_frames):
-    """Encoder frames after the two stride-2 convolutions."""
+# ------------------------------------------------------------ lengths
+def enc_len(samples, fe: dict):
+    """Encoder frames of `samples` (int or tensor): the log-mel's frames
+    after the two stride-2 convolutions."""
+    n_frames = frame_count(samples, fe)
     return ((n_frames + 1) // 2 + 1) // 2
-
-
-def logmel(audio: torch.Tensor, lens: torch.Tensor, fe: dict,
-           prec: Prec) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, Ts) audio, (B,) samples -> (log-mel (B, N, M) with per-utterance
-    CMVN over the valid frames and zeros past them, frame lengths)."""
-    sr = fe["sample_rate"]
-    win = round(sr * fe["win_ms"] / 1000)
-    hop = round(sr * fe["hop_ms"] / 1000)
-    a = fe["preemphasis"]
-    x = audio.float()
-    y = torch.cat([x[:, :1], x[:, 1:] - a * x[:, :-1]], dim=1)
-    N = frame_count(x.shape[1], fe)
-    frames = y.unfold(1, win, hop)[:, :N]
-    basis = torch.tensor(dft_basis(fe["n_fft"], win), dtype=torch.float32,
-                         device=x.device)
-    reim = torch.matmul(prec.q(frames), prec.q(basis))
-    nb = basis.shape[1] // 2
-    power = reim[..., :nb] ** 2 + reim[..., nb:] ** 2
-    fb = torch.tensor(mel_filterbank(fe["n_mels"], fe["n_fft"], sr,
-                                     fe["fmin"], fe["fmax"]),
-                      dtype=torch.float32, device=x.device)
-    feats = torch.log(torch.matmul(prec.q(power), prec.q(fb)) + LOG_EPS)
-    flens = frame_count(lens, fe)
-    valid = (torch.arange(N, device=x.device)[None, :] < flens[:, None])[
-        ..., None]
-    if fe["cmvn"] != "utt":
-        raise ValueError("the reference implements cmvn='utt' only")
-    d = torch.where(valid, feats, 0.0).double()
-    n = flens.clamp(min=1).double()[:, None, None]
-    mean = d.sum(1, keepdim=True) / n
-    var = (torch.where(valid, d - mean, 0.0) ** 2).sum(1, keepdim=True) / n
-    out = ((d - mean) / torch.sqrt(var + 1e-8)).float()
-    return torch.where(valid, out, 0.0), flens
 
 
 # ------------------------------------------------------------ encoder
@@ -491,8 +382,7 @@ def train_steps(P0: dict, batches: list, cfg: dict, prec: Prec, seed: int,
     out = {"loss": []}
     for count, (audio, alens, tokens, tlens, spec) in enumerate(batches):
         B = audio.shape[0]
-        N = frame_count(audio.shape[1], fe)
-        T = enc_frames(N)
+        T = enc_len(audio.shape[1], fe)
         shapes = dropout_shapes(B, T, tokens.shape[1] + 1, m)
         n_enc = 1 + 4 * m["encoder_layers"]
         masks = []
@@ -547,11 +437,13 @@ def train_steps(P0: dict, batches: list, cfg: dict, prec: Prec, seed: int,
 
 
 @torch.no_grad()
-def serve_logits(P: dict, audio, alens, cfg: dict, prec: Prec,
-                 block_rows: int):
-    """CTC logits (B, T', V) and T' lengths of a padded batch, computed in
-    blocks of rows."""
+def serve_reference(P: dict, batch: dict, served, cfg: dict, prec: Prec,
+                    block_rows: int):
+    """What a served request is judged against: the CTC logits (B, T', V)
+    and T' lengths of its padded batch, computed in blocks of rows (the
+    served ids play no part)."""
     m, fe = cfg["model"], cfg["frontend"]
+    audio, alens = batch["audio"], batch["audio_lens"]
     outs, lens = [], []
     for r0 in range(0, audio.shape[0], block_rows):
         feats, flens = logmel(audio[r0:r0 + block_rows],

@@ -1,5 +1,6 @@
-"""Length arithmetic that the work counts share: frames of the log-mel,
-encoder frames after the x4 subsampling, lattice states of CTC."""
+"""What the work counts read of a batch: its lengths on the host, with
+each row's encoder frames and the grid's by the family's own length
+arithmetic (`ref.enc_len`), and the frames of the log-mel."""
 
 from __future__ import annotations
 
@@ -10,15 +11,16 @@ def frames(samples: int, fe: dict) -> int:
     return max(0, (int(samples) - win) // hop + 1)
 
 
-def enc_len(n_frames: int) -> int:
-    return ((n_frames + 1) // 2 + 1) // 2
-
-
-def enc_lens(cfg: dict, batch: dict) -> list[int]:
-    """Each row's encoder frames, from its real samples."""
-    return [enc_len(frames(n, cfg["frontend"])) for n in batch["audio_lens"]]
-
-
-def grid_enc_len(cfg: dict, batch: dict) -> int:
-    """Encoder frames of the padded grid."""
-    return enc_len(frames(batch["grid"], cfg["frontend"]))
+def describe(batch: dict, cfg: dict, ref) -> dict:
+    """B, grid and audio_lens (samples), token_lens where the batch has
+    tokens, and enc_lens and enc_grid: encoder frames of each row's real
+    samples and of the padded grid."""
+    out = {"B": int(batch["audio"].shape[0]),
+           "grid": int(batch["audio"].shape[1]),
+           "audio_lens": batch["audio_lens"].tolist()}
+    if "token_lens" in batch:
+        out["token_lens"] = batch["token_lens"].tolist()
+    fe = cfg["frontend"]
+    out["enc_lens"] = [ref.enc_len(n, fe) for n in out["audio_lens"]]
+    out["enc_grid"] = ref.enc_len(out["grid"], fe)
+    return out

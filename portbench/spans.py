@@ -308,9 +308,10 @@ _CACHE: dict = {}
 
 def cycle_of(ctx) -> Cycle | None:
     """The attribution of the traced run's last cycle (once a run); None
-    without a trace or without a program span in it."""
+    without a trace, where the window closed before any cycle, or without a
+    program span in it."""
     t = ctx.tracer
-    if t is None:
+    if t is None or t.prof.profiler is None:
         return None
     if _CACHE.get("tracer") is not t:
         cyc = attribute(events_of(t.prof))

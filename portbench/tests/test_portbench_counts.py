@@ -6,8 +6,9 @@ and each kernel count equals a hand-worked shape."""
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from portbench import harness
-from portbench.reference import model as ref
+from portbench import harness, shapes
+from portbench.reference import conformer_ctc as ref
+from portbench.reference.common import Prec, logmel, mel_filterbank
 from portbench.tests import small
 from portbench.weights import make_weights
 
@@ -28,17 +29,19 @@ def flops(fn) -> int:
 def test_serve_model_count_matches_flop_counter():
     doc = small.config_doc()
     cfg = doc["config"]
-    w = make_weights(cfg, doc["init"], 3, "cpu")
+    w = make_weights(ref, cfg, doc["init"], 3, "cpu")
     for n in (samples(99), samples(150), samples(171)):
         audio = torch.randn(1, n, generator=torch.Generator().manual_seed(n))
         lens = torch.tensor([n])
 
         def fwd():
-            with torch.no_grad():
-                ref.serve_logits(w, audio, lens, cfg, ref.Prec("fp32"), 1)
+            ref.serve_reference(w, {"audio": audio, "audio_lens": lens},
+                                None, cfg, Prec("fp32"), 1)
 
         want = harness.count("conformer_serve", cfg,
-                             {"B": 1, "grid": n, "audio_lens": [n]})["flops"]
+                             {"B": 1, "grid": n, "audio_lens": [n],
+                              "enc_lens": [ref.enc_len(n, cfg["frontend"])]}
+                             )["flops"]
         assert flops(fwd) == want
 
 
@@ -46,7 +49,7 @@ def test_train_model_count_matches_flop_counter():
     doc = small.config_doc()
     cfg = doc["config"]
     m = cfg["model"]
-    w = make_weights(cfg, doc["init"], 4, "cpu")
+    w = make_weights(ref, cfg, doc["init"], 4, "cpu")
     for n, u in ((samples(120), 5), (samples(161), 9)):
         audio = torch.randn(1, n, generator=torch.Generator().manual_seed(n))
         lens = torch.tensor([n])
@@ -56,19 +59,19 @@ def test_train_model_count_matches_flop_counter():
         def step():
             P = {k: v.clone().requires_grad_(True) for k, v in w.items()}
             with torch.no_grad():
-                feats, flens = ref.logmel(audio, lens, cfg["frontend"],
-                                          ref.Prec("fp32"))
-            enc, elens = ref.encode(P, feats, flens, m, ref.Prec("fp32"))
-            logp = ref.decoder_logp(P, enc, elens, tokens, m,
-                                    ref.Prec("fp32"))
-            loss = ref.hybrid_loss_sum(ref.ctc_logits(P, enc,
-                                                      ref.Prec("fp32")),
+                feats, flens = logmel(audio, lens, cfg["frontend"],
+                                      Prec("fp32"))
+            enc, elens = ref.encode(P, feats, flens, m, Prec("fp32"))
+            logp = ref.decoder_logp(P, enc, elens, tokens, m, Prec("fp32"))
+            loss = ref.hybrid_loss_sum(ref.ctc_logits(P, enc, Prec("fp32")),
                                        elens, logp, tokens, tlens, m)
             torch.autograd.grad(loss, list(P.values()), allow_unused=True)
 
         want = harness.count("conformer_train", cfg,
                              {"B": 1, "grid": n, "audio_lens": [n],
-                              "token_lens": [u]})["flops"]
+                              "token_lens": [u],
+                              "enc_lens": [ref.enc_len(n, cfg["frontend"])]}
+                             )["flops"]
         # FlopCounterMode counts a grouped convolution's weight gradient as
         # if it were dense: the depthwise convolution's, D times its
         # forward instead of once
@@ -82,9 +85,17 @@ def test_train_model_count_matches_flop_counter():
 # encoder frames: 99 log-mel frames -> 25, 40 -> 10; the grid's 120 -> 30
 BATCH = {"B": 2, "grid": samples(120), "audio_lens": [samples(99),
                                                       samples(40)],
-         "token_lens": [3, 2]}
+         "token_lens": [3, 2], "enc_lens": [25, 10], "enc_grid": 30}
 CFG = {"frontend": small.config_doc()["config"]["frontend"],
        "model": {"encoder_layers": 2, "encoder_dim": 8, "encoder_heads": 2}}
+
+
+def test_a_batch_is_described_by_its_familys_lengths():
+    cfg = small.config_doc()["config"]
+    batch = {"audio": torch.zeros(2, BATCH["grid"]),
+             "audio_lens": torch.tensor(BATCH["audio_lens"]),
+             "token_lens": torch.tensor(BATCH["token_lens"])}
+    assert shapes.describe(batch, cfg, ref) == BATCH
 
 
 def test_attention_forward_counts():
@@ -120,7 +131,7 @@ def test_logmel_count():
     w = harness.count("logmel", CFG, BATCH)
     frames = 99 + 40
     bins = 256
-    nnz = int((ref.mel_filterbank(80, 512, SR, 0.0, None) != 0).sum())
+    nnz = int((mel_filterbank(80, 512, SR, 0.0, None) != 0).sum())
     assert 2 * bins - 40 <= nnz <= 2 * bins
     assert w["flops"] == frames * (2 * 400 * 2 * bins + 3 * bins + 2 * nnz)
     assert w["bytes"] == (4 * sum(BATCH["audio_lens"]) + 2 * 400 * 2 * bins

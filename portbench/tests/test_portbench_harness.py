@@ -1,8 +1,9 @@
-"""The harness on the CPU: the files it finds by name, the traffic, the
-names and units of BENCHMARK.json, a run without a card, and the check
-that decides `correct`, which has to pass the program and fail it with the
-timed path broken underneath (a step that leaves the state unchanged, half
-of the batch left out, a served token altered)."""
+"""The harness on the CPU: the files it finds by name (the family's
+reference and path among them), the traffic and a mix's own trace
+schedule, the names and units of BENCHMARK.json, a run without a card,
+and the check that decides `correct`, which has to pass the program and
+fail it with the timed path broken underneath (a step that leaves the
+state unchanged, half of the batch left out, a served token altered)."""
 
 import json
 import re
@@ -37,6 +38,15 @@ def test_every_cell_finds_its_files():
     for c in BENCH["configs"]:
         doc = json.loads((REPO / c["file"]).read_text())
         assert doc["name"] == c["name"] and doc["reduced"] == c["reduced"]
+        assert (root / "reference" / f"{doc['family']}.py").exists()
+        assert (root / "paths" / f"{doc['family']}.py").exists()
+        fam = harness.load_family(doc["family"])
+        for fn in ("param_spec", "enc_len", "serve_reference",
+                   "train_steps"):
+            assert callable(getattr(fam.ref, fn)), (doc["family"], fn)
+        for fn in ("build", "serve_request", "serve_readings",
+                   "control_readings"):
+            assert callable(getattr(fam.path, fn)), (doc["family"], fn)
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert (root / "metrics" / f"{m['name']}.py").exists(), m["name"]
 
@@ -55,6 +65,28 @@ def test_traffic_follows_the_seed():
     assert lens == sorted(int(n) for p in c for n in p["audio_lens"])
     assert [int(n) for n in a[0]["audio_lens"]] != [
         int(n) for n in c[0]["audio_lens"]]
+
+
+@pytest.mark.parametrize("trace,want", [
+    (None, harness.TRACE["serve"]),
+    ({"wait": 1, "active": 2, "cycles": 1},
+     dict(wait=1, active=2, cycles=1, sync_edges=False))])
+def test_a_mix_may_set_its_trace_schedule(monkeypatch, trace, want):
+    from portbench import trace as tracing
+
+    seen = []
+    real = tracing.Tracer.__init__
+
+    def init(self, **kw):
+        seen.append(kw)
+        real(self, **kw)
+
+    monkeypatch.setattr(tracing.Tracer, "__init__", init)
+    mix = dict(small.SERVE_MIX, **({"trace": trace} if trace else {}))
+    r = harness.run(SERVE, 11, 0.3, True, torch.device("cpu"), BENCH,
+                    files=(small.config_doc(), mix, small.limits(SERVE)))
+    assert seen == [want]
+    assert r["correct"] and r["device"]["window_s"] >= 0
 
 
 def test_names_and_units():
@@ -182,19 +214,19 @@ def test_the_float8_control_in_the_programs_place_is_not_correct(
         ctc_greedy_decode,
     )
 
-    from portbench.reference import model as ref
+    from portbench.reference.common import Prec
 
     cfg = small.config_doc()["config"]
+    fam = harness.load_family("conformer_ctc")
 
     def control(model, batch):
         w = {n: p.detach() for n, p in model.named_parameters()}
-        logits, lens = ref.serve_logits(w, batch["audio"],
-                                        batch["audio_lens"], cfg,
-                                        ref.Prec("fp8"), 8)
+        logits, lens = fam.ref.serve_reference(w, batch, None, cfg,
+                                               Prec("fp8"), 8)
         hyp, hyp_lens = ctc_greedy_decode(logits, lens)
         return torch.cat([hyp_lens[:, None], hyp], dim=1).cpu(), logits
 
-    monkeypatch.setattr(harness, "serve_request", control)
+    monkeypatch.setattr(fam.path, "serve_request", control)
     assert not run_small(SERVE, small.SERVE_MIX)["correct"]
 
 
@@ -202,7 +234,8 @@ def test_the_float8_control_in_the_solvers_place_is_not_correct(
         monkeypatch):
     """Training: the reference's steps with their products in float8 stand
     for the Solver's first steps."""
-    from portbench.reference import model as ref
+    from portbench.reference import conformer_ctc as ref
+    from portbench.reference.common import Prec
 
     cfg = small.config_doc()["config"]
 
@@ -210,7 +243,7 @@ def test_the_float8_control_in_the_solvers_place_is_not_correct(
         bs = [tuple(torch.as_tensor(a) for a in (
             b.audio, b.audio_lens, b.tokens, b.token_lens)) + (masks[k],)
             for k, b in enumerate(batches[:n])]
-        return ref.train_steps(weights, bs, cfg, ref.Prec("fp8"),
+        return ref.train_steps(weights, bs, cfg, Prec("fp8"),
                                solver.cfg.train.seed, 8)
 
     monkeypatch.setattr(harness, "first_steps", control)

@@ -1,11 +1,14 @@
-"""The benchmark loads neither JAX nor the JAX package, and its reference
-loads nothing of the program: each checked in a fresh interpreter, by the
+"""The benchmark loads neither JAX nor the JAX package, and no module of
+its references (`reference/*.py`, `common` with the families) loads
+anything of the program: each checked in a fresh interpreter, by the
 top-level name of every loaded module compared whole."""
 
 import json
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parents[2]
 JAX_PACKAGE = "pytorch_end2end_speech_recognition_tpu"
@@ -27,10 +30,12 @@ print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
 REFERENCE_ONLY = """
-import json, sys
-import portbench.reference.model
-print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+import importlib, json, sys
+importlib.import_module("portbench.reference.{}")
+print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
+REFERENCES = sorted(p.stem for p in (REPO / "portbench" / "reference")
+                    .glob("*.py") if p.stem != "__init__")
 
 
 def _top_level_modules(code: str) -> set:
@@ -47,7 +52,8 @@ def test_harness_loads_no_jax():
         assert name not in tops
 
 
-def test_reference_loads_nothing_of_the_program():
-    tops = _top_level_modules(REFERENCE_ONLY)
+@pytest.mark.parametrize("module", REFERENCES)
+def test_reference_loads_nothing_of_the_program(module):
+    tops = _top_level_modules(REFERENCE_ONLY.format(module))
     for name in ("jax", "jaxlib", "flax", JAX_PACKAGE, PORT):
         assert name not in tops

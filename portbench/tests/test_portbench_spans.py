@@ -3,9 +3,10 @@ their launches, on hand-made event lists (correlation to launch to the
 innermost span, the backward on a second thread by sequence number, the
 phase by the main thread's time, self time, `(outside)`, idle labels),
 the readers on a hand-made serve cycle (their sum is the busy time) and on
-a trace without spans (all None), the FFN count, and one real CPU profile
-of the small model with a device operation made for each of its
-operators."""
+a trace without spans (all None), the FFN count and roofline (nothing of
+a cycle the window cut), the Tracer's finished cycles on a real CPU
+profile, and one real CPU profile of the small model with a device
+operation made for each of its operators."""
 
 from types import SimpleNamespace
 
@@ -191,12 +192,17 @@ class Kineto:
 
 
 class FakeTracer:
-    """A `Tracer` whose profiler holds `events` as its last cycle."""
+    """A `Tracer` whose profiler holds `events` as its last cycle, which
+    ran to its end unless `finished` says which steps did."""
 
-    def __init__(self, events):
+    def __init__(self, events, finished=None):
         raw = [Kineto(e) for e in events]
         self.prof = SimpleNamespace(profiler=SimpleNamespace(
             kineto_results=SimpleNamespace(events=lambda: raw)))
+        if finished is None:
+            finished = {int(e["name"].split("#")[1]) for e in events
+                        if e["name"].startswith("ProfilerStep#")}
+        self.finished = finished
 
 
 def ctx_of(events, mode, batches=None):
@@ -268,7 +274,8 @@ def test_ffn_count_and_roofline():
                      "encoder_ffn_dim": 32}}
     # encoder frames 25 and 10 (test_portbench_counts.BATCH)
     batch = {"B": 2, "grid": 400 + 160 * 119,
-             "audio_lens": [400 + 160 * 98, 400 + 160 * 39]}
+             "audio_lens": [400 + 160 * 98, 400 + 160 * 39],
+             "enc_lens": [25, 10], "enc_grid": 30}
     w = harness.count("ffn", cfg, batch)
     assert w["flops"] == 2 * 8 * 35 * 8 * 32 == 143360
     half = 2 * (2 * 8 * 32 + 32 + 8) + 4 * 2 * 8 + 2 * 2 * 35 * 8
@@ -282,6 +289,50 @@ def test_ffn_count_and_roofline():
     want = 2 * least_seconds(harness.count("ffn", doc["config"], batch))
     got = load("ffn_roofline").read(ctx)
     assert got == pytest.approx(100 * want / 34e-6)
+
+
+def test_ffn_roofline_reads_nothing_of_a_cycle_the_window_cut():
+    """The window closed inside the last cycle: the profiler's step after
+    the last request (5) is in the cycle, and no batch stands for it."""
+    batch = {"B": 2, "grid": 400 + 160 * 119,
+             "audio_lens": [400 + 160 * 98, 400 + 160 * 39],
+             "enc_lens": [25, 10], "enc_grid": 30}
+    ctx = harness.Context(small.config_doc(), small.SERVE_MIX, {},
+                          FakeTracer(serve_cycle(), finished=set()),
+                          [dict(batch)] * 5)
+    assert load("ffn_roofline").read(ctx) is None
+
+
+@pytest.mark.parametrize("steps,finished", [
+    (12, [3, 4, 5, 9, 10, 11]),   # both cycles ran to their end
+    (11, [3, 4, 5]),              # the window closed inside the second
+    (10, [3, 4, 5])])
+def test_the_tracer_knows_which_cycles_finished(steps, finished):
+    from portbench.trace import Tracer
+
+    t = Tracer(wait=2, active=3, cycles=2, sync_edges=False)
+    with t:
+        for i in range(steps):
+            t.before(i)
+            torch.ones(8).sum()
+            t.after(i)
+    assert sorted(t.finished) == finished
+    assert t.profiled[:len(finished)] == finished
+
+
+def test_readers_read_nothing_where_the_window_closed_before_any_cycle():
+    from portbench.trace import Tracer
+
+    t = Tracer(wait=5, active=1, cycles=1, sync_edges=False)
+    with t:
+        for i in range(2):
+            t.before(i)
+            t.after(i)
+    ctx = harness.Context(small.config_doc(), small.SERVE_MIX, {}, t,
+                          [{}] * 2)
+    assert spans.cycle_of(ctx) is None
+    for n in SERVE_READERS + ("ffn_roofline",):
+        assert load(n).read(ctx) is None, n
 
 
 def device_ops_for_each_operator(events):
@@ -317,10 +368,11 @@ def profiled(fn):
 
 def test_a_real_profile_of_the_small_model():
     doc = small.config_doc()
-    cfg, model = harness.build_program(doc, "cpu")
+    path = harness.load_family(doc["family"]).path
+    cfg, model = path.build(doc["config"], "cpu")
     pool = traffic.make_pool(small.TRAIN_MIX, doc["config"], 5, "cpu")
     with torch.inference_mode():
-        c = profiled(lambda: harness.serve_request(model, pool[0]))
+        c = profiled(lambda: path.serve_request(model, pool[0]))
     assert {"asr.frontend", "asr.subsample", "asr.rel_bias", "asr.block",
             "asr.ffn", "asr.mhsa", "asr.conv", "asr.ctc_head",
             "asr.greedy"} <= set(c.self_us)

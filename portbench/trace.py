@@ -84,7 +84,9 @@ class Tracer:
     around step i. With `sync_edges`, the device is drained before a
     cycle's first profiled step and after its last, so that a cycle holds
     its own steps' work and no other (for steps that do not wait for the
-    device themselves)."""
+    device themselves). `profiled` lists the steps profiled, `finished`
+    those of the cycles that ran to their end (a window can close inside
+    its last cycle)."""
 
     def __init__(self, wait: int, active: int, cycles: int,
                  sync_edges: bool):
@@ -92,6 +94,7 @@ class Tracer:
                                              active=active, repeat=cycles)
         self.sync_edges = sync_edges
         self.profiled: list[int] = []
+        self.finished: set[int] = set()
         self.cycles: list[dict] = []
         self.prof = torch.profiler.profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -115,8 +118,10 @@ class Tracer:
         self._action = act
 
     def after(self, i: int) -> None:
-        if self.sync_edges and self._action == ProfilerAction.RECORD_AND_SAVE:
-            torch.cuda.synchronize()
+        if self._action == ProfilerAction.RECORD_AND_SAVE:
+            if self.sync_edges:
+                torch.cuda.synchronize()
+            self.finished = set(self.profiled)
         self.prof.step()
 
     def _ready(self, prof) -> None:

@@ -135,12 +135,3 @@ def make_pool(mix: dict, cfg: dict, seed: int, dev) -> list[dict]:
         pool.append(batch)
     return pool
 
-
-def describe(batch: dict) -> dict:
-    """What a work count reads of a batch: lengths on the host."""
-    out = {"B": int(batch["audio"].shape[0]),
-           "grid": int(batch["audio"].shape[1]),
-           "audio_lens": batch["audio_lens"].tolist()}
-    if "token_lens" in batch:
-        out["token_lens"] = batch["token_lens"].tolist()
-    return out

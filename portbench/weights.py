@@ -2,8 +2,9 @@
 
 One draw of standard normals for every normal leaf together, cut into the
 leaves and scaled; zeros and ones for biases and LayerNorm scales. The
-names and shapes are the reference's (`reference.model.param_spec`), which
-are the program's; both sides are handed this one state dict.
+names and shapes are the family reference's (`ref.param_spec`, given the
+configuration and its `init`), which are the program's; both sides are
+handed this one state dict.
 """
 
 from __future__ import annotations
@@ -12,11 +13,11 @@ import math
 
 import torch
 
-from portbench.reference.model import param_spec
 
-
-def make_weights(cfg: dict, init: dict, seed: int, dev) -> dict:
-    spec = param_spec(cfg["model"], init["rel_table_std"])
+def make_weights(ref, cfg: dict, init: dict, seed: int, dev) -> dict:
+    """The weights of configuration `cfg` by the reference module `ref`'s
+    parameter list, from `seed` on `dev`."""
+    spec = ref.param_spec(cfg, init)
     sizes = [math.prod(shape) for _, shape, kind, _ in spec if kind == "normal"]
     gen = torch.Generator(device=dev).manual_seed(seed)
     flat = torch.randn(sum(sizes), generator=gen, device=dev)
