@@ -39,8 +39,12 @@ Phases, every one of which must pass (the script exits non-zero otherwise):
    dbias, flash backward's ddiag) launched twice on the same inputs, the
    count of elements whose bits differ printed, which must be 0; [3k] the
    subsampling kernel at the serving cells' shapes (M 30 s, L 30 s, M 65
-   s), held to its plain version and timed in turns with it and with
-   cuDNN's bare convolutions;
+   s, OWSM 30 s at C 1024), held to its plain version and timed in turns
+   with it and with cuDNN's bare convolutions; [3l] the attention forward
+   without a bias at OWSM v3.1 medium's layer (B=32 x T' 750, d1024, H16)
+   against the plain version without a bias on ragged and full lengths
+   (controls: lengths ignored, a bias not added), timed in turns with
+   SDPA;
 4. the main path: the `flagship_conformer` preset at full width (12 L, d256,
    H4, FFN 1024, vocab 64), bf16, seeded random weights, encode -> CTC
    logits -> greedy decode on a ragged batch of 32 requests padded to 30 s;
@@ -1622,7 +1626,7 @@ def ffn_kernel_phase(dev, gen, peaks, card, kernels) -> None:
 
 # the serving cells' subsampling shapes: (tag, B, T frames, C); n_mels 80
 SUB_SHAPES = (("M 30 s", 256, 2998, 256), ("L 30 s", 128, 2998, 512),
-              ("M 65 s", 128, 6551, 256))
+              ("M 65 s", 128, 6551, 256), ("OWSM 30 s", 32, 2998, 1024))
 
 
 def sub_excess(out, ref) -> float:
@@ -1718,6 +1722,80 @@ def subsample_kernel_phase(dev, peaks, card, kernels) -> None:
         replaces="none (XLA's convolutions in the JAX package)",
         **{k: v for k, v in rows[0].items() if k != "shape"},
         shapes=rows, max_excess=worst)
+
+
+# the attention of the absolute-position encoders: one layer of OWSM v3.1
+# medium's serving cell, (B, T', D, H) = (32, 750, 1024, 16)
+NOBIAS_SHAPE = (32, 750, 1024, 16)
+
+
+def nobias_attention_phase(dev, peaks, card, shape=NOBIAS_SHAPE) -> None:
+    """[3l] the attention forward without a bias (`attention_fwd_kernel<0>`,
+    the E-Branchformer's; [3c] runs it only as a control) at `shape`: held
+    on ragged (with 1, 2 and T') and full lengths to `attention_plain`
+    without a bias under [3c]'s tolerance; controls that must fail the same
+    check: the lengths ignored, and a bias (std BIAS_STD) that the kernel
+    does not add; timed in turns against SDPA without a mask at full
+    lengths. Draws from a generator of its own."""
+    from pytorch_end2end_speech_recognition_tpu_torch.ops.attention_kernel import (  # noqa: E501
+        attention_fwd,
+        attention_plain,
+        fused_attention,
+    )
+
+    B, T, D, H = shape
+    gen = torch.Generator().manual_seed(23)
+    q, k, v = (torch.randn(B, T, D, generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    full = torch.full((B,), T, dtype=torch.int32, device=dev)
+    ragged = torch.randint(1, T + 1, (B,), generator=gen, dtype=torch.int32)
+    ragged[0], ragged[1], ragged[2] = 1, 2, T
+    ragged = ragged.to(dev)
+    bias = (torch.randn(H, T, T, generator=gen) * BIAS_STD).to(
+        dev, torch.bfloat16)
+
+    def excess(out, lens, bias_ref=None):
+        """(max |out - plain| on valid rows, share of valid elements beyond
+        the bf16 tolerance) against the plain version with `bias_ref`."""
+        ref = attention_plain(q, k, v, bias_ref, lens, H).float()
+        pv = attention_plain(q, k, v.abs(), bias_ref, lens, H).float()
+        valid = (torch.arange(T, device=dev)[None, :]
+                 < lens[:, None])[..., None].expand_as(ref)
+        diff = (out.float() - ref).abs()
+        over = (diff > ATTN_RTOL * ref.abs() + ATTN_VTOL * pv) & valid
+        return diff[valid].max().item(), over.sum().item() / valid.sum().item()
+
+    where = f"B={B} x T' {T}, D {D}, H {H}"
+    for tag, lens in (("ragged", ragged), ("full", full)):
+        err, share = excess(fused_attention(q, k, v, None, lens, H), lens)
+        print(f"[3l] attention without a bias, {where}, {tag} lens: max "
+              f"|kernel - plain| on valid rows = {err:.3e}; share beyond "
+              f"2^-7|o| + 2^-6 p.|v|: {share:.3e}", flush=True)
+        check(share == 0.0, f"[3l] attention without a bias ({tag}) "
+              f"disagrees ({err}, {share})")
+    for tag, out, lens, bias_ref in (
+            ("lengths ignored", fused_attention(q, k, v, None, full, H),
+             ragged, None),
+            ("a bias not added", fused_attention(q, k, v, None, full, H),
+             full, bias)):
+        err, share = excess(out, lens, bias_ref)
+        print(f"[3l] attention without a bias, control, {tag}: max |diff| "
+              f"{err:.3e}, share beyond tolerance {share:.3e} (must be > 0)",
+              flush=True)
+        check(share > 0.0, f"[3l] control '{tag}' passed the check")
+    qh, kh, vh = (t.view(B, T, H, D // H).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 4.0 * T * T * D * B
+    b_ms, _ = bound(nbytes(q, k, v, q, full),  # q, k, v read, o written
+                    flops / peaks["bf16_flops"], peaks)
+    turns = turns_ms({
+        "kernel": lambda: attention_fwd(q, k, v, None, full, H),
+        "library": lambda: sdpa(qh, kh, vh)})
+    print_turns(f"[3l] attention forward without a bias (wgmma) {where} "
+                "against SDPA without a mask", turns, flops, b_ms, card)
+    del q, k, v, qh, kh, vh, bias
+    torch.cuda.empty_cache()
 
 
 def serve(m, a, al):
@@ -6036,6 +6114,7 @@ def main() -> int:
                     "library": lambda: sdpa(qh, kh, vh, attn_mask=bcast)}),
                 flops, b_ms, card)
     del qh, kh, vh, sdpa_mask, bcast
+    nobias_attention_phase(dev, peaks, card)
 
     # ---- [3d] Toeplitz reduce: the cotangent of every layer's bias block,
     # bf16 with a zero pad band (as the attention backward leaves it), at

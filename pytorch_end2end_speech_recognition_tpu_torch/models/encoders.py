@@ -1,6 +1,7 @@
 """Encoders (the port of the JAX package's `models/encoders.py`): the
 stacked BiLSTM, the pyramidal BiLSTM with its VGG front, the Transformer and
-the Conformer.
+the Conformer; and the port's own E-Branchformer (`EBranchformerEncoder`),
+which the JAX package does not have.
 
 Modules take (feats (B, T, F), frame_lens) and return (enc (B, T', D),
 enc_lens) with the reference's length math. Parameters are float32 and
@@ -14,9 +15,10 @@ subsampling, and after every LSTM layer); the generator's numbers are not JAX's 
 training with dropout 0. With `model.ffn_impl='cuda'` every `FfnBlock` that
 the JAX package's gate would send to its fused Pallas FFN runs the fused FFN
 kernels (`ops/ffn_kernel.py`), whose dropout draws its seed from the same
-generator. With `model.remat` each block of the Transformer and Conformer
-stacks runs under `torch.utils.checkpoint` in training (the JAX package's
-`jax.checkpoint`), its recompute replaying the generator's draws.
+generator. With `model.remat` each block of the Transformer, Conformer and
+E-Branchformer stacks runs under `torch.utils.checkpoint` in training (the
+JAX package's `jax.checkpoint`), its recompute replaying the generator's
+draws.
 
 Tensor parallelism (`parallel/sharding.py` shards the parameters, then sets
 `tp_group` on the modules that have one): MhsaBlock (q/k/v
@@ -481,30 +483,38 @@ class MhsaBlock(nn.Module):
 
     def forward(self, x, mask, bias=None, diag=None, train=False, gen=None,
                 sp=False):
-        """`bias`: this block's (H, P, P) slice of the stacked dense biases;
-        `diag`: its (H, 2T-1) float32 diagonals on the flash and CP paths
-        (this rank's heads under tensor parallelism, every head under CP);
-        `sp`: x is this rank's time slice (mask stays whole)."""
+        """x + dropout(`branch`): the residual sub-layer, in `asr.mhsa`."""
         with span("asr.mhsa"):
-            g = self.tp_group
-            h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt),
-                       g, sp)
-            qf = _col(h, self.q, self.dt, g)
-            kf = _col(h, self.k, self.dt, g)
-            vf = _col(h, self.v, self.dt, g)
-            lens = mask.sum(dim=1).to(torch.int32)
-            if self.cp_mode and g is not None:
-                B, T = mask.shape
-                q, k, v = (gather_features(t, g).float().reshape(
-                    B, T, self.heads, -1) for t in (qf, kf, vf))
-                y = split_features(sharded_self_attention(
-                    g, q, k, v, lens, self.cp_mode, diag).reshape(B, T, -1), g)
-            else:
-                y = sharded_fused_attention(size(g), qf, kf, vf, bias, lens,
-                                            self.heads, diag=diag,
-                                            plain=self.attn_impl != "cuda")
-            y = _row(y, self.o, self.dt, g, sp).to(self.rdt)
-            return x + dropout(y, self.rate, gen, train, g if sp else None)
+            y = self.branch(x, mask, bias, diag, sp)
+            return x + dropout(y, self.rate, gen, train,
+                               self.tp_group if sp else None)
+
+    def branch(self, x, mask, bias=None, diag=None, sp=False):
+        """o(attention(q, k, v)) of LN(x) in the residual dtype, without the
+        dropout and the residual (E-Branchformer's global branch); opens no
+        span, its caller's holds it. `bias`: this block's (H, P, P) slice of
+        the stacked dense biases; `diag`: its (H, 2T-1) float32 diagonals on
+        the flash and CP paths (this rank's heads under tensor parallelism,
+        every head under CP); `sp`: x is this rank's time slice (mask stays
+        whole)."""
+        g = self.tp_group
+        h = _enter(_layer_norm(x, self.ln, g if sp else None).to(self.dt),
+                   g, sp)
+        qf = _col(h, self.q, self.dt, g)
+        kf = _col(h, self.k, self.dt, g)
+        vf = _col(h, self.v, self.dt, g)
+        lens = mask.sum(dim=1).to(torch.int32)
+        if self.cp_mode and g is not None:
+            B, T = mask.shape
+            q, k, v = (gather_features(t, g).float().reshape(
+                B, T, self.heads, -1) for t in (qf, kf, vf))
+            y = split_features(sharded_self_attention(
+                g, q, k, v, lens, self.cp_mode, diag).reshape(B, T, -1), g)
+        else:
+            y = sharded_fused_attention(size(g), qf, kf, vf, bias, lens,
+                                        self.heads, diag=diag,
+                                        plain=self.attn_impl != "cuda")
+        return _row(y, self.o, self.dt, g, sp).to(self.rdt)
 
 
 def ffn_fused(cfg: ModelConfig, mesh=None) -> bool:
@@ -591,15 +601,21 @@ class ConvModule(nn.Module):
                        g, sp)
             h = F.glu(_col(h, self.pw1, self.dt, g, glu=True), dim=-1)
             # the depthwise conv must not see pad
-            h = masked(h, mask[..., None])
-            K = self.dw.kernel_size[0]
-            h = F.pad(h.transpose(1, 2), ((K - 1) // 2, K - 1 - (K - 1) // 2))
-            h = F.conv1d(h, _part(self.dw.weight, g).to(self.dt),
-                         _part(self.dw.bias, g).to(self.dt),
-                         groups=h.shape[1]).transpose(1, 2)
+            h = _depthwise(masked(h, mask[..., None]),
+                           _part(self.dw.weight, g).to(self.dt),
+                           _part(self.dw.bias, g).to(self.dt))
             h = F.silu(_channel_ln(h, self.norm, g))
             h = _row(h, self.pw2, self.dt, g, sp).to(self.rdt)
             return x + dropout(h, self.rate, gen, train, g if sp else None)
+
+
+def _depthwise(h: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """A depthwise convolution over time of h (B, T, C) with `weight`
+    (C, 1, K): zero 'same' padding, (K - 1) // 2 frames before."""
+    K = weight.shape[-1]
+    h = F.pad(h.transpose(1, 2), ((K - 1) // 2, K - 1 - (K - 1) // 2))
+    return F.conv1d(h, weight, bias, groups=h.shape[1]).transpose(1, 2)
 
 
 def _channel_ln(h: torch.Tensor, ln: nn.LayerNorm, group) -> torch.Tensor:
@@ -651,6 +667,92 @@ class TransformerBlock(nn.Module):
         with span("asr.block"):
             return self.ffn(self.mhsa(x, mask, bias, diag, train, gen, sp),
                             train, gen, sp)
+
+
+class CgmlpBranch(nn.Module):
+    """E-Branchformer's local branch, the convolutional gating MLP (ESPnet's
+    `ConvolutionalGatingMLP` with an identity gate and no linear after the
+    gating convolution): (r, z) = the halves of GELU(fc1(LN(x))), then
+    dropout(fc2(r * dw(norm(z)))), dw a depthwise convolution over time on
+    the gate half. The pad frames are zeroed before it, as in `ConvModule`
+    (ESPnet convolves them as they are), so that a row's output does not
+    depend on its batch's padding."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        D, U = cfg.encoder_dim, cfg.cgmlp_units
+        self.ln = nn.LayerNorm(D, eps=LN_EPS)
+        self.fc1 = nn.Linear(D, U)
+        self.norm = nn.LayerNorm(U // 2, eps=LN_EPS)
+        self.dw = nn.Conv1d(U // 2, U // 2, cfg.cgmlp_kernel, groups=U // 2)
+        self.fc2 = nn.Linear(U // 2, D)
+        self.rate = cfg.encoder_dropout
+        self.dt, self.rdt = _dt(cfg), _rdt(cfg)
+
+    def forward(self, x, mask, train=False, gen=None):
+        with span("asr.cgmlp"):
+            h = F.gelu(_linear(_layer_norm(x, self.ln), self.fc1, self.dt))
+            r, z = h.chunk(2, dim=-1)
+            z = masked(_layer_norm(z, self.norm).to(self.dt), mask[..., None])
+            z = _depthwise(z, self.dw.weight.to(self.dt),
+                           self.dw.bias.to(self.dt))
+            y = _linear(r * z, self.fc2, self.dt).to(self.rdt)
+            return dropout(y, self.rate, gen, train)
+
+
+class MergeBlock(nn.Module):
+    """E-Branchformer's merge: m = [a, c] (the two branches' outputs side by
+    side), x + dropout(proj(m + dw(m))), dw a depthwise convolution over
+    time on the 2D channels, its input's pad frames zeroed (as in
+    `CgmlpBranch`)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        D2 = 2 * cfg.encoder_dim
+        self.dw = nn.Conv1d(D2, D2, cfg.merge_kernel, groups=D2)
+        self.proj = nn.Linear(D2, cfg.encoder_dim)
+        self.rate = cfg.encoder_dropout
+        self.dt, self.rdt = _dt(cfg), _rdt(cfg)
+
+    def forward(self, x, a, c, mask, train=False, gen=None):
+        with span("asr.merge"):
+            m = torch.cat([a, c], dim=-1).to(self.dt)
+            y = m + _depthwise(masked(m, mask[..., None]),
+                               self.dw.weight.to(self.dt),
+                               self.dw.bias.to(self.dt))
+            y = _linear(y, self.proj, self.dt).to(self.rdt)
+            return x + dropout(y, self.rate, gen, train)
+
+
+class EBranchformerBlock(nn.Module):
+    """An E-Branchformer layer (Kim et al. 2022; ESPnet's
+    `EBranchformerEncoderLayer`, pre-LN): the macaron FFN's half step; the
+    attention branch (`MhsaBlock.branch`: its own layer norm, no residual)
+    and the cgMLP branch side by side on that x; their merge, added to x;
+    the second FFN half step; the block's layer norm. Dropout draws from
+    `gen` in this order, each (B, T, D): ff1's output, the attention
+    branch, the cgMLP branch, the merge's output, ff2's output."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.ff1 = FfnBlock(cfg, scale=0.5)
+        self.mhsa = MhsaBlock(cfg)
+        self.cgmlp = CgmlpBranch(cfg)
+        self.merge = MergeBlock(cfg)
+        self.ff2 = FfnBlock(cfg, scale=0.5)
+        self.ln = nn.LayerNorm(cfg.encoder_dim, eps=LN_EPS)
+
+    def forward(self, x, mask, bias=None, diag=None, train=False, gen=None,
+                sp=False):
+        with span("asr.block"):
+            x = self.ff1(x, train, gen)
+            with span("asr.mhsa"):
+                a = dropout(self.mhsa.branch(x, mask, bias, diag),
+                            self.mhsa.rate, gen, train)
+            c = self.cgmlp(x, mask, train, gen)
+            x = self.merge(x, a, c, mask, train, gen)
+            x = self.ff2(x, train, gen)
+            return _layer_norm(x, self.ln).to(x.dtype)
 
 
 def sp_enabled(cfg: ModelConfig, group, T: int) -> bool:
@@ -752,19 +854,26 @@ class TransformerEncoder(_BlockEncoder):
     sinusoidal PE added after the subsampling when `pos_encoding` is
     'absolute', a final LayerNorm; (B, T', D) float32."""
 
+    block = TransformerBlock
+
     def __init__(self, d_in: int, cfg: ModelConfig):
-        super().__init__(d_in, cfg, TransformerBlock)
+        super().__init__(d_in, cfg, self.block)
         self.ln_out = nn.LayerNorm(cfg.encoder_dim, eps=LN_EPS)
+
+    def _positions(self, x):
+        """x, the subsampled frames, with the sinusoidal table added
+        under absolute PE."""
+        if self.rel is None:
+            pe = torch.from_numpy(sinusoidal_pe(x.shape[1], x.shape[2]))
+            x = x + pe.to(x.device, x.dtype)
+        return x
 
     def forward(self, x, lens, train: bool = False,
                 generator: torch.Generator | None = None):
         x = masked(x, length_mask(lens, x.shape[1])[..., None])
         x, lens = self.sub(x, lens)
         T = x.shape[1]
-        if self.rel is None:
-            pe = torch.from_numpy(sinusoidal_pe(T, x.shape[2]))
-            x = x + pe.to(x.device, x.dtype)
-        x = dropout(x, self.rate, generator, train)
+        x = dropout(self._positions(x), self.rate, generator, train)
         mask = length_mask(lens, T)
         x = _layer_norm(self._apply_blocks(x, mask, train, generator),
                         self.ln_out)
@@ -785,6 +894,29 @@ class ConformerEncoder(_BlockEncoder):
         return masked(x, mask[..., None]), lens
 
 
+class EBranchformerEncoder(TransformerEncoder):
+    """Conv-subsampled E-Branchformer encoder: `TransformerEncoder`'s stack
+    of E-Branchformer blocks, with ESPnet's absolute positions (x * sqrt(D)
+    + the sinusoidal table). One card, no mesh split: `pos_encoding` other
+    than 'absolute', `cp_mode`, `pp_stages > 1` and `sp` raise here, tensor
+    parallelism in `shard_model`, streaming and export where they start."""
+
+    block = EBranchformerBlock
+
+    def __init__(self, d_in: int, cfg: ModelConfig):
+        for name, on in (("pos_encoding", cfg.pos_encoding != "absolute"),
+                         ("cp_mode", bool(cfg.cp_mode)),
+                         ("pp_stages", cfg.pp_stages > 1), ("sp", cfg.sp)):
+            if on:
+                raise ValueError(f"the e_branchformer encoder does not run "
+                                 f"model.{name}={getattr(cfg, name)!r}")
+        super().__init__(d_in, cfg)
+
+    def _positions(self, x):
+        T, D = x.shape[1], x.shape[2]
+        return x * D ** 0.5 + pe_table(T, D, x.device).to(x.dtype)
+
+
 def build_encoder(d_in: int, cfg: ModelConfig) -> nn.Module:
     """The encoder of `cfg.encoder` (`shard_model` shards it for a
     mesh)."""
@@ -796,4 +928,6 @@ def build_encoder(d_in: int, cfg: ModelConfig) -> nn.Module:
         return ConformerEncoder(d_in, cfg)
     if cfg.encoder == "transformer":
         return TransformerEncoder(d_in, cfg)
+    if cfg.encoder == "e_branchformer":
+        return EBranchformerEncoder(d_in, cfg)
     raise ValueError(f"unknown encoder kind {cfg.encoder}")

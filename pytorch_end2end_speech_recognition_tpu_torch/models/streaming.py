@@ -29,6 +29,9 @@ import torch.nn.functional as F
 from pytorch_end2end_speech_recognition_tpu_torch.ops.frontend import (
     num_frames,
 )
+from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+    refuse_e_branchformer,
+)
 
 
 def encoded_len(cfg, n_samples: int) -> int:
@@ -70,6 +73,7 @@ class StreamingEncoder:
     model's device."""
 
     def __init__(self, model, chunk_s: float = 8.0, overlap_s: float = 2.0):
+        refuse_e_branchformer(model.cfg.model, "streaming")
         self.model = model
         self.device = _device(model)
         sr = model.cfg.frontend.sample_rate

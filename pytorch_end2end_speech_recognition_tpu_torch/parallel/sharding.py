@@ -58,6 +58,9 @@ from pytorch_end2end_speech_recognition_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     Mesh,
 )
+from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+    refuse_e_branchformer,
+)
 
 # (JAX path regex, spec); first match wins. Paths look like
 # 'encoder/layers/0/fwd/w_ih' or 'encoder/blocks/3/mhsa/q/kernel'.
@@ -198,9 +201,14 @@ def tp_rules_of(model: nn.Module) -> bool:
     """The JAX Solver's `tp_rules=cfg.model.pp_stages <= 1` for `model`
     (an `AsrModel`, whose `cfg` is an AsrConfig, or an encoder, whose `cfg`
     is a ModelConfig)."""
+    return getattr(_model_cfg(model), "pp_stages", 1) <= 1
+
+
+def _model_cfg(model: nn.Module):
+    """The ModelConfig of an `AsrModel` (`cfg.model`) or an encoder
+    (`cfg`); None for a module without one."""
     cfg = getattr(model, "cfg", None)
-    cfg = getattr(cfg, "model", cfg)
-    return getattr(cfg, "pp_stages", 1) <= 1
+    return getattr(cfg, "model", cfg)
 
 
 def shard_model(model: nn.Module, mesh: Mesh) -> dict:
@@ -209,10 +217,14 @@ def shard_model(model: nn.Module, mesh: Mesh) -> dict:
     returns `shard_dims`, kept with `param_specs` (both of the whole model)
     as `model.shard_dims` and `model.param_specs`. Raises where a
     tensor-parallel module's widths do not split tp ways (heads,
-    features), which the port does not run. Under pipeline parallelism
+    features), and for an E-Branchformer encoder at tp > 1, which the port
+    does not run. Under pipeline parallelism
     (`tp_rules_of(model)` false) every parameter stays whole and no
     module gets a group; the encoder still learns the mesh, for its
     pipeline."""
+    mcfg = _model_cfg(model)
+    if mesh.tp > 1 and mcfg is not None:
+        refuse_e_branchformer(mcfg, f"tensor parallelism (tp={mesh.tp})")
     tp_rules = tp_rules_of(model)
     dims = shard_dims(mesh, model) if tp_rules else {}
     specs = (param_specs(mesh, model) if tp_rules else

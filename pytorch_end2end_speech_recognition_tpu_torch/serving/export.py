@@ -66,6 +66,9 @@ from pytorch_end2end_speech_recognition_tpu_torch.ops import (  # noqa: F401
 from pytorch_end2end_speech_recognition_tpu_torch.ops.ctc import (
     ctc_greedy_decode,
 )
+from pytorch_end2end_speech_recognition_tpu_torch.utils.config import (
+    refuse_e_branchformer,
+)
 
 FORMATS = {"greedy": "torch.export", "beam": "state"}
 
@@ -103,6 +106,7 @@ def export_bundle(cfg, tokenizer, out_dir, checkpoint_tag="best",
     export; rank 0 writes the bundle, on the mesh's device."""
     if mode not in FORMATS:
         raise ValueError(f"unknown bundle mode {mode!r}: 'greedy' or 'beam'")
+    refuse_e_branchformer(cfg.model, "export_bundle")
     from pytorch_end2end_speech_recognition_tpu_torch.models.streaming import (
         encoded_len,
     )

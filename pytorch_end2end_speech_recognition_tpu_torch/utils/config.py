@@ -6,6 +6,13 @@ train.lr=1e-3`). The fields and their defaults are the JAX package's, so one
 config describes the same model in both packages; only the implementation
 fields take the port's values (`auto | torch | cuda`), and `resolve_device`
 maps `auto` to concrete values for a torch device.
+
+The E-Branchformer encoder (`model.encoder='e_branchformer'`) and its
+branch widths (`cgmlp_units`, `cgmlp_kernel`, `merge_kernel`) are the
+port's own: the first model fields the JAX package does not have. A config
+that sets them describes a model only the port runs; every other config
+leaves them at their defaults and round-trips between the packages as
+before.
 """
 
 from __future__ import annotations
@@ -57,7 +64,8 @@ class FrontendConfig:
 
 @dataclass
 class ModelConfig:
-    # encoder: 'blstm' | 'pblstm' | 'transformer' | 'conformer'
+    # encoder: 'blstm' | 'pblstm' | 'transformer' | 'conformer' |
+    # 'e_branchformer' (the port's own, see the module docstring)
     encoder: str = "blstm"
     encoder_layers: int = 2
     encoder_dim: int = 320          # per-direction LSTM hidden / transformer d_model
@@ -75,6 +83,13 @@ class ModelConfig:
     subsample_channels: int = 0
     conformer_kernel: int = 15
     pos_encoding: str = "relative"   # 'relative' | 'absolute' for transformer/conformer
+    # E-Branchformer branches (port only): the cgMLP's first linear width
+    # (split into its two gate halves), the depthwise kernel on the gate
+    # half, and the merge's depthwise kernel over both branches' channels;
+    # the units ESPnet's default, the kernels those of OWSM v3.1
+    cgmlp_units: int = 2048
+    cgmlp_kernel: int = 31
+    merge_kernel: int = 31
     # decoder: 'lstm' (location-aware attention speller) | 'transformer'
     decoder: str = "lstm"
     decoder_layers: int = 1
@@ -282,6 +297,13 @@ def parse_overrides(cfg: AsrConfig, pairs: list[str]) -> AsrConfig:
         k, _, v = p.partition("=")
         cfg.override(k.strip(), v.strip())
     return cfg
+
+
+def refuse_e_branchformer(model: ModelConfig, what: str) -> None:
+    """Raise where `what`, a path the E-Branchformer encoder does not take
+    (streaming, export, tensor parallelism), starts on such a model."""
+    if model.encoder == "e_branchformer":
+        raise ValueError(f"{what} does not run the e_branchformer encoder")
 
 
 _IMPLS = ("auto", "torch", "cuda")
